@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a).
+
+Each kernel ships as <name>/{kernel.py, ops.py, ref.py, csrc/*.cu}:
+  csrc/*.cu — the CUDA C++ source, plain C interface
+  kernel.py — ctypes wrapper: checks, output allocation, launch, counter
+  ops.py    — ``impl`` dispatch between the kernel and its plain version
+  ref.py    — the plain PyTorch version the kernel is held against
+
+gwf_waterfill — the paper's water-filling bisections: the batched
+                generic (shared regular family) and hetero (per-job
+                families) CAP kernels, and the single-instance level WFP.
+Sources are built with nvcc on first use (``_build.py``).
+"""

@@ -1,0 +1,112 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/*.cu`` has a plain C interface (no PyTorch headers), so one
+``nvcc`` call per source builds a shared library in seconds.  Libraries
+land in ``build/repro_torch_kernels/`` at the root of the checkout the
+package runs from (``resolve_build_dir``), named by a hash of the source,
+so an edited source is never served a stale build.  A missing ``nvcc`` or a failed build raises with the compiler's
+output; nothing here falls back to a plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "SOURCES", "resolve_build_dir", "find_nvcc",
+           "nvcc_command", "build_all", "load"]
+
+_PKG = Path(__file__).resolve().parent
+BUILD_ENV = "REPRO_TORCH_BUILD_DIR"
+
+
+def resolve_build_dir(pkg: Path = _PKG, environ=os.environ) -> Path:
+    """Where the libraries are built.
+
+    From a checkout (the package lies under ``<root>/src`` and ``<root>``
+    holds ``pyproject.toml``): ``<root>/build/repro_torch_kernels``.  An
+    installed package builds where ``$REPRO_TORCH_BUILD_DIR`` says, else
+    in ``~/.cache/repro_torch_kernels``.
+    """
+    for root in pkg.parents:
+        if (root / "pyproject.toml").is_file() and pkg.is_relative_to(
+                root / "src"):
+            return root / "build" / "repro_torch_kernels"
+    if environ.get(BUILD_ENV):
+        return Path(environ[BUILD_ENV])
+    return Path.home() / ".cache" / "repro_torch_kernels"
+
+
+BUILD_DIR = resolve_build_dir()
+SOURCES = {
+    "gwf_waterfill": _PKG / "gwf_waterfill" / "csrc" / "gwf_waterfill.cu",
+}
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """nvcc from PATH, else from $CUDA_HOME or the default toolkit dir."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), DEFAULT_CUDA_HOME):
+        if home and os.access(os.path.join(home, "bin", "nvcc"), os.X_OK):
+            return os.path.join(home, "bin", "nvcc")
+    raise RuntimeError(
+        "nvcc not found on PATH, in $CUDA_HOME/bin or in "
+        f"{DEFAULT_CUDA_HOME}/bin; the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def nvcc_command(name: str, nvcc: str = "nvcc") -> list[str]:
+    """The nvcc command line that builds source ``name``."""
+    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-o", str(_target(name)), str(SOURCES[name])]
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Build every missing library, one nvcc per source, all at once.
+
+    Returns the compiler's ptxas report per source built (empty when all
+    were built already).  Raises RuntimeError with the compiler output
+    when a build fails.
+    """
+    names = list(SOURCES if names is None else names)
+    todo = [n for n in names if not _target(n).exists()]
+    if not todo:
+        return {}
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {n: subprocess.Popen(nvcc_command(n, nvcc), stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for n in todo}
+    reports, failed = {}, []
+    for n, p in procs.items():
+        out, _ = p.communicate()
+        reports[n] = out
+        if p.returncode != 0:
+            failed.append(f"--- {n} (nvcc exit {p.returncode}) ---\n{out}")
+    if failed:
+        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for source ``name``, building it on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        _LIBS[name] = lib
+    return lib

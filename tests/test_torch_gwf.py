@@ -1,0 +1,261 @@
+"""Port vs JAX: the CAP solvers of ``core/gwf.py`` in float64.
+
+Tolerance 1e-10·max(1, b): the reference's own in
+``tests/core/test_gwf_solvers.py`` and ``tests/core/test_hetero_fast.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core.gwf as J
+import repro_torch.core.gwf as P
+from repro.core import (GenericSpeedup, log_speedup, neg_power, power,
+                        sample_workloads, saturating, shifted_power)
+from torch_port_util import np_, port_speedup, t64
+
+B = 10.0
+SPS = {
+    "power": power(1.0, 0.5, B),
+    "shifted": shifted_power(1.0, 4.0, 0.5, B),
+    "log": log_speedup(1.0, 1.0, B),
+    "neg_power": neg_power(1.0, 1.0, -1.0, B),
+    "saturating": saturating(1.0, 12.0, 2.0, B),
+}
+BUDGETS = (0.3, 4.0, 9.5)
+ALL = ("power", "shifted", "log", "neg_power", "saturating")
+
+
+def tol(b):
+    return 1e-10 * max(1.0, float(np.max(b)))
+
+
+def _c(seed, k, m=None):
+    rng = np.random.default_rng(seed)
+    c = np.sort(rng.uniform(0.02, 1.0, k))[::-1].copy()
+    c[0] = 1.0
+    active = np.arange(k) < (k if m is None else m)
+    return c, active
+
+
+def _batch(seed, N, k):
+    rng = np.random.default_rng(seed)
+    C = np.zeros((N, k))
+    for n in range(N):
+        kk = int(rng.integers(2, k + 1))
+        C[n, :kk] = np.sort(rng.uniform(0.05, 1.0, kk))[::-1]
+    return C, C > 0, rng.uniform(0.5, 9.0, N)
+
+
+def _per_job(seed, N, k):
+    wl = sample_workloads(seed, K=N, M=k, B=B, family=ALL, per_job=True,
+                          m_range=(2, k))
+    rng = np.random.default_rng(seed + 1)
+    C = np.zeros((N, k))
+    for n in range(N):
+        m = int(wl.m[n])
+        C[n, :m] = np.sort(rng.uniform(0.05, 1.0, m))[::-1]
+    return wl.sp, C, C > 0, rng.uniform(1.0, 9.0, N)
+
+
+def _generic_pair():
+    spj = GenericSpeedup(s_fn=lambda t: jnp.sqrt(4.0 + t) - 2.0,
+                         ds_fn=lambda t: 0.5 / jnp.sqrt(4.0 + t), B=B)
+    spt = port_speedup(spj, s_fn=lambda t: torch.sqrt(4.0 + t) - 2.0,
+                       ds_fn=lambda t: 0.5 / torch.sqrt(4.0 + t))
+    return spj, spt
+
+
+def test_waterfill_prepare_and_solve():
+    rng = np.random.default_rng(0)
+    u = rng.uniform(0.1, 5.0, 40)
+    h0 = rng.uniform(-2.0, 3.0, 40)
+    active = rng.random(40) > 0.3
+    u = np.where(active, u, 0.0)
+    prep_j = J.waterfill_prepare(jnp.asarray(u), jnp.asarray(h0),
+                                 jnp.asarray(active))
+    prep_t = P.waterfill_prepare(t64(u), t64(h0), t64(active))
+    for a, b in zip(prep_t, prep_j):
+        np.testing.assert_allclose(np_(a), np_(b), rtol=1e-12, atol=1e-12)
+    for b in BUDGETS + (40.0,):
+        th_j = J.waterfill_solve(prep_j, jnp.asarray(u), jnp.asarray(h0), b,
+                                 jnp.asarray(active))
+        th_t = P.waterfill_solve(prep_t, t64(u), t64(h0), b, t64(active))
+        np.testing.assert_allclose(np_(th_t), np_(th_j), atol=tol(b))
+        assert float(P.waterfill_level(t64(u), t64(h0), b)) == pytest.approx(
+            float(J.waterfill_level(jnp.asarray(u), jnp.asarray(h0), b)),
+            rel=1e-12)
+
+
+@pytest.mark.parametrize("fam", list(SPS))
+@pytest.mark.parametrize("solver", ["solve_cap_regular",
+                                    "solve_cap_regular_reference"])
+def test_solve_cap_regular(fam, solver):
+    spj = SPS[fam]
+    spt = port_speedup(spj)
+    c, active = _c(1, 24, m=19)
+    for b in BUDGETS:
+        ref = getattr(J, solver)(spj, b, jnp.asarray(c), jnp.asarray(active))
+        out = getattr(P, solver)(spt, b, t64(c), t64(active))
+        np.testing.assert_allclose(np_(out), np_(ref), atol=tol(b))
+        assert abs(float(out.sum()) - b) < tol(b)
+
+
+@pytest.mark.parametrize("fam", ["shifted", "log", "saturating"])
+def test_solve_cap_generic_with_brackets(fam):
+    spj = SPS[fam]
+    spt = port_speedup(spj)
+    c, active = _c(2, 16)
+    for b in BUDGETS:
+        cold_j, br_j = J.solve_cap_generic(spj, b, jnp.asarray(c),
+                                           jnp.asarray(active),
+                                           return_bracket=True)
+        cold_t, br_t = P.solve_cap_generic(spt, b, t64(c), t64(active),
+                                           return_bracket=True)
+        np.testing.assert_allclose(np_(cold_t), np_(cold_j), atol=tol(b))
+        # a good (just-solved) bracket and a stale one, with the adaptive exit
+        good = (np_(br_j[0]) * 0.9, np_(br_j[1]) * 1.1)
+        stale = (np_(br_j[1]) * 50.0, np_(br_j[1]) * 100.0)
+        for br in (good, stale):
+            ref = J.solve_cap_generic(spj, b, jnp.asarray(c),
+                                      jnp.asarray(active), bracket=br,
+                                      rel_tol=1e-13)
+            out = P.solve_cap_generic(spt, b, t64(c), t64(active),
+                                      bracket=(t64(br[0]), t64(br[1])),
+                                      rel_tol=1e-13)
+            np.testing.assert_allclose(np_(out), np_(ref), atol=tol(b))
+        ok_j = J.cap_bracket_probe(spj, b, jnp.asarray(c), stale,
+                                   jnp.asarray(active))
+        ok_t = P.cap_bracket_probe(spt, b, t64(c),
+                                   (t64(stale[0]), t64(stale[1])),
+                                   t64(active))
+        assert [bool(x) for x in ok_t] == [bool(x) for x in ok_j]
+
+
+def test_solve_cap_generic_speedup():
+    spj, spt = _generic_pair()
+    c, active = _c(3, 12)
+    for b in BUDGETS:
+        ref = J.solve_cap(spj, b, jnp.asarray(c), jnp.asarray(active))
+        out = P.solve_cap(spt, b, t64(c), t64(active))
+        np.testing.assert_allclose(np_(out), np_(ref), atol=tol(b))
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_hetero_sorted_and_solve(seed):
+    sp, C, A, bs = _per_job(seed, N=3, k=14)
+    for n in range(3):
+        spj = jax.tree_util.tree_map(lambda l: jnp.asarray(l)[n], sp)
+        spt = port_speedup(spj)
+        c, act = C[n], A[n]
+        ref = J.solve_cap_hetero_sorted(spj, bs[n], jnp.asarray(c),
+                                        jnp.asarray(act))
+        out = P.solve_cap_hetero_sorted(spt, bs[n], t64(c), t64(act))
+        np.testing.assert_allclose(np_(out), np_(ref), atol=tol(bs[n]))
+        prep_j = J.hetero_prepare(spj, jnp.asarray(c), jnp.asarray(act))
+        prep_t = P.hetero_prepare(spt, t64(c), t64(act))
+        np.testing.assert_allclose(np_(prep_t.pos), np_(prep_j.pos),
+                                   rtol=1e-12)
+        th_j, lam_j = J.hetero_solve(prep_j, bs[n] / 2, return_lam=True)
+        th_t, lam_t = P.hetero_solve(prep_t, bs[n] / 2, return_lam=True)
+        np.testing.assert_allclose(np_(th_t), np_(th_j), atol=tol(bs[n]))
+        assert float(lam_t) == pytest.approx(float(lam_j), rel=1e-9)
+        # the bisection oracle agrees too
+        bis = P.solve_cap_hetero(spt, bs[n], t64(c), t64(act))
+        np.testing.assert_allclose(np_(bis), np_(ref), atol=1e-9 * bs[n])
+
+
+@pytest.mark.parametrize("impl", ["closed", "bisect", "auto"])
+@pytest.mark.parametrize("fam", ["shifted", "log", "saturating"])
+def test_solve_cap_batched_shared(impl, fam):
+    spj = SPS[fam]
+    spt = port_speedup(spj)
+    C, A, bs = _batch(7, N=5, k=12)
+    ref = J.solve_cap_batched(spj, bs, jnp.asarray(C), jnp.asarray(A),
+                              impl=impl)
+    out = P.solve_cap_batched(spt, t64(bs), t64(C), t64(A), impl=impl)
+    np.testing.assert_allclose(np_(out), np_(ref), atol=tol(bs))
+
+
+def test_solve_cap_batched_per_instance_leaves():
+    rng = np.random.default_rng(8)
+    N = 4
+    spj = shifted_power(1.0, 4.0, 0.5, B)
+    spj = type(spj)(A=jnp.asarray(rng.uniform(0.3, 1.0, N)),
+                    w=jnp.asarray(rng.uniform(1.0, 6.0, N)),
+                    gamma=jnp.asarray(rng.uniform(-0.8, -0.2, N)),
+                    sigma=1, B=B)
+    spt = port_speedup(spj)
+    C, A, bs = _batch(9, N=N, k=10)
+    for impl in ("closed", "bisect"):
+        ref = J.solve_cap_batched(spj, bs, jnp.asarray(C), jnp.asarray(A),
+                                  impl=impl)
+        out = P.solve_cap_batched(spt, t64(bs), t64(C), t64(A), impl=impl)
+        np.testing.assert_allclose(np_(out), np_(ref), atol=tol(bs))
+
+
+@pytest.mark.parametrize("impl", ["sorted", "bisect", "auto"])
+def test_solve_cap_batched_per_job(impl):
+    sp, C, A, bs = _per_job(10, N=4, k=12)
+    spt = port_speedup(sp)
+    ref = J.solve_cap_batched(sp, bs, jnp.asarray(C), jnp.asarray(A),
+                              impl=impl)
+    out = P.solve_cap_batched(spt, t64(bs), t64(C), t64(A), impl=impl)
+    np.testing.assert_allclose(np_(out), np_(ref), atol=tol(bs))
+
+
+def test_auto_on_cpu_picks_what_jax_picks_off_tpu():
+    C, A, bs = _batch(11, N=3, k=9)
+    spt = port_speedup(SPS["log"])
+    auto = P.solve_cap_batched(spt, t64(bs), t64(C), t64(A))
+    closed = P.solve_cap_batched(spt, t64(bs), t64(C), t64(A), impl="closed")
+    assert torch.equal(auto, closed)
+    sp, C, A, bs = _per_job(12, N=3, k=9)
+    spt = port_speedup(sp)
+    auto = P.solve_cap_batched(spt, t64(bs), t64(C), t64(A))
+    srt = P.solve_cap_batched(spt, t64(bs), t64(C), t64(A), impl="sorted")
+    assert torch.equal(auto, srt)
+    _, gen = _generic_pair()
+    C, A, bs = _batch(13, N=2, k=6)
+    auto = P.solve_cap_batched(gen, t64(bs), t64(C), t64(A))
+    bis = P.solve_cap_batched(gen, t64(bs), t64(C), t64(A), impl="bisect")
+    assert torch.equal(auto, bis)
+
+
+def test_n_equals_k_is_ambiguous():
+    N = k = 6
+    spt = port_speedup(SPS["log"])
+    spt = P.map_leaves(spt, lambda l: l.expand(N).clone())
+    C, A, bs = _batch(14, N=N, k=k)
+    for impl in ("auto", "closed", "sorted", "bisect", "cuda"):
+        with pytest.raises(ValueError, match="K == M"):
+            P.solve_cap_batched(spt, t64(bs), t64(C), t64(A), impl=impl)
+
+
+def test_cap_residual_matches():
+    spj = SPS["log"]
+    spt = port_speedup(spj)
+    c, active = _c(15, 10)
+    th = np_(P.solve_cap_regular(spt, 3.0, t64(c), t64(active)))
+    rj = J.cap_residual(spj, 3.0, jnp.asarray(c), jnp.asarray(th),
+                        jnp.asarray(active))
+    rt = P.cap_residual(spt, 3.0, t64(c), t64(th), t64(active))
+    for key in ("budget", "order", "ratio", "park"):
+        assert float(rt[key]) == pytest.approx(float(rj[key]), abs=1e-12)
+        assert float(rt[key]) < 1e-8
+
+
+def test_batch_axes_and_instance_view():
+    from repro.core.batch import batch_axes as batch_axes_j
+    from repro_torch.core.batch import batch_axes
+    N = 4
+    spj = shifted_power(1.0, 4.0, 0.5, B)
+    spj = type(spj)(A=jnp.ones(N), w=spj.w, gamma=jnp.full(N, -0.5),
+                    sigma=1, B=B)
+    spt = port_speedup(spj)
+    axes_j = batch_axes_j(spj, N)
+    assert batch_axes(spt, N) == {"A": axes_j.A, "w": axes_j.w,
+                                  "gamma": axes_j.gamma}
+    view = P.per_instance(spt, N)
+    assert view.A.shape == (N, 1) and view.w.shape == ()

@@ -1,0 +1,206 @@
+"""Port vs JAX: the plain versions of the three CUDA waterfill kernels.
+
+Each plain version (``repro_torch.kernels.gwf_waterfill.ref``) is held
+against the JAX Pallas kernel run in interpret mode, as
+``tests/kernels/`` runs it on the CPU, on the same float32 inputs and at
+the JAX kernel tests' tolerances.  The CUDA kernels themselves are held
+against these plain versions on the card by ``chip_smoke.py``.
+"""
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import sample_workloads
+from repro.core import log_speedup, saturating, shifted_power
+from repro.kernels.gwf_waterfill import kernel as JK
+from repro_torch.kernels import _build
+from repro_torch.kernels.gwf_waterfill import kernel as PK
+from repro_torch.kernels.gwf_waterfill import ops as PO
+from repro_torch.kernels.gwf_waterfill import ref as PR
+from torch_port_util import np_
+
+B = 10.0
+FAMILIES = {
+    "shifted": shifted_power(1.0, 4.0, 0.5, B),
+    "log": log_speedup(1.0, 1.0, B),
+    "saturating": saturating(1.0, 12.0, 2.0, B),
+}
+ALL = ("power", "shifted", "log", "neg_power", "saturating")
+
+
+def f32(x):
+    return torch.tensor(np.asarray(x), dtype=torch.float32)
+
+
+def _instances(seed, N, K, k_lo=2):
+    rng = np.random.default_rng(seed)
+    C = np.zeros((N, K), np.float32)
+    for n in range(N):
+        k = rng.integers(k_lo, K + 1)
+        C[n, :k] = np.sort(rng.uniform(0.05, 1.0, k))[::-1]
+    return C, rng.uniform(0.5, 9.0, N).astype(np.float32)
+
+
+def _mixed(seed, N, K, m_range=None):
+    wl = sample_workloads(seed, K=N, M=K, B=B, family=ALL, per_job=True,
+                          m_range=m_range)
+    rng = np.random.default_rng(seed + 1)
+    C = np.zeros((N, K))
+    for n in range(N):
+        k = int(wl.m[n])
+        C[n, :k] = np.sort(rng.uniform(0.05, 1.0, k))[::-1]
+    sp = wl.sp
+    arrs = [np.asarray(a, np.float32) for a in
+            (C, sp.A, sp.w, sp.gamma, sp.sigma)]
+    return arrs, rng.uniform(1.0, 9.0, N).astype(np.float32), wl.m
+
+
+@pytest.mark.parametrize("fam", list(FAMILIES))
+@pytest.mark.parametrize("shape", [(4, 23), (3, 300)])
+def test_generic_plain_matches_pallas_interpret(fam, shape):
+    sp = FAMILIES[fam]
+    C, bs = _instances(1, *shape)
+    ker = np.asarray(JK.generic_waterfill(
+        jnp.asarray(C), sp.A, sp.w, sp.gamma, jnp.asarray(bs),
+        sigma=sp.sigma, iters=64, interpret=True))
+    par = [torch.full((shape[0],), float(v), dtype=torch.float32)
+           for v in (sp.A, sp.w, sp.gamma)]
+    out = np_(PR.generic_waterfill_ref(f32(C), *par, f32(bs),
+                                       sigma=sp.sigma, iters=64))
+    assert out.dtype == np.float32
+    for n in range(shape[0]):
+        np.testing.assert_allclose(out[n], ker[n],
+                                   atol=2e-4 * max(1.0, bs[n]))
+        assert np.all(out[n][C[n] == 0.0] == 0.0)
+
+
+def test_generic_plain_large_padded_instance():
+    """K = 1500 spans two of the TPU kernel's 1024-slot tiles."""
+    sp = FAMILIES["shifted"]
+    rng = np.random.default_rng(2)
+    c = np.zeros((1, 1500), np.float32)
+    c[0, :1200] = np.sort(rng.uniform(0.05, 1.0, 1200))[::-1]
+    ker = np.asarray(JK.generic_waterfill(
+        jnp.asarray(c), sp.A, sp.w, sp.gamma, jnp.asarray([7.0]),
+        sigma=sp.sigma, iters=64, interpret=True))[0]
+    par = [torch.full((1,), float(v), dtype=torch.float32)
+           for v in (sp.A, sp.w, sp.gamma)]
+    out = np_(PR.generic_waterfill_ref(f32(c), *par, f32([7.0]),
+                                       sigma=1))[0]
+    np.testing.assert_allclose(out, ker, atol=2e-3)
+    assert abs(out.sum() - 7.0) < 1e-3 * 7.0
+
+
+@pytest.mark.parametrize("case", ["single_tile", "multi_tile"])
+def test_hetero_plain_matches_pallas_interpret(case):
+    if case == "single_tile":
+        arrs, bs, m = _mixed(12, N=4, K=40, m_range=(5, 40))
+        atol = 5e-4
+    else:
+        arrs, bs, m = _mixed(13, N=2, K=1500)
+        atol = 5e-3
+    ker = np.asarray(JK.hetero_waterfill(*map(jnp.asarray, arrs),
+                                         jnp.asarray(bs), interpret=True))
+    out = np_(PR.hetero_waterfill_ref(*map(f32, arrs), f32(bs)))
+    np.testing.assert_allclose(out, ker, atol=atol)
+    np.testing.assert_allclose(out.sum(axis=1), bs, rtol=1e-5)
+    for n in range(len(bs)):
+        assert np.all(out[n, int(m[n]):] == 0.0)
+
+
+@pytest.mark.parametrize("M", [4, 100, 1500])
+@pytest.mark.parametrize("b", [0.5, 10.0, 200.0])
+def test_level_plain_matches_pallas_interpret(M, b):
+    rng = np.random.default_rng(M)
+    u = rng.uniform(0.1, 5.0, M).astype(np.float32)
+    h0 = rng.uniform(-2.0, 3.0, M).astype(np.float32)
+    u[rng.random(M) < 0.25] = 0.0
+    ker = np.asarray(JK.gwf_waterfill(jnp.asarray(u), jnp.asarray(h0), b,
+                                      interpret=True))
+    out = np_(PR.gwf_waterfill_ref(f32(u), f32(h0), b))
+    np.testing.assert_allclose(out, ker, atol=1e-2 * max(1, b / 10),
+                               rtol=1e-3)
+    assert abs(float(out.sum()) - b) < 1e-3 * max(1.0, b)
+
+
+def test_ops_cuda_impl_on_cpu_runs_the_plain_version():
+    sp = FAMILIES["log"]
+    C, bs = _instances(3, 3, 9)
+    par = [torch.full((3,), float(v), dtype=torch.float32)
+           for v in (sp.A, sp.w, sp.gamma)]
+    for impl in ("cuda", "auto"):
+        out = PO.generic_waterfill_op(f32(C), *par, f32(bs), sigma=1,
+                                      impl=impl)
+        ref = PR.generic_waterfill_ref(f32(C), *par, f32(bs), sigma=1)
+        assert torch.equal(out, ref)
+    arrs, hb, _ = _mixed(14, N=3, K=16, m_range=(3, 16))
+    for impl in ("cuda", "auto"):
+        out = PO.hetero_waterfill_op(*map(f32, arrs), f32(hb), impl=impl)
+        assert torch.equal(out, PR.hetero_waterfill_ref(*map(f32, arrs),
+                                                        f32(hb)))
+    u, h0 = f32(np.linspace(1.0, 2.0, 7)), f32(np.linspace(0.0, 1.0, 7))
+    assert torch.equal(PO.gwf_waterfill_op(u, h0, 3.0, impl="cuda"),
+                       PR.gwf_waterfill_ref(u, h0, 3.0))
+    # the sorted impl is the core solver, not a bisection (float64 here;
+    # tolerance of tests/kernels/test_hetero_waterfill.py:50)
+    a64 = [torch.tensor(a, dtype=torch.float64) for a in arrs]
+    b64 = torch.tensor(hb, dtype=torch.float64)
+    srt = PO.hetero_waterfill_op(*a64, b64, impl="sorted")
+    np.testing.assert_allclose(np_(srt), np_(PR.hetero_waterfill_ref(
+        *a64, b64)), atol=2e-5 * float(hb.max()))
+    with pytest.raises(ValueError):
+        PO.generic_waterfill_op(f32(C), *par, f32(bs), impl="pallas")
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    C, bs = _instances(4, 2, 8)
+    one = torch.ones(2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        PK.generic_waterfill(f32(C), one, one, -0.5 * one, f32(bs))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        PK.hetero_waterfill(f32(C), f32(C), f32(C), f32(C), f32(C), f32(bs))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        PK.gwf_waterfill(f32(C[0]), f32(C[0]), 1.0)
+    assert PK.LAUNCHES == {"generic_waterfill": 0, "hetero_waterfill": 0,
+                           "gwf_waterfill": 0}
+
+
+def test_build_command_targets_sm90a_into_build_dir():
+    cmd = _build.nvcc_command("gwf_waterfill")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-shared" in cmd and "-std=c++17" in cmd
+    out = cmd[cmd.index("-o") + 1]
+    assert out.startswith(str(_build.BUILD_DIR))
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
+    assert cmd[-1].endswith("csrc/gwf_waterfill.cu")
+
+
+def test_build_dir_is_the_checkout_root_or_an_explicit_setting(tmp_path):
+    root = Path(__file__).resolve().parents[1]
+    assert _build.BUILD_DIR == root / "build" / "repro_torch_kernels"
+    # an installed package (no pyproject.toml above it) never builds
+    # beside site-packages
+    pkg = tmp_path / "site-packages" / "repro_torch" / "kernels"
+    pkg.mkdir(parents=True)
+    env = {_build.BUILD_ENV: str(tmp_path / "kernels")}
+    assert _build.resolve_build_dir(pkg, env) == tmp_path / "kernels"
+    assert _build.resolve_build_dir(pkg, {}) == (
+        Path.home() / ".cache" / "repro_torch_kernels")
+    (tmp_path / "pyproject.toml").write_text("")
+    assert _build.resolve_build_dir(pkg, env) == tmp_path / "kernels"
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("gwf_waterfill")
+    assert not (tmp_path / "build").exists()

@@ -1,0 +1,35 @@
+"""Shared helpers of the PyTorch port's differential tests.
+
+Each test builds its inputs once with numpy and hands the same arrays to
+the JAX package and to the port (``device="cpu"``, float64).
+"""
+import numpy as np
+import torch
+
+from repro_torch.convert import speedup_from_arrays
+
+
+def port_speedup(sp, s_fn=None, ds_fn=None):
+    """The port's copy of a JAX speedup, built from its leaves."""
+    kind = type(sp).__name__
+    if kind == "GenericSpeedup":
+        return speedup_from_arrays(kind, B=sp.B, s_fn=s_fn, ds_fn=ds_fn,
+                                   inv_iters=sp.inv_iters, device="cpu")
+    sigma = sp.sigma if isinstance(sp.sigma, int) else np.asarray(sp.sigma)
+    return speedup_from_arrays(kind, A=np.asarray(sp.A), w=np.asarray(sp.w),
+                               gamma=np.asarray(sp.gamma), sigma=sigma,
+                               B=sp.B, device="cpu")
+
+
+def t64(x):
+    """numpy → CPU float64 tensor (bool arrays stay bool)."""
+    x = np.array(x)
+    return torch.as_tensor(x, dtype=torch.bool if x.dtype == bool
+                           else torch.float64)
+
+
+def np_(x):
+    """JAX array or tensor → numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
