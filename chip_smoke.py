@@ -20,24 +20,53 @@ Phases (each one is a check; any failure exits non-zero):
      batched-planning instance, and ``smartfill_batched`` at N = 256,
      M = 32 against the port's own CPU run;
   6. times: each kernel and its plain version (CUDA events, median of
-     25 after a warm-up) and the wall time of each planning phase.
+     25 after a warm-up) and the wall time of each planning phase;
+  7. serving: full-width recurrentgemma-2b in bf16 (random weights from
+     a seeded generator on the card), ``ServeEngine.generate`` over three
+     waves of B = 2 prompts of 4096 tokens (past the 2048 window), 16
+     greedy tokens each; per wave the prefill ms, decode ms per token,
+     tokens/s and peak memory.  Every prefill must launch the flash
+     attention kernel (K5) once per local layer (8) and the linear scan
+     kernel (K4) once per RG-LRU layer (18);
+  8. K5 and K4 against their plain versions on the q/k/v of the first
+     local layer and the a/b of the first RG-LRU layer of wave 0: in f32
+     (the inputs cast up, both run there) to a limit in units of the
+     plain output's RMS, in bf16 to a wider relative limit, with planted
+     faults that must read over the f32 limits; then K5 the same way on
+     the option sets of the dense configs and of the wrapper's edges
+     (``K5_OPTIONS``: softcap, grouped-query heads at hd 64 and 128,
+     global causal, ragged and cross lengths, rows with no unmasked key);
+  9. end to end: wave 0's prompt through the model with its two kernel
+     call sites patched to the plain versions, teacher-forced on the
+     kernel run's tokens; prefill and decode logits in units of the logits' std,
+     with planted faults that must read over the limit;
+ 10. times of K4 and K5 at the path's shapes (kernel, plain version,
+     the kernel's device time from the profiler, the bound, and for K5
+     one ``scaled_dot_product_attention`` call as a yardstick), and a
+     profile of one wave: the device's busy share in prefill and decode.
 
-Launch counters are reset before phases 3–4 drive the main path and
-read right after; the comparisons and timings come later and do not
-count.  Prints one JSON line per measurement, the kernel summary line
-``{"kernels": [...]}``, the card line, and last
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Launch counters are reset before phases 3–4 drive the planning path
+and before phase 7 drives the serving path, and read right after each;
+the comparisons and timings come later and do not count.  Prints one
+JSON line per measurement, the kernel summary line ``{"kernels": [...]}``
+(five kernels), the card line, and last ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 CU = "src/repro_torch/kernels/gwf_waterfill/csrc/gwf_waterfill.cu"
 TPU_KERNELS = "src/repro/kernels/gwf_waterfill/kernel.py"
+CU_K5 = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+CU_K4 = "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu"
+TPU_K5 = "src/repro/kernels/flash_attention/kernel.py:77"
+TPU_K4 = "src/repro/kernels/linear_scan/kernel.py:53"
 
 N, K = 256, 4096          # tenants × jobs of the batched front door
 B = 10.0
@@ -47,6 +76,11 @@ ITERS = 64
 # operation bound is a floor.
 HBM_BPS = 3.35e12
 FP32_OPS = 67e12
+BF16_TC_OPS = 989e12      # dense bf16 tensor-core peak
+
+# the serving phases: one full-width model, three waves of requests
+ARCH = "recurrentgemma-2b"
+WAVES, BATCH, PROMPT, GEN = 3, 2, 4096, 16
 
 
 def fail(msg):
@@ -89,9 +123,9 @@ def timed(torch, fn, runs=25):
     return sorted(times)[len(times) // 2]
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, peak_ops=FP32_OPS):
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = nops / FP32_OPS * 1e3
+    t_ops = nops / peak_ops * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -198,6 +232,520 @@ def planted_faults(theta, c, A, w, g, s, b, short):
     return {"cut_short": short, "park_0.9": parked, "one_slot_late": late}
 
 
+# ---- the serving path: K4 and K5 ---------------------------------------------
+# Readings of a kernel against its plain version on the same inputs.  In
+# f32 (the point is the kernel) in units of the plain output's RMS: one
+# key more or less in a 2048-key window moves an output by ~1/2048 of its
+# scale, which a bf16-sized tolerance would pass.  In bf16 relative to
+# |plain| + its RMS, a wider check: both round their outputs to bf16,
+# and K5 also rounds p to bf16 before p·V (as both JAX versions do) where
+# its plain version keeps p in f32, which in the first rows (a few keys
+# whose terms cancel) moves an output by a few per cent of itself.  The
+# f32 limits sit between the sound readings and those of planted faults,
+# which each run prints and requires over them.
+K5_F32_LIMIT = 1e-3
+K4_F32_LIMIT = 1e-4
+BF16_LIMIT = 1e-1
+# End to end, logits max |Δ| in units of the plain run's std.  In bf16 the
+# reading is about one bf16 ulp of the largest logit, and with random
+# weights the attention branch adds too little to the logits for a
+# wrong window or tile to show above that; the same weights in f32 show
+# every planted fault of K4 and K5.
+E2E_BF16_LIMIT = 0.5
+E2E_F32_LIMIT = 2e-4
+
+
+def rms_err(out, ref):
+    """max |out − ref| over the RMS of ref."""
+    ref = ref.double()
+    return float((out.double() - ref).abs().max() / ref.pow(2).mean().sqrt())
+
+
+def rel_err(out, ref):
+    """max |out − ref| / (|ref| + RMS of ref)."""
+    ref = ref.double()
+    rms = ref.pow(2).mean().sqrt()
+    return float(((out.double() - ref).abs() / (ref.abs() + rms)).max())
+
+
+# Planted faults of K4 and K5, each a wrong kernel with the op's calling
+# convention, so the end-to-end phase can put one in the model's place.
+# Phase 8 reads them at the kernel, phase 9 through the whole model.
+def scan_carry_reset_halfway(a, b):
+    import torch
+    from repro_torch.kernels.linear_scan.kernel import linear_scan
+    h = a.shape[1] // 2
+    return torch.cat([linear_scan(a[:, i:j].contiguous(),
+                                  b[:, i:j].contiguous())
+                      for i, j in ((0, h), (h, a.shape[1]))], dim=1)
+
+
+def scan_step_one_slot_late(a, b):
+    from repro_torch.kernels.linear_scan.kernel import linear_scan
+    late = b.roll(1, dims=1)
+    late[:, 0] = 0
+    return linear_scan(a, late)
+
+
+def scan_without_carry(a, b):
+    from repro_torch.kernels.linear_scan.kernel import linear_scan
+    return linear_scan(a * 0, b)
+
+
+def attn_window_plus_1(q, k, v, causal=True, window=None, cap=None):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    return flash_attention(q, k, v, causal=causal, window=window + 1,
+                           cap=cap)
+
+
+def attn_dropped_last_kv_tile(q, k, v, causal=True, window=None, cap=None):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    T = k.shape[1] - 64
+    return flash_attention(q, k[:, :T].contiguous(), v[:, :T].contiguous(),
+                           causal=causal, window=window, cap=cap)
+
+
+def attn_causal_off(q, k, v, causal=True, window=None, cap=None):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    return flash_attention(q, k, v, causal=False, window=window, cap=cap)
+
+
+SCAN_FAULTS = {"carry_reset_halfway": scan_carry_reset_halfway,
+               "step_one_slot_late": scan_step_one_slot_late,
+               "no_carry": scan_without_carry}
+ATTN_FAULTS = {"window_plus_1": attn_window_plus_1,
+               "dropped_last_kv_tile": attn_dropped_last_kv_tile,
+               "causal_off": attn_causal_off}
+
+
+def serve_phase(torch, np, dev):
+    """Phase 7.  Returns the model, wave 0's prompt and tokens, its
+    captures, and the launches of the three waves."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.linear_scan import kernel as sk
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import init_params
+    from repro_torch.models import rglru as rglru_mod
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(ARCH)
+    kinds = cfg.layer_kinds()
+    n_local, n_rglru = kinds.count("local"), kinds.count("rglru")
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "serve_model", "arch": cfg.name, "dtype": cfg.dtype,
+          "params": sum(p.numel() for p in model.parameters()),
+          "param_count": cfg.param_count(), "local_layers": n_local,
+          "rglru_layers": n_rglru,
+          "weights_gb": torch.cuda.memory_allocated() / 1e9,
+          "init_s": time.perf_counter() - t0})
+    eng = ServeEngine(model=model, max_len=PROMPT + GEN)
+
+    # time each wave's prefill and decode with CUDA events (no host
+    # sync inside generate), count K4/K5 launches per prefill, and keep
+    # wave 0's logits and the first local / RG-LRU layer's kernel inputs
+    cap = {"logits": [], "qkv": None, "ab": None}
+    marks, per_prefill = [], []
+    prefill0, step0 = eng._prefill, eng._step
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def prefill(batch):
+        before = (fk.LAUNCHES["flash_attention"], sk.LAUNCHES["linear_scan"])
+        marks.append([event()])
+        logits, state = prefill0(batch)
+        marks[-1].append(event())
+        per_prefill.append((fk.LAUNCHES["flash_attention"] - before[0],
+                            sk.LAUNCHES["linear_scan"] - before[1]))
+        if len(marks) == 1:
+            cap["logits"].append(logits)
+        return logits, state
+
+    def step(tok, state):
+        logits, state = step0(tok, state)
+        marks[-1].append(event())
+        if len(marks) == 1:
+            cap["logits"].append(logits)
+        return logits, state
+
+    def first(key, fn):
+        def run(*args, **kw):
+            if len(marks) == 1 and cap[key] is None:
+                cap[key] = (args, kw)
+            return fn(*args, **kw)
+        return run
+
+    eng._prefill, eng._step = prefill, step
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab, (BATCH, PROMPT)) for _ in
+               range(WAVES)]
+    torch.cuda.synchronize()
+    outs = []
+    fk.reset_launches()
+    sk.reset_launches()
+    with mock.patch.object(attn_mod, "flash_attention_op",
+                           first("qkv", attn_mod.flash_attention_op)), \
+            mock.patch.object(rglru_mod, "linear_scan_op",
+                              first("ab", rglru_mod.linear_scan_op)):
+        for w in range(WAVES):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = eng.generate({"tokens": prompts[w]}, GEN)
+            wall = time.perf_counter() - t0
+            ev = marks[w]
+            outs.append(out)
+            emit({"phase": "serve_wave", "wave": w,
+                  "prefill_ms": ev[0].elapsed_time(ev[1]),
+                  "decode_ms_per_token": ev[1].elapsed_time(ev[-1])
+                  / (GEN - 1),
+                  "tokens_per_s": out.size / wall,
+                  "prompt_tokens_per_s": BATCH * PROMPT / wall,
+                  "wall_s": wall,
+                  "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "launches_K5_K4": per_prefill[w],
+                  "first_tokens": out[:, :4].tolist()})
+    launches = {"flash_attention": fk.LAUNCHES["flash_attention"],
+                "linear_scan": sk.LAUNCHES["linear_scan"]}
+    emit({"phase": "serve_main_path", "launches": launches,
+          "per_prefill": per_prefill})
+    for w, (n5, n4) in enumerate(per_prefill):
+        check(n5 >= n_local and n4 >= n_rglru,
+              f"wave {w}'s prefill launched K5 {n5}×, K4 {n4}× (at least "
+              f"{n_local} and {n_rglru} expected)")
+    for out in outs:
+        check(out.shape == (BATCH, GEN) and out.dtype == np.int32
+              and bool(((out >= 0) & (out < cfg.vocab)).all()),
+              f"generated tokens out of shape or range: {out.shape}")
+    check(len(cap["logits"]) == GEN, "wave 0's logits were not all kept")
+    for lg in cap["logits"]:
+        check(lg.shape == (BATCH, cfg.vocab) and bool(torch.isfinite(lg).all()),
+              "non-finite or misshapen logits in wave 0")
+    check(cap["qkv"] is not None and cap["ab"] is not None,
+          "wave 0's kernel inputs were not captured")
+    return model, prompts[0], outs[0], cap, launches
+
+
+def kernel_phase(torch, cap):
+    """Phase 8: K5 and K4 against their plain versions at the path's
+    shapes, on wave 0's own inputs, with planted faults."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.linear_scan import kernel as sk
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+
+    (q, k, v), kw = cap["qkv"]
+    kw = {n: kw[n] for n in ("causal", "window", "cap")}
+    check(kw["causal"] and kw["window"] is not None,
+          f"the first local layer's attention is not a causal window: {kw}")
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    plain = attention_ref(q32, k32, v32, **kw)
+    r5 = {"f32_rms_units": rms_err(fk.flash_attention(q32, k32, v32, **kw),
+                                   plain)}
+    out16 = fk.flash_attention(q, k, v, **kw)
+    plain16 = attention_ref(q, k, v, **kw)
+    r5["bf16_rel"] = rel_err(out16, plain16)
+    r5["bf16_max_abs"] = float((out16.float() - plain16.float()).abs().max())
+    for name, fault in ATTN_FAULTS.items():
+        wrong = fault(q32, k32, v32, **kw)
+        if name == "causal_off":              # one q tile past the window
+            r0 = kw["window"]
+            wrong, rows = fk.flash_attention(q32, k32, v32, **kw), wrong
+            wrong[:, r0:r0 + 64] = rows[:, r0:r0 + 64]
+            name = "causal_off_one_tile"
+        r5[f"fault_{name}"] = rms_err(wrong, plain)
+
+    a, b = cap["ab"][0][:2]
+    plain4 = linear_scan_ref(a, b)
+    sound4 = sk.linear_scan(a, b)
+    r4 = {"f32_rms_units": rms_err(sound4, plain4),
+          "f32_max_abs": float((sound4 - plain4).abs().max())}
+    a16, b16 = a.bfloat16(), b.bfloat16()
+    r4["bf16_rel"] = rel_err(sk.linear_scan(a16, b16),
+                             linear_scan_ref(a16, b16))
+    for name in ("carry_reset_halfway", "step_one_slot_late"):
+        r4[f"fault_{name}"] = rms_err(SCAN_FAULTS[name](a, b), plain4)
+    torch.cuda.synchronize()
+    emit({"phase": "serve_kernels", "K5_shape": {"q": list(q.shape),
+                                                 "kv": list(k.shape), **kw},
+          "K4_shape": list(a.shape),
+          "limits": {"K5_f32": K5_F32_LIMIT, "K4_f32": K4_F32_LIMIT,
+                     "bf16": BF16_LIMIT},
+          "K5": r5, "K4": r4})
+    for name, r, lim in (("K5", r5, K5_F32_LIMIT), ("K4", r4, K4_F32_LIMIT)):
+        check(r["f32_rms_units"] <= lim,
+              f"{name} vs plain in f32: {r['f32_rms_units']:.3e} > {lim}")
+        check(r["bf16_rel"] <= BF16_LIMIT,
+              f"{name} vs plain in bf16: {r['bf16_rel']:.3e} > {BF16_LIMIT}")
+        for key, val in r.items():
+            if key.startswith("fault_"):
+                check(val > lim, f"{name}: the planted fault {key} reads "
+                                 f"{val:.3e}, within the limit {lim}")
+    return {"flash_attention": r5["bf16_max_abs"],
+            "linear_scan": r4["f32_max_abs"]}
+
+
+# K5's other option sets, those of the dense configs and of the wrapper's
+# edges: (B, S, T, H, K, hd), causal, window, cap.  Ragged S and T (not
+# multiples of the 64-row tiles), gemma2's softcap 50 with and without
+# its window, grouped-query attention with 4 q heads per kv head at hd
+# 64 (llama3.2) and 128, multi-head at hd 128 (qwen1.5, deepseek), a
+# cross-length unmasked call, an hd that is no power of two, and rows
+# that have no unmasked key (a window, S ≥ T + window), whose plain
+# softmax is uniform over all T keys.
+K5_OPTIONS = {
+    "gemma2_local_cap50": ((1, 1000, 1000, 4, 2, 128), True, 300, 50.0),
+    "gemma2_global_cap50": ((1, 1000, 1000, 4, 2, 128), True, None, 50.0),
+    "llama_gqa4_hd64": ((2, 777, 777, 8, 2, 64), True, None, None),
+    "gqa4_hd128": ((1, 777, 777, 8, 2, 128), True, None, None),
+    "mha_hd128": ((1, 500, 500, 4, 4, 128), True, None, None),
+    "cross_unmasked": ((1, 300, 77, 4, 2, 64), False, None, None),
+    "hd96_window": ((1, 200, 200, 4, 1, 96), True, 64, None),
+    "no_key_rows_window": ((1, 100, 77, 4, 2, 16), False, 20, None),
+    "no_key_rows_causal": ((1, 400, 150, 2, 1, 16), True, 20, None),
+}
+
+
+def k5_options_phase(torch, dev):
+    """Phase 8, continued: K5 against its plain version in f32 and bf16
+    on ``K5_OPTIONS``, inputs from a seed.  A planted fault per case (the
+    cap dropped, the window one wider, or causal off) must read over the
+    f32 limit, so each case shows that its options are applied."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    got = {}
+    for name, ((B_, S, T, H, K_, hd), causal, window, cap) in \
+            K5_OPTIONS.items():
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        # scores of std 60 when capped, so that the cap bites
+        q = randn(B_, S, H, hd) * (60.0 if cap else 1.0) * hd ** -0.5
+        k, v = randn(B_, T, K_, hd), randn(B_, T, K_, hd)
+        kw = {"causal": causal, "window": window, "cap": cap}
+        plain = attention_ref(q, k, v, **kw)
+        r = {"f32_rms_units": rms_err(fk.flash_attention(q, k, v, **kw),
+                                      plain)}
+        q16, k16, v16 = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        r["bf16_rel"] = rel_err(fk.flash_attention(q16, k16, v16, **kw),
+                                attention_ref(q16, k16, v16, **kw))
+        wrong = (dict(kw, cap=None) if cap else
+                 dict(kw, window=window + 1) if window else
+                 dict(kw, causal=not causal))
+        r["fault"] = rms_err(fk.flash_attention(q, k, v, **wrong), plain)
+        got[name] = r
+    torch.cuda.synchronize()
+    emit({"phase": "K5_options", "limits": {"f32": K5_F32_LIMIT,
+                                            "bf16": BF16_LIMIT},
+          "readings": got})
+    for name, r in got.items():
+        check(r["f32_rms_units"] <= K5_F32_LIMIT,
+              f"K5 {name} vs plain in f32: {r['f32_rms_units']:.3e}")
+        check(r["bf16_rel"] <= BF16_LIMIT,
+              f"K5 {name} vs plain in bf16: {r['bf16_rel']:.3e}")
+        check(r["fault"] > K5_F32_LIMIT,
+              f"K5 {name}: the planted fault reads {r['fault']:.3e}")
+
+
+def teacher_forced(torch, model, prompt, tokens):
+    """Logits of the prefill over ``prompt`` and of decode steps fed
+    ``tokens`` (B, n) one at a time."""
+    from repro_torch.models import decode_step, prefill
+    with torch.inference_mode():
+        logits, state = prefill(model, {"tokens": prompt},
+                                max_len=PROMPT + GEN)
+        out = [logits]
+        for t in range(tokens.shape[1]):
+            logits, state = decode_step(model, tokens[:, t:t + 1], state)
+            out.append(logits)
+    return out
+
+
+def end_to_end_phase(torch, model, prompt, out, cap):
+    """Phase 9: wave 0 through the plain versions, teacher-forced on the
+    kernel run's tokens, logits in units of the plain run's std: the bf16
+    path itself, then the same weights in f32; planted faults in K4 and
+    K5 must read over the limits."""
+    import copy
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import rglru as rglru_mod
+
+    fed = torch.as_tensor(out[:, :-1], device=model.device)
+
+    def plain_run(m):
+        """The model's two kernel call sites swapped for the plain
+        versions, as ``faults`` swaps them for planted faults."""
+        with mock.patch.object(attn_mod, "flash_attention_op",
+                               attention_ref), \
+                mock.patch.object(rglru_mod, "linear_scan_op",
+                                  linear_scan_ref):
+            return teacher_forced(torch, m, prompt, fed)
+
+    def per_step(logits, plain):
+        return [float((x.float() - y.float()).abs().max() / y.float().std())
+                for x, y in zip(logits, plain)]
+
+    def faults(m, names, plain):
+        got = {}
+        for name in names:
+            kernel, fault = name.split("_", 1)
+            where = ((rglru_mod, "linear_scan_op", SCAN_FAULTS[fault])
+                     if kernel == "K4" else
+                     (attn_mod, "flash_attention_op", ATTN_FAULTS[fault]))
+            with mock.patch.object(*where):
+                got[name] = max(per_step(teacher_forced(
+                    torch, m, prompt, fed), plain))
+        return got
+
+    t0 = time.perf_counter()
+    plain = plain_run(model)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    steps = per_step(cap["logits"], plain)
+    tokens_equal = bool((torch.stack([x.argmax(-1) for x in plain], 1)
+                         .cpu().numpy() == out).all())
+    r16 = {"sound": max(steps), "per_step": steps,
+           "faults": faults(model, ["K4_no_carry"], plain),
+           "greedy_tokens_equal": tokens_equal, "plain_run_s": plain_s}
+    del plain
+
+    m32 = copy.deepcopy(model).float()
+    plain = plain_run(m32)
+    r32 = {"sound": max(per_step(teacher_forced(torch, m32, prompt, fed),
+                                 plain)),
+           "faults": faults(m32, ["K4_carry_reset_halfway",
+                                  "K4_step_one_slot_late",
+                                  "K5_window_plus_1",
+                                  "K5_dropped_last_kv_tile",
+                                  "K5_causal_off"], plain)}
+    del m32, plain
+    emit({"phase": "serve_end_to_end",
+          "limits": {"bf16": E2E_BF16_LIMIT, "f32": E2E_F32_LIMIT},
+          "bf16": r16, "f32": r32})
+    for name, r, lim in (("bf16", r16, E2E_BF16_LIMIT),
+                         ("f32", r32, E2E_F32_LIMIT)):
+        check(r["sound"] <= lim, f"end to end in {name}, kernels vs plain: "
+                                 f"{r['sound']:.3e} > {lim}")
+        for fault, val in r["faults"].items():
+            check(val > lim, f"end to end in {name}: the planted fault "
+                             f"{fault} reads {val:.3e}, within {lim}")
+
+
+def serve_profile(torch, model, prompt):
+    """Where a wave's time goes on the device: the prefill alone, then a
+    whole ``generate`` (prefill and 15 decode steps), each traced once
+    after an untraced warm-up; busy share = device kernel time / wall."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(model=model, max_len=PROMPT + GEN)
+    batch = {"tokens": prompt}
+    got = {}
+    for part, run in (("prefill", lambda: eng._prefill(batch)),
+                      ("generate", lambda: eng.generate(batch, GEN))):
+        with torch.inference_mode():
+            run()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        on_dev = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.device_time_total for e in on_dev) / 1e6
+        check(busy > 0, f"the profile of a wave's {part} saw no device work")
+        top = sorted(on_dev, key=lambda e: -e.device_time_total)[:6]
+        got[part] = {"wall_s": wall, "device_busy_s": busy,
+                     "busy_share": busy / wall,
+                     "device_kernels": sum(e.count for e in on_dev),
+                     "top": [[e.key[:80], e.device_time_total / 1e3, e.count]
+                             for e in top]}
+    got["decode_only"] = {
+        k: got["generate"][k] - got["prefill"][k]
+        for k in ("wall_s", "device_busy_s", "device_kernels")}
+    got["decode_only"]["busy_share"] = (got["decode_only"]["device_busy_s"]
+                                        / got["decode_only"]["wall_s"])
+    emit({"phase": "serve_profile", **got})
+
+
+def serve_times(torch, cap, launches, errs):
+    """Phase 10: K5 and K4 at the path's shapes: kernel and plain ms,
+    the kernel's device ms, the bound, K5's library yardstick."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.kernels.linear_scan import ops as so
+
+    (q, k, v), kw = cap["qkv"]
+    kw = {n: kw[n] for n in ("causal", "window", "cap")}
+    a, b = cap["ab"][0][:2]
+    B_, S, H, hd = q.shape
+    W = kw["window"]
+    # valid (q, k) pairs of one (b, h) row block: min(i + 1, W) keys for
+    # query i; QKᵀ and PV cost 2·hd operations each per pair
+    pairs = sum(min(i + 1, W) for i in range(S))
+    k5_ops = 4 * B_ * H * hd * pairs
+    k5_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    k4_bytes = a.element_size() * 3 * a.numel()
+    k4_ops = 2 * a.numel()
+    pos = torch.arange(S, device=q.device)
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              scale=1.0, enable_gqa=True)
+
+    lib_err = rel_err(sdpa().transpose(1, 2),
+                      fo.attention_ref(q, k, v, **kw))
+    calls = {
+        "flash_attention": (
+            CU_K5, TPU_K5, lambda impl: fo.flash_attention_op(
+                q, k, v, impl=impl, **kw),
+            5, bound(k5_bytes, k5_ops, BF16_TC_OPS), timed(torch, sdpa)),
+        "linear_scan": (
+            CU_K4, TPU_K4, lambda impl: so.linear_scan_op(a, b, impl=impl),
+            3, bound(k4_bytes, k4_ops), None),
+    }
+    recs = []
+    for name, (src, tpu, op, plain_runs, (b_ms, by), lib_ms) in calls.items():
+        ms_k = timed(torch, lambda: op("cuda"))
+        ms_p = timed(torch, lambda: op("ref"), runs=plain_runs)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                op("cuda")
+            torch.cuda.synchronize()
+        mine = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and f"{name}_kernel" in e.key]
+        n = sum(e.count for e in mine)
+        check(n > 0, f"the profiler saw no {name} kernel on the device")
+        dev_ms = sum(e.device_time_total for e in mine) / 1e3 / n
+        rec = {"name": name, "route": "cuda", "source": src,
+               "replaces": tpu, "launches": launches[name],
+               "max_abs_err": errs[name], "ms": ms_k, "plain_ms": ms_p,
+               "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+        recs.append(rec)
+        emit({"phase": "time", **rec, "kernel_device_ms": dev_ms,
+              "traced_launches": n})
+    emit({"phase": "library", "flash_attention_sdpa_ms": recs[0]["library_ms"],
+          "sdpa_vs_plain_bf16_rel": lib_err,
+          "linear_scan": "no single PyTorch call computes a linear "
+                         "recurrence scan; library_ms is null"})
+    return recs
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -208,6 +756,8 @@ def main():
     # ---- 1. the card ------------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 is compared below
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "card", "nvidia_smi": card, "kind": kind,
@@ -529,6 +1079,15 @@ def main():
                        "device_kernels_per_call":
                            sum(e.count for e in on_dev) / n}
     emit({"phase": "profile", **split})
+
+    # ---- 7–10. serving recurrentgemma-2b through K4 and K5 -----------------
+    model, prompt0, out0, cap, serve_launches = serve_phase(torch, np, dev)
+    with torch.inference_mode():
+        errs = kernel_phase(torch, cap)
+        k5_options_phase(torch, dev)
+        end_to_end_phase(torch, model, prompt0, out0, cap)
+        kernels += serve_times(torch, cap, serve_launches, errs)
+    serve_profile(torch, model, prompt0)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

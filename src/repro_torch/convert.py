@@ -1,19 +1,22 @@
-"""Carry a speedup's parameters over from the JAX package.
+"""Carry parameters over from the JAX package.
 
 A JAX speedup is a pytree whose leaves are its parameters.  Hand them
 over as numpy arrays (``np.asarray(sp.A)`` and so on) with ``sigma`` and
 ``B``, and ``speedup_from_arrays`` builds the port's object from exactly
-those numbers on the device asked for.  This module reads plain arrays
-only; it knows nothing of JAX.
+those numbers on the device asked for.  A JAX model's parameter tree,
+turned to numpy leaf by leaf, goes through ``params_from_arrays`` the
+same way.  This module reads plain arrays only; it knows nothing of JAX.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ._device import as_tensor, resolve_device
 from .core.speedup import GenericSpeedup, RegularSpeedup, StackedSpeedup
+from .models.transformer import Transformer
 
-__all__ = ["speedup_from_arrays"]
+__all__ = ["speedup_from_arrays", "params_from_arrays"]
 
 
 def speedup_from_arrays(kind: str, *, B: float, A=None, w=None, gamma=None,
@@ -47,3 +50,55 @@ def speedup_from_arrays(kind: str, *, B: float, A=None, w=None, gamma=None,
         return StackedSpeedup(**leaves, sigma=as_tensor(sigma, dev, dtype),
                               B=float(B))
     raise ValueError(f"unknown speedup kind {kind!r}")
+
+
+def params_from_arrays(cfg, tree, device=None, dtype=None) -> Transformer:
+    """The port's model of ``cfg`` holding exactly the numbers of ``tree``.
+
+    ``tree`` is the JAX package's ``init_params`` result with numpy
+    leaves: ``embed``, ``blocks`` (one dict per cycle position, each leaf
+    with a leading group axis), ``tail`` (the ``n_layers % cycle`` layers
+    after the groups), ``final_norm`` and, when untied, ``unembed``.
+    Layer i < cycle·G is ``blocks[i % cycle]`` at group ``i // cycle``;
+    the rest come from ``tail``.  Leaf names inside a layer are the JAX
+    ones (``norm1/scale``, ``mixer/wq``, ``mlp/w_gate``, …); attention
+    projections are flattened from (d, H, hd) and (H, hd, d).  Matrices
+    are stored in ``dtype`` (default ``cfg.compute_dtype``), norm scales
+    and ``lam`` in f32.
+    """
+    model = Transformer(cfg, device=resolve_device(device), dtype=dtype)
+    cyc = len(cfg.cycle)
+    G = cfg.n_layers // cyc
+    filled = set()
+
+    def put(param, arr, name):
+        arr = np.asarray(arr)
+        if arr.size != param.numel():
+            raise ValueError(f"{name}: {arr.shape} does not fit "
+                             f"{tuple(param.shape)}")
+        with torch.no_grad():
+            param.copy_(torch.tensor(arr).reshape(param.shape))
+        filled.add(id(param))
+
+    put(model.embed, tree["embed"], "embed")
+    put(model.final_norm.scale, tree["final_norm"]["scale"], "final_norm")
+    if model.unembed is not None:
+        put(model.unembed, tree["unembed"], "unembed")
+    for i, blk in enumerate(model.layers):
+        if i < cyc * G:
+            layer = {k: {n: a[i // cyc] for n, a in sub.items()}
+                     for k, sub in tree["blocks"][i % cyc].items()}
+        else:
+            layer = tree["tail"][i - cyc * G]
+        for part, leaves in layer.items():
+            mod = getattr(blk, part, None)
+            if mod is None:
+                raise ValueError(f"layer {i}: no {part!r} in the port's "
+                                 f"{blk.kind} block")
+            for name, arr in leaves.items():
+                put(getattr(mod, name), arr, f"layer {i} {part}/{name}")
+    missing = [n for n, p in model.named_parameters()
+               if id(p) not in filled]
+    if missing:
+        raise ValueError(f"parameters not in the tree: {missing}")
+    return model

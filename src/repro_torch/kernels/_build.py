@@ -5,7 +5,8 @@ Each ``csrc/*.cu`` has a plain C interface (no PyTorch headers), so one
 land in ``build/repro_torch_kernels/`` at the root of the checkout the
 package runs from (``resolve_build_dir``), named by a hash of the source,
 so an edited source is never served a stale build.  A missing ``nvcc`` or a failed build raises with the compiler's
-output; nothing here falls back to a plain version.
+output; nothing here falls back to a plain version.  ``use_cuda_for`` is
+the ops modules' one dispatch rule between a kernel and its plain version.
 """
 from __future__ import annotations
 
@@ -16,8 +17,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 __all__ = ["BUILD_DIR", "SOURCES", "resolve_build_dir", "find_nvcc",
-           "nvcc_command", "build_all", "load"]
+           "nvcc_command", "build_all", "load", "launch", "use_cuda_for"]
 
 _PKG = Path(__file__).resolve().parent
 BUILD_ENV = "REPRO_TORCH_BUILD_DIR"
@@ -43,11 +46,15 @@ def resolve_build_dir(pkg: Path = _PKG, environ=os.environ) -> Path:
 BUILD_DIR = resolve_build_dir()
 SOURCES = {
     "gwf_waterfill": _PKG / "gwf_waterfill" / "csrc" / "gwf_waterfill.cu",
+    "flash_attention": (_PKG / "flash_attention" / "csrc"
+                        / "flash_attention.cu"),
+    "linear_scan": _PKG / "linear_scan" / "csrc" / "linear_scan.cu",
 }
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict = {}
 
 
 def find_nvcc() -> str:
@@ -110,3 +117,32 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _LIBS[name] = lib
     return lib
+
+
+def launch(name: str, fn: str, argtypes, device, *args) -> None:
+    """Call C entry point ``fn`` of source ``name`` with ``args`` and the
+    current stream of ``device``; raise if it returns a CUDA error.
+
+    Every pointer, and the stream, goes as ``c_void_p`` (a bare int would
+    be cut to 32 bits); ``argtypes`` lists the arguments before the
+    stream.
+    """
+    entry = _ENTRIES.get((name, fn))
+    if entry is None:
+        entry = getattr(load(name), fn)
+        entry.argtypes = [*argtypes, ctypes.c_void_p]
+        entry.restype = ctypes.c_int
+        _ENTRIES[(name, fn)] = entry
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = entry(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
+
+
+def use_cuda_for(x: torch.Tensor, impl: str) -> bool:
+    """True when ``impl`` sends a call on ``x`` to the CUDA kernel: "auto"
+    and "cuda" do on a CUDA tensor, "ref" never does."""
+    if impl not in ("auto", "cuda", "ref"):
+        raise ValueError(f"unknown impl {impl!r}")
+    return impl != "ref" and x.is_cuda

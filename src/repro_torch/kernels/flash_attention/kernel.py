@@ -1,0 +1,76 @@
+"""Wrapper of the CUDA flash attention kernel (``csrc/flash_attention.cu``).
+
+``flash_attention``  K5 — forward online-softmax attention over pre-scaled
+q (B, S, H, hd) and k/v (B, T, K, hd), H a multiple of K (query head h
+reads kv head h // (H/K)), with a causal mask, a sliding window and a
+logit softcap; hd ≤ 256; f32 or bf16 in, q's dtype out, f32 inside.
+
+The wrapper takes CUDA tensors only: it checks device, dtype, shape and
+contiguity, allocates the output with ``torch.empty``, launches on the
+current stream, raises if the launch is refused, and adds one to
+``LAUNCHES["flash_attention"]``.  The library is built from the repo's
+sources on first use (``kernels/_build.py``).  The plain version lives in
+``ref.py``; ``ops.py`` chooses between the two.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .._build import launch
+
+__all__ = ["LAUNCHES", "flash_attention", "reset_launches", "MAX_HEAD_DIM"]
+
+# Launches since the last reset, counted where the kernel is launched.
+LAUNCHES = {"flash_attention": 0}
+MAX_HEAD_DIM = 256
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float]
+_ENTRY = {torch.float32: "flash_attention_f32",
+          torch.bfloat16: "flash_attention_bf16"}
+
+
+def reset_launches() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, cap=None):
+    """K5 on the card: q (B, S, H, hd), k/v (B, T, K, hd) → (B, S, H, hd)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError("the CUDA flash attention kernel takes CUDA "
+                             "tensors; use ops.py for CPU tensors")
+        if t.ndim != 4:
+            raise ValueError(f"{name} must be 4-d, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype of "
+                        f"{sorted(map(str, _ENTRY))}; got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v lie on different devices")
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if k.shape != (B, T, K, hd) or v.shape != k.shape:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if K == 0 or H % K:
+        raise ValueError(f"{H} query heads are not a multiple of {K} kv heads")
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} outside 1..{MAX_HEAD_DIM}")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if cap is not None and cap <= 0:
+        raise ValueError(f"cap must be positive, got {cap}")
+    out = torch.empty_like(q)
+    launch("flash_attention", _ENTRY[q.dtype], _ARGS, q.device,
+           _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
+           _P(out.data_ptr()), _I(B), _I(S), _I(T), _I(H), _I(K), _I(hd),
+           _I(int(bool(causal))), _I(int(window or 0)),
+           ctypes.c_float(float(cap or 0.0)))
+    LAUNCHES["flash_attention"] += 1
+    return out

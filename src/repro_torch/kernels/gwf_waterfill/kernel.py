@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from .._build import load
+from .._build import launch
 from .ref import lam_bracket
 
 __all__ = ["LAUNCHES", "generic_waterfill", "hetero_waterfill",
@@ -32,11 +32,10 @@ LAUNCHES = {"generic_waterfill": 0, "hetero_waterfill": 0,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "generic_waterfill_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "hetero_waterfill_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "gwf_waterfill_f32": [_P, _P, ctypes.c_float, _P, _I, _I, _P],
+    "generic_waterfill_f32": [_P, _P, _P, _I, _I, _I, _I],
+    "hetero_waterfill_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I],
+    "gwf_waterfill_f32": [_P, _P, ctypes.c_float, _P, _I, _I],
 }
-_BOUND: dict = {}
 
 
 def reset_launches() -> None:
@@ -44,24 +43,9 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _fn(name: str):
-    """The C entry point ``name`` with its argument types declared."""
-    fn = _BOUND.get(name)
-    if fn is None:
-        fn = getattr(load("gwf_waterfill"), name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        _BOUND[name] = fn
-    return fn
-
-
 def _launch(name: str, counter: str, device, *args) -> None:
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = _fn(name)(*args, _P(stream))
+    launch("gwf_waterfill", name, _SIGNATURES[name], device, *args)
     LAUNCHES[counter] += 1
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
 def _on(x, device, dtype=None):

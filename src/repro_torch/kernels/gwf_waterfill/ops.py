@@ -17,13 +17,13 @@ from __future__ import annotations
 
 import torch
 
+from .._build import use_cuda_for
 from ...core.gwf import solve_cap_hetero_sorted
 from ...core.speedup import StackedSpeedup, unchecked
 from .kernel import generic_waterfill, gwf_waterfill, hetero_waterfill
 from .ref import generic_waterfill_ref, gwf_waterfill_ref, hetero_waterfill_ref
 
 __all__ = [
-    "use_cuda_for",
     "gwf_waterfill_op",
     "generic_waterfill_op",
     "hetero_waterfill_op",
@@ -31,13 +31,6 @@ __all__ = [
     "generic_waterfill_ref",
     "hetero_waterfill_ref",
 ]
-
-
-def use_cuda_for(x: torch.Tensor, impl: str) -> bool:
-    """True when ``impl`` sends a solve on ``x`` to the CUDA kernel."""
-    if impl not in ("auto", "cuda", "ref", "sorted"):
-        raise ValueError(f"unknown impl {impl!r}")
-    return impl in ("auto", "cuda") and x.is_cuda
 
 
 def gwf_waterfill_op(u, h0, b, iters=64, impl="auto"):

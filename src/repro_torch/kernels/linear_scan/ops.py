@@ -1,0 +1,20 @@
+"""Dispatch between the CUDA linear scan kernel and its plain version.
+
+``impl`` as in ``kernels/flash_attention/ops.py``: "cuda" and "auto"
+launch the kernel on CUDA tensors (or raise) and run the plain version on
+CPU tensors; "ref" runs the plain version wherever the tensors lie.
+"""
+from __future__ import annotations
+
+from .._build import use_cuda_for
+from .kernel import linear_scan
+from .ref import linear_scan_ref
+
+__all__ = ["linear_scan_op", "linear_scan_ref"]
+
+
+def linear_scan_op(a, b, impl="auto"):
+    """h_t = a_t h_{t−1} + b_t, h_{−1} = 0, over a, b (B, S, D)."""
+    if use_cuda_for(a, impl):
+        return linear_scan(a, b)
+    return linear_scan_ref(a, b)

@@ -1,0 +1,181 @@
+"""Attention: GQA/MQA/MHA with RoPE, sliding window, logit softcap and
+QKV bias.  Full-sequence attention goes through the flash attention op
+(``kernels/flash_attention``: the CUDA kernel on the card, its plain
+version on the CPU); single-token decode over the KV cache is plain
+PyTorch, as in the JAX package.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..kernels.flash_attention.ops import flash_attention_op
+from .common import dense_init, matmul_f32acc, rope, softcap
+
+__all__ = [
+    "NEG_INF",
+    "Attention",
+    "attn_init",
+    "qkv",
+    "attention",
+    "prefill_attention",
+    "init_kv_cache",
+    "cache_slots",
+    "cache_update",
+    "decode_attention",
+]
+
+NEG_INF = -1e30
+
+
+def _kv_heads(cfg, kind):
+    if kind == "local" and cfg.local_kv_heads:
+        return cfg.local_kv_heads
+    return cfg.n_kv_heads
+
+
+class Attention(nn.Module):
+    """wq (d, H·hd), wk/wv (d, K·hd), wo (H·hd, d), optional biases; the
+    JAX package's (d, H, hd) and (H, hd, d) layouts flattened."""
+
+    def __init__(self, cfg, kind="attn", device=None, dtype=None):
+        super().__init__()
+        d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+        K = _kv_heads(cfg, kind)
+        kw = dict(device=device, dtype=dtype)
+        self.wq = nn.Parameter(torch.empty(d, H * hd, **kw))
+        self.wk = nn.Parameter(torch.empty(d, K * hd, **kw))
+        self.wv = nn.Parameter(torch.empty(d, K * hd, **kw))
+        self.wo = nn.Parameter(torch.empty(H * hd, d, **kw))
+        if cfg.qkv_bias:
+            self.bq = nn.Parameter(torch.zeros(H * hd, **kw))
+            self.bk = nn.Parameter(torch.zeros(K * hd, **kw))
+            self.bv = nn.Parameter(torch.zeros(K * hd, **kw))
+        else:
+            self.bq = self.bk = self.bv = None
+
+
+def attn_init(m: Attention, cfg, generator) -> Attention:
+    d = cfg.d_model
+    std = 1.0 / math.sqrt(d)
+    dense_init(m.wq, d, generator)
+    dense_init(m.wk, d, generator)
+    dense_init(m.wv, d, generator)
+    dense_init(m.wo, m.wo.shape[0], generator,
+               std=std / math.sqrt(2 * cfg.n_layers))
+    return m
+
+
+def qkv(m: Attention, x, cfg, positions):
+    """q (pre-scaled by hd^-0.5 after rope, in x's dtype), k, v:
+    (B, S, heads, hd) each."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q, k, v = x @ m.wq, x @ m.wk, x @ m.wv
+    if m.bq is not None:
+        q, k, v = q + m.bq, k + m.bk, v + m.bv
+    q = rope(q.view(B, S, -1, hd), positions, cfg.rope_theta)
+    k = rope(k.view(B, S, -1, hd), positions, cfg.rope_theta)
+    q = q * (hd ** -0.5)
+    return q, k, v.view(B, S, -1, hd)
+
+
+def _out(m: Attention, o):
+    B, S = o.shape[:2]
+    return o.reshape(B, S, -1) @ m.wo
+
+
+def _attend(m: Attention, x, cfg, kind, positions):
+    """(output (B, S, d), k, v) of full-sequence self-attention: 'attn'
+    (global causal), 'local' (sliding window causal) or 'bidir' (no
+    mask)."""
+    q, k, v = qkv(m, x, cfg, positions)
+    o = flash_attention_op(q, k, v, causal=kind != "bidir",
+                           window=cfg.window if kind == "local" else None,
+                           cap=cfg.attn_softcap)
+    return _out(m, o), k, v
+
+
+def attention(m: Attention, x, cfg, kind, positions):
+    """Full-sequence self-attention of ``kind`` (see ``_attend``)."""
+    return _attend(m, x, cfg, kind, positions)[0]
+
+
+def prefill_attention(m: Attention, x, cfg, kind, positions, max_len,
+                      cache_dtype=torch.bfloat16):
+    """Full-sequence attention that also returns a populated KV cache.
+
+    Global layers cache all S positions into a (B, max_len, K, hd)
+    buffer; local layers keep a ring buffer of the last
+    C = min(max_len, window) positions, position t at slot t % C.
+    """
+    B, S, _ = x.shape
+    y, k, v = _attend(m, x, cfg, kind, positions)
+    cache = init_kv_cache(cfg, B, max_len, kind, cache_dtype, device=x.device)
+    C = cache["k"].shape[1]
+    n_keep = min(S, C)
+    cache_update(cache, k[:, S - n_keep:], v[:, S - n_keep:], S - n_keep,
+                 kind=kind)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decode path
+# ---------------------------------------------------------------------------
+def init_kv_cache(cfg, B, max_len, kind="attn", dtype=torch.bfloat16,
+                  device=None):
+    K, hd = _kv_heads(cfg, kind), cfg.head_dim
+    if kind == "local":
+        max_len = min(max_len, cfg.window or max_len)   # ring buffer
+    shape = (B, max_len, K, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_slots(cache_len, pos, n, kind, device=None):
+    """Cache slot indices for positions [pos, pos+n): ring for local."""
+    t = pos + torch.arange(n, device=device)
+    return t % cache_len if kind == "local" else t
+
+
+def cache_update(cache, k_new, v_new, pos, kind="attn"):
+    """Write k/v for positions [pos, pos+n) into the cache, in place (the
+    JAX package returns a new cache; the port reuses the buffers)."""
+    C = cache["k"].shape[1]
+    slots = cache_slots(C, pos, k_new.shape[1], kind, k_new.device)
+    cache["k"].index_copy_(1, slots, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slots, v_new.to(cache["v"].dtype))
+    return cache
+
+
+def decode_attention(m: Attention, x, cfg, kind, cache, pos: int):
+    """Single-token decode: q from x (B, 1, d) at position ``pos`` (the
+    number of tokens already in the cache), attending over the cache.
+    Updates the cache in place and returns the output (B, 1, d)."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = qkv(m, x, cfg, positions)
+    cache_update(cache, k_new, v_new, pos, kind=kind)
+    k, v = cache["k"], cache["v"]
+    C, K, hd = k.shape[1], k.shape[2], k.shape[3]
+    H = q.shape[2]
+    qg = q.reshape(B, 1, K, H // K, hd)
+    # scores in f32 from k in q's dtype; p in v's dtype, summed in f32
+    s = matmul_f32acc("bqkgd,btkd->bkgqt", qg, k.to(qg.dtype))
+    s = softcap(s, cfg.attn_softcap)
+    t_idx = torch.arange(C, device=x.device)
+    if kind == "local":
+        # ring buffer: slot t holds absolute position p ≡ t (mod C), the
+        # latest such p ≤ pos
+        abs_pos = pos - torch.remainder(pos - t_idx, C)
+        valid = (abs_pos >= 0) & (abs_pos <= pos)
+        if cfg.window is not None:
+            valid &= (pos - abs_pos) < cfg.window
+    else:
+        valid = t_idx <= pos
+    s = torch.where(valid, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = matmul_f32acc("bkgqt,btkd->bqkgd", w.to(v.dtype), v)
+    return _out(m, o.reshape(B, 1, H, hd).to(x.dtype))

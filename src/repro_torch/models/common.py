@@ -1,0 +1,103 @@
+"""Shared model building blocks: initialisers and the plain math.
+
+Conventions (as in the JAX package, with PyTorch idiom):
+  * parameters live in ``nn.Module``s; the math is plain functions on
+    tensors that take those modules;
+  * every initialiser draws from an explicit ``torch.Generator``;
+  * the compute dtype is ``cfg.compute_dtype`` (bf16 by default).  The
+    JAX package keeps parameters in f32 and casts them to the activation
+    dtype at every use; the port stores the matrices once in the compute
+    dtype, which rounds them the same way and saves re-casting every
+    weight at every decode step.  Norm scales and the RG-LRU ``lam``
+    stay f32, as the JAX code uses them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+__all__ = [
+    "trunc_normal",
+    "dense_init",
+    "embed_init",
+    "RMSNorm",
+    "rmsnorm",
+    "rope",
+    "softcap",
+    "matmul_f32acc",
+]
+
+
+def trunc_normal(t: torch.Tensor, std: float, generator) -> torch.Tensor:
+    """Fill ``t`` in place with std·N(0, 1) truncated to ±2 (±2σ), drawn
+    in f32 and rounded once to ``t``'s dtype."""
+    x = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    with torch.no_grad():
+        t.copy_(x.mul_(float(std)))
+    return t
+
+
+def dense_init(t: torch.Tensor, d_in: int, generator, std=None):
+    """A (d_in, d_out…) projection: truncated normal, std 1/√d_in."""
+    return trunc_normal(t, std if std is not None else 1.0 / math.sqrt(d_in),
+                        generator)
+
+
+def embed_init(t: torch.Tensor, generator, std: float = 0.02):
+    return trunc_normal(t, std, generator)
+
+
+class RMSNorm(nn.Module):
+    """Holds an f32 ``scale`` (zeros at init: the norm multiplies by
+    1 + scale)."""
+
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.zeros(d, dtype=torch.float32,
+                                              device=device))
+
+    def forward(self, x, eps: float):
+        return rmsnorm(x, self.scale, eps)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """x·rsqrt(mean(x²) + eps)·(1 + scale), computed in f32."""
+    dt = x.dtype
+    x = x.float()
+    var = (x * x).mean(-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale)).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
+    """Rotary embedding, half-split layout (the first and second halves of
+    head_dim are the pair), angles in f32.
+
+    x: (..., seq, heads, head_dim); positions: (..., seq).
+    """
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., :, None].float() * freq          # (..., S, half)
+    ang = ang[..., :, None, :]                            # (..., S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap):
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def matmul_f32acc(eq: str, a: torch.Tensor, b: torch.Tensor):
+    """``einsum(eq, a, b)`` summed in f32 and returned in f32, as JAX's
+    ``preferred_element_type=float32`` does: bf16 operands are exact in
+    f32 and so are their products."""
+    return torch.einsum(eq, a.float(), b.float())

@@ -1,0 +1,202 @@
+"""Port vs JAX: the serving path of the model stack.
+
+JAX's ``init_params(PRNGKey(0))`` goes through ``params_from_arrays``;
+then JAX's ``prefill`` + ``decode_step`` and the port's run on the same
+numpy tokens: B = 2, S = 33 (longer than the smoke window of 16 and
+ragged against ``scan_chunk`` 32), ``max_len`` 64, at the reference's own
+prefill/decode tolerance (``tests/models/test_serving.py``: atol 2e-4,
+rtol 1e-3).  On the CPU the port's kernels run their plain versions.
+"""
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as JC
+import repro.models as JM
+from repro.serve import ServeEngine as JServeEngine
+import repro_torch.configs as PC
+import repro_torch.models as PM
+from repro_torch.convert import params_from_arrays
+from repro_torch.models.transformer import Transformer
+from repro_torch.serve import ServeEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+# the three the serving slice names, and the two other dense archs it
+# carries (qwen1.5-4b has the QKV biases)
+ARCHS = ["recurrentgemma-2b", "llama3.2-1b", "gemma2-27b", "qwen1.5-4b",
+         "deepseek-7b"]
+B, S, MAX_LEN, STEPS = 2, 33, 64, 3
+CACHE = {"f32": (jnp.float32, torch.float32),
+         "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    """(JAX cfg, JAX params, the port's model with the same numbers,
+    tokens (B, S + STEPS))."""
+    arch = request.param
+    jcfg = JC.get_config(arch, smoke=True)
+    params = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    model = params_from_arrays(PC.get_config(arch, smoke=True), tree,
+                               device="cpu")
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, jcfg.vocab, (B, S + STEPS)).astype(np.int32)
+    return jcfg, params, model, toks
+
+
+def close(port, ref):
+    np.testing.assert_allclose(port.float().numpy(), np.asarray(ref),
+                               atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("cache", ["f32", "bf16"])
+def test_prefill_and_decode_match_jax(pair, cache):
+    jcfg, params, model, toks = pair
+    jdt, tdt = CACHE[cache]
+    lj, sj = JM.prefill(params, {"tokens": jnp.asarray(toks[:, :S])}, jcfg,
+                        max_len=MAX_LEN, cache_dtype=jdt)
+    lp, sp = PM.prefill(model, {"tokens": toks[:, :S]}, max_len=MAX_LEN,
+                        cache_dtype=tdt)
+    assert lp.shape == (B, jcfg.vocab) and lp.dtype == torch.float32
+    close(lp, lj)
+    for t in range(S, S + STEPS):           # teacher-forced decode
+        lj, sj = JM.decode_step(params, jnp.asarray(toks[:, t:t + 1]), sj,
+                                jcfg)
+        lp, sp = PM.decode_step(model, toks[:, t:t + 1], sp)
+        close(lp, lj)
+    assert sp["pos"] == int(sj["pos"]) == S + STEPS
+
+
+def test_decode_state_matches_jax(pair):
+    """The prefill's decode state, unstacked from JAX's per-cycle groups
+    into the port's layer order: KV rings and the RG-LRU (h, conv)."""
+    jcfg, params, model, toks = pair
+    _, sj = JM.prefill(params, {"tokens": jnp.asarray(toks[:, :S])}, jcfg,
+                       max_len=MAX_LEN, cache_dtype=jnp.float32)
+    _, sp = PM.prefill(model, {"tokens": toks[:, :S]}, max_len=MAX_LEN,
+                       cache_dtype=torch.float32)
+    cyc = len(jcfg.cycle)
+    G = jcfg.n_layers // cyc
+    for i, cache in enumerate(sp["layers"]):
+        ref = (jax.tree_util.tree_map(lambda x: x[i // cyc],
+                                      sj["blocks"][i % cyc])
+               if i < cyc * G else sj["tail"][i - cyc * G])
+        assert sorted(cache) == sorted(ref)
+        for key, val in cache.items():
+            np.testing.assert_allclose(val.numpy(), np.asarray(ref[key]),
+                                       atol=1e-5, rtol=1e-5)
+
+
+def test_full_forward_agrees_with_prefill_and_decode(pair):
+    """The port's own consistency: logits of the cache-free full-sequence
+    forward at positions S−1 and S equal prefill's and one decode step's."""
+    _, _, model, toks = pair
+    full = model(toks[:, :S + 1])
+    lp, st = PM.prefill(model, {"tokens": toks[:, :S]}, max_len=MAX_LEN,
+                        cache_dtype=torch.float32)
+    ld, _ = PM.decode_step(model, toks[:, S:S + 1], st)
+    torch.testing.assert_close(lp, full[:, S - 1], atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(ld, full[:, S], atol=2e-4, rtol=1e-3)
+
+
+def test_greedy_generate_matches_jax_engine(pair):
+    jcfg, params, model, toks = pair
+    batch = {"tokens": toks[:, :S]}
+    ref = JServeEngine(cfg=jcfg, params=params, max_len=MAX_LEN).generate(
+        batch, 6)
+    out = ServeEngine(model=model, max_len=MAX_LEN).generate(batch, 6)
+    assert out.dtype == np.int32 and out.shape == (B, 6)
+    np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+def test_generate_is_deterministic_for_a_seed(temperature):
+    model = PM.init_params(PC.get_config("recurrentgemma-2b", smoke=True),
+                           torch.Generator().manual_seed(0), device="cpu")
+    batch = {"tokens": np.ones((2, 8), np.int32)}
+    eng = ServeEngine(model=model, max_len=64, temperature=temperature)
+    a = eng.generate(batch, 6)
+    np.testing.assert_array_equal(a, eng.generate(batch, 6))
+    assert a.shape == (2, 6) and np.all((a >= 0) & (a < model.cfg.vocab))
+    if temperature:
+        other = dataclasses.replace(eng, seed=1).generate(batch, 6)
+        assert not np.array_equal(a, other)
+
+
+def test_sampling_takes_fresh_draws():
+    """Each sampled token comes from new generator state: with a flat
+    distribution the draws of one call are not all equal."""
+    model = PM.init_params(PC.get_config("llama3.2-1b", smoke=True),
+                           torch.Generator().manual_seed(0), device="cpu")
+    eng = ServeEngine(model=model, max_len=64, temperature=1.0)
+    gen = torch.Generator().manual_seed(0)
+    flat = torch.zeros(4, 512)
+    draws = torch.stack([eng._sample(flat, gen) for _ in range(8)])
+    assert len(set(draws.flatten().tolist())) > 8
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "qwen2-moe-a2.7b",
+                                  "internvl2-1b", "seamless-m4t-medium"])
+def test_kinds_of_later_slices_raise(arch):
+    cfg = PC.get_config(arch, smoke=True)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        PM.init_params(cfg, torch.Generator(), device="cpu")
+
+
+@pytest.mark.parametrize("arch", JC.list_archs())
+def test_configs_match_jax(arch):
+    for smoke in (False, True):
+        j, p = JC.get_config(arch, smoke), PC.get_config(arch, smoke)
+        jd = dataclasses.asdict(j)
+        assert dataclasses.asdict(p) == jd
+        assert p.param_count() == j.param_count()
+        assert p.compute_dtype == {"bfloat16": torch.bfloat16,
+                                   "float32": torch.float32}[j.dtype]
+
+
+def test_full_recurrentgemma_shapes():
+    """The full-width model built on the meta device: 26 layers, 18 RG-LRU
+    and 8 local MQA, and the matrices ``param_count`` counts."""
+    cfg = PC.get_config("recurrentgemma-2b")
+    model = Transformer(cfg, device="meta")
+    kinds = [blk.kind for blk in model.layers]
+    assert kinds.count("rglru") == 18 and kinds.count("local") == 8
+    assert model.embed.dtype == torch.bfloat16
+    local = model.layers[2].mixer
+    assert local.wk.shape == (2560, 256) and local.wq.shape == (2560, 2560)
+    counted = sum(p.numel() for n, p in model.named_parameters()
+                  if p.ndim == 2 and "conv_w" not in n)
+    assert counted == cfg.param_count() == 2_894_069_760
+
+
+def test_entry_points_without_device_need_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = PC.get_config("recurrentgemma-2b", smoke=True)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        PM.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no GPU"):
+        PM.init_decode_state(cfg, 2, 64)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        params_from_arrays(cfg, {})
+
+
+def test_launcher_serves_on_the_cpu():
+    code = ("import sys; sys.path.insert(0, 'src'); "
+            "from repro_torch.launch.serve import main; "
+            "main(['--arch', 'recurrentgemma-2b', '--batch', '2', "
+            "'--prompt-len', '20', '--gen', '4', '--requests', '2', "
+            "'--device', 'cpu'])")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].startswith("request wave 0: (2, 4)")
+    assert lines[-1].startswith("served 16 tokens") and "cpu" in lines[-1]

@@ -120,6 +120,10 @@ import sys
 sys.path[:0] = [{src!r}, {root!r}]
 import repro_torch, repro_torch.core, repro_torch.convert
 import repro_torch.kernels.gwf_waterfill.ops
+import repro_torch.kernels.flash_attention.ops
+import repro_torch.kernels.linear_scan.ops
+import repro_torch.models.transformer, repro_torch.serve.engine
+import repro_torch.launch.serve
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))

@@ -169,13 +169,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_build_command_targets_sm90a_into_build_dir():
-    cmd = _build.nvcc_command("gwf_waterfill")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-shared" in cmd and "-std=c++17" in cmd
-    out = cmd[cmd.index("-o") + 1]
-    assert out.startswith(str(_build.BUILD_DIR))
+    assert sorted(_build.SOURCES) == ["flash_attention", "gwf_waterfill",
+                                      "linear_scan"]
+    for name in _build.SOURCES:
+        cmd = _build.nvcc_command(name)
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-shared" in cmd and "-std=c++17" in cmd
+        out = cmd[cmd.index("-o") + 1]
+        assert out.startswith(str(_build.BUILD_DIR))
+        assert cmd[-1].endswith(f"csrc/{name}.cu")
+        assert _build.SOURCES[name].is_file()
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
-    assert cmd[-1].endswith("csrc/gwf_waterfill.cu")
 
 
 def test_build_dir_is_the_checkout_root_or_an_explicit_setting(tmp_path):
