@@ -6,6 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each one is a check; any failure exits non-zero):
   1. the card: CUDA must be available; prints name and power limit;
   2. the build: nvcc builds the kernels from src/repro_torch/**/csrc;
+     prints each instantiation's registers and spill bytes from the
+     ptxas report, and fails unless the SASS of every bf16 instantiation
+     of K5 holds tensor-core instructions (HMMA or HGMMA);
   3. the batched CAP front door at full width (N = 256 tenants ×
      k = 4096 jobs, float32): ``solve_cap_batched(impl="auto")`` with a
      shared shifted power (CUDA kernel generic_waterfill) and a per-job
@@ -32,17 +35,23 @@ Phases (each one is a check; any failure exits non-zero):
      local layer and the a/b of the first RG-LRU layer of wave 0: in f32
      (the inputs cast up, both run there) to a limit in units of the
      plain output's RMS, in bf16 to a wider relative limit, with planted
-     faults that must read over the f32 limits; then K5 the same way on
-     the option sets of the dense configs and of the wrapper's edges
-     (``K5_OPTIONS``: softcap, grouped-query heads at hd 64 and 128,
-     global causal, ragged and cross lengths, rows with no unmasked key);
+     faults that must read over the f32 limits; K5's bf16 (tensor-core)
+     output also against the f32 plain output of the same bf16 inputs in
+     RMS units, with the planted faults run through the bf16 kernel;
+     then K5 the same ways on the option sets of the dense configs and of
+     the wrapper's edges (``K5_OPTIONS``: softcap, grouped-query heads at
+     hd 64 and 128, global causal, ragged and cross lengths, rows with no
+     unmasked key), and K4 on shapes that test its chunks and lanes
+     (``K4_OPTIONS``: one step, under one chunk, ragged chunks and lanes,
+     a 65536-step look-back chain, the serving shape);
   9. end to end: wave 0's prompt through the model with its two kernel
      call sites patched to the plain versions, teacher-forced on the
      kernel run's tokens; prefill and decode logits in units of the logits' std,
      with planted faults that must read over the limit;
  10. times of K4 and K5 at the path's shapes (kernel, plain version,
-     the kernel's device time from the profiler, the bound, and for K5
-     one ``scaled_dot_product_attention`` call as a yardstick), and a
+     the kernel's device time from the profiler, the bound, for K5 one
+     ``scaled_dot_product_attention`` call as a yardstick and the f32
+     instantiation's time), and a
      profile of one wave: the device's busy share in prefill and decode.
 
 Launch counters are reset before phases 3–4 drive the planning path
@@ -104,6 +113,34 @@ def card_line():
         timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def build_report(_build):
+    """Phase 2: registers and spill bytes of every kernel instantiation
+    from the ptxas reports, and the tensor-core instructions (HMMA,
+    HGMMA) in the SASS of each K5 instantiation; fails unless every bf16
+    instantiation of K5 holds some."""
+    usage = {}
+    for name in _build.SOURCES:
+        report = _build.ptxas_report(name)
+        check(report, f"no ptxas report for {name}")
+        for fn, u in _build.ptxas_usage(report).items():
+            usage[_build.kernel_label(fn)] = u
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    lib = _build.library_path("flash_attention")
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {lib.name} failed: "
+                               f"{out.stderr.strip()[-500:]}")
+    counts = {_build.kernel_label(fn): c for fn, c in
+              _build.sass_counts(out.stdout, ("HMMA", "HGMMA")).items()
+              if "flash_attention_kernel" in fn}
+    bf16 = {k: c for k, c in counts.items() if "<bf16," in k}
+    check(len(bf16) == 3, f"K5's SASS lacks bf16 instantiations: {counts}")
+    for k, c in bf16.items():
+        check(c["HMMA"] + c["HGMMA"] > 0,
+              f"{k} holds no tensor-core instruction: {c}")
+    return usage, counts
 
 
 def timed(torch, fn, runs=25):
@@ -246,6 +283,13 @@ def planted_faults(theta, c, A, w, g, s, b, short):
 K5_F32_LIMIT = 1e-3
 K4_F32_LIMIT = 1e-4
 BF16_LIMIT = 1e-1
+# K5's bf16 instantiation (tensor cores, p rounded to bf16) against the
+# f32 plain output of the same bf16 inputs, in units of that output's
+# RMS; planted faults run through the bf16 kernel must read over it.  At
+# the serving shape the sound reading is half a bf16 ulp of the largest
+# output (0.0078 at |o| in [2, 4), 0.14 RMS units), which the plain
+# version rounded to bf16 reads too; the faults read 0.32–1.8.
+K5_BF16_RMS_LIMIT = 0.2
 # End to end, logits max |Δ| in units of the plain run's std.  In bf16 the
 # reading is about one bf16 ulp of the largest logit, and with random
 # weights the attention branch adds too little to the logits for a
@@ -451,14 +495,18 @@ def kernel_phase(torch, cap):
     plain16 = attention_ref(q, k, v, **kw)
     r5["bf16_rel"] = rel_err(out16, plain16)
     r5["bf16_max_abs"] = float((out16.float() - plain16.float()).abs().max())
-    for name, fault in ATTN_FAULTS.items():
-        wrong = fault(q32, k32, v32, **kw)
-        if name == "causal_off":              # one q tile past the window
-            r0 = kw["window"]
-            wrong, rows = fk.flash_attention(q32, k32, v32, **kw), wrong
-            wrong[:, r0:r0 + 64] = rows[:, r0:r0 + 64]
-            name = "causal_off_one_tile"
-        r5[f"fault_{name}"] = rms_err(wrong, plain)
+    r5["bf16_rms_units"] = rms_err(out16, plain)
+    r5["plain_bf16_rms_units"] = rms_err(plain16, plain)
+    for dt, (qi, ki, vi) in (("", (q32, k32, v32)), ("bf16_", (q, k, v))):
+        sound = out16 if dt else fk.flash_attention(q32, k32, v32, **kw)
+        for name, fault in ATTN_FAULTS.items():
+            wrong = fault(qi, ki, vi, **kw)
+            if name == "causal_off":          # one q tile past the window
+                r0 = kw["window"]
+                wrong, rows = sound.clone(), wrong
+                wrong[:, r0:r0 + 64] = rows[:, r0:r0 + 64]
+                name = "causal_off_one_tile"
+            r5[f"{dt}fault_{name}"] = rms_err(wrong, plain)
 
     a, b = cap["ab"][0][:2]
     plain4 = linear_scan_ref(a, b)
@@ -475,7 +523,7 @@ def kernel_phase(torch, cap):
                                                  "kv": list(k.shape), **kw},
           "K4_shape": list(a.shape),
           "limits": {"K5_f32": K5_F32_LIMIT, "K4_f32": K4_F32_LIMIT,
-                     "bf16": BF16_LIMIT},
+                     "bf16": BF16_LIMIT, "K5_bf16_rms": K5_BF16_RMS_LIMIT},
           "K5": r5, "K4": r4})
     for name, r, lim in (("K5", r5, K5_F32_LIMIT), ("K4", r4, K4_F32_LIMIT)):
         check(r["f32_rms_units"] <= lim,
@@ -486,6 +534,13 @@ def kernel_phase(torch, cap):
             if key.startswith("fault_"):
                 check(val > lim, f"{name}: the planted fault {key} reads "
                                  f"{val:.3e}, within the limit {lim}")
+    check(r5["bf16_rms_units"] <= K5_BF16_RMS_LIMIT,
+          f"K5 bf16 vs f32 plain: {r5['bf16_rms_units']:.3e} > "
+          f"{K5_BF16_RMS_LIMIT} RMS units")
+    for key, val in r5.items():
+        if key.startswith("bf16_fault_"):
+            check(val > K5_BF16_RMS_LIMIT, f"K5: the planted fault {key} "
+                  f"reads {val:.3e}, within {K5_BF16_RMS_LIMIT}")
     return {"flash_attention": r5["bf16_max_abs"],
             "linear_scan": r4["f32_max_abs"]}
 
@@ -495,9 +550,10 @@ def kernel_phase(torch, cap):
 # multiples of the 64-row tiles), gemma2's softcap 50 with and without
 # its window, grouped-query attention with 4 q heads per kv head at hd
 # 64 (llama3.2) and 128, multi-head at hd 128 (qwen1.5, deepseek), a
-# cross-length unmasked call, an hd that is no power of two, and rows
-# that have no unmasked key (a window, S ≥ T + window), whose plain
-# softmax is uniform over all T keys.
+# cross-length unmasked call, an hd that is no power of two, an hd whose
+# rows are not whole 16-byte pieces (the kernel's element copies in both
+# dtypes), and rows that have no unmasked key (a window, S ≥ T + window),
+# whose plain softmax is uniform over all T keys.
 K5_OPTIONS = {
     "gemma2_local_cap50": ((1, 1000, 1000, 4, 2, 128), True, 300, 50.0),
     "gemma2_global_cap50": ((1, 1000, 1000, 4, 2, 128), True, None, 50.0),
@@ -506,6 +562,7 @@ K5_OPTIONS = {
     "mha_hd128": ((1, 500, 500, 4, 4, 128), True, None, None),
     "cross_unmasked": ((1, 300, 77, 4, 2, 64), False, None, None),
     "hd96_window": ((1, 200, 200, 4, 1, 96), True, 64, None),
+    "hd33_element_copies": ((1, 130, 130, 4, 2, 33), True, 50, None),
     "no_key_rows_window": ((1, 100, 77, 4, 2, 16), False, 20, None),
     "no_key_rows_causal": ((1, 400, 150, 2, 1, 16), True, 20, None),
 }
@@ -513,9 +570,11 @@ K5_OPTIONS = {
 
 def k5_options_phase(torch, dev):
     """Phase 8, continued: K5 against its plain version in f32 and bf16
-    on ``K5_OPTIONS``, inputs from a seed.  A planted fault per case (the
-    cap dropped, the window one wider, or causal off) must read over the
-    f32 limit, so each case shows that its options are applied."""
+    on ``K5_OPTIONS``, inputs from a seed; bf16 also in RMS units of the
+    f32 plain output of the same bf16 inputs.  A planted fault per case
+    (the cap dropped, the window one wider, or causal off) must read over
+    the f32 limit and, through the bf16 kernel, over the bf16 RMS limit,
+    so each case shows that its options are applied in both dtypes."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -533,16 +592,21 @@ def k5_options_phase(torch, dev):
         r = {"f32_rms_units": rms_err(fk.flash_attention(q, k, v, **kw),
                                       plain)}
         q16, k16, v16 = q.bfloat16(), k.bfloat16(), v.bfloat16()
-        r["bf16_rel"] = rel_err(fk.flash_attention(q16, k16, v16, **kw),
-                                attention_ref(q16, k16, v16, **kw))
+        out16 = fk.flash_attention(q16, k16, v16, **kw)
+        r["bf16_rel"] = rel_err(out16, attention_ref(q16, k16, v16, **kw))
+        plain16 = attention_ref(q16.float(), k16.float(), v16.float(), **kw)
+        r["bf16_rms_units"] = rms_err(out16, plain16)
         wrong = (dict(kw, cap=None) if cap else
                  dict(kw, window=window + 1) if window else
                  dict(kw, causal=not causal))
         r["fault"] = rms_err(fk.flash_attention(q, k, v, **wrong), plain)
+        r["bf16_fault"] = rms_err(fk.flash_attention(q16, k16, v16, **wrong),
+                                  plain16)
         got[name] = r
     torch.cuda.synchronize()
     emit({"phase": "K5_options", "limits": {"f32": K5_F32_LIMIT,
-                                            "bf16": BF16_LIMIT},
+                                            "bf16": BF16_LIMIT,
+                                            "bf16_rms": K5_BF16_RMS_LIMIT},
           "readings": got})
     for name, r in got.items():
         check(r["f32_rms_units"] <= K5_F32_LIMIT,
@@ -551,6 +615,63 @@ def k5_options_phase(torch, dev):
               f"K5 {name} vs plain in bf16: {r['bf16_rel']:.3e}")
         check(r["fault"] > K5_F32_LIMIT,
               f"K5 {name}: the planted fault reads {r['fault']:.3e}")
+        check(r["bf16_rms_units"] <= K5_BF16_RMS_LIMIT,
+              f"K5 {name} bf16 vs f32 plain: {r['bf16_rms_units']:.3e}")
+        check(r["bf16_fault"] > K5_BF16_RMS_LIMIT,
+              f"K5 {name}: the planted fault in bf16 reads "
+              f"{r['bf16_fault']:.3e}")
+
+
+# K4's shapes that test its chunks and lanes: (B, S, D).  One step; under
+# one chunk; S not a multiple of the chunk; B·D not a multiple of the
+# block's lanes; a long S, where the look-back chain is longest; and the
+# serving shape (where bf16 is read as on every shape).  a in (0.8, 1),
+# as RG-LRU's gates are, and b of std 0.1, from a seed.
+K4_OPTIONS = {
+    "one_step": (2, 1, 2560),
+    "under_one_chunk": (2, 40, 2560),
+    "ragged_chunks": (3, 1000, 2560),
+    "ragged_lanes": (1, 777, 96),
+    "long_chain": (1, 65536, 64),
+    "serving": (2, 4096, 2560),
+}
+
+
+def k4_options_phase(torch, dev):
+    """Phase 8, continued: K4 against its plain version on
+    ``K4_OPTIONS``: f32 in RMS units, bf16 relative, and where S spans at
+    least two chunks the planted faults over the f32 limit."""
+    from repro_torch.kernels.linear_scan import kernel as sk
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    got = {}
+    for name, shape in K4_OPTIONS.items():
+        a = 0.8 + 0.2 * torch.rand(shape, generator=gen, device=dev)
+        b = 0.1 * torch.randn(shape, generator=gen, device=dev)
+        plain = linear_scan_ref(a, b)
+        r = {"f32_rms_units": rms_err(sk.linear_scan(a, b), plain)}
+        a16, b16 = a.bfloat16(), b.bfloat16()
+        r["bf16_rel"] = rel_err(sk.linear_scan(a16, b16),
+                                linear_scan_ref(a16, b16))
+        if shape[1] > sk.CHUNK:
+            for fault in ("carry_reset_halfway", "step_one_slot_late"):
+                r[f"fault_{fault}"] = rms_err(SCAN_FAULTS[fault](a, b),
+                                              plain)
+        got[name] = r
+    torch.cuda.synchronize()
+    emit({"phase": "K4_options", "chunk": sk.CHUNK, "lanes": sk.LANES,
+          "limits": {"f32": K4_F32_LIMIT, "bf16": BF16_LIMIT},
+          "readings": got})
+    for name, r in got.items():
+        check(r["f32_rms_units"] <= K4_F32_LIMIT,
+              f"K4 {name} vs plain in f32: {r['f32_rms_units']:.3e}")
+        check(r["bf16_rel"] <= BF16_LIMIT,
+              f"K4 {name} vs plain in bf16: {r['bf16_rel']:.3e}")
+        for key, val in r.items():
+            if key.startswith("fault_"):
+                check(val > K4_F32_LIMIT, f"K4 {name}: the planted fault "
+                                          f"{key} reads {val:.3e}")
 
 
 def teacher_forced(torch, model, prompt, tokens):
@@ -721,15 +842,20 @@ def serve_times(torch, cap, launches, errs):
     for name, (src, tpu, op, plain_runs, (b_ms, by), lib_ms) in calls.items():
         ms_k = timed(torch, lambda: op("cuda"))
         ms_p = timed(torch, lambda: op("ref"), runs=plain_runs)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                op("cuda")
-            torch.cuda.synchronize()
-        mine = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and f"{name}_kernel" in e.key]
-        n = sum(e.count for e in mine)
+        # the profiler keeps only some launches of a repeated kernel, and
+        # once kept none of ten: up to three traces of ten launches
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    op("cuda")
+                torch.cuda.synchronize()
+            mine = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and f"{name}_kernel" in e.key]
+            n = sum(e.count for e in mine)
+            if n > 0:
+                break
         check(n > 0, f"the profiler saw no {name} kernel on the device")
         dev_ms = sum(e.device_time_total for e in mine) / 1e3 / n
         rec = {"name": name, "route": "cuda", "source": src,
@@ -739,6 +865,10 @@ def serve_times(torch, cap, launches, errs):
         recs.append(rec)
         emit({"phase": "time", **rec, "kernel_device_ms": dev_ms,
               "traced_launches": n})
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    emit({"phase": "K5_f32_time", "q": list(q.shape), **kw,
+          "ms": timed(torch, lambda: fo.flash_attention_op(
+              q32, k32, v32, impl="cuda", **kw), runs=5)})
     emit({"phase": "library", "flash_attention_sdpa_ms": recs[0]["library_ms"],
           "sdpa_vs_plain_bf16_rel": lib_err,
           "linear_scan": "no single PyTorch call computes a linear "
@@ -778,10 +908,9 @@ def main():
     t0 = time.perf_counter()
     reports = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for rep in reports.values()
-             for ln in rep.splitlines() if "registers" in ln or "spill" in ln]
+    usage, tensor_ops = build_report(_build)
     emit({"phase": "build", "seconds": build_s, "sources": sorted(reports),
-          "ptxas": ptxas})
+          "ptxas": usage, "K5_sass": tensor_ops})
 
     # ---- inputs, made from a seed -----------------------------------------
     rng = np.random.default_rng(0)
@@ -1085,6 +1214,7 @@ def main():
     with torch.inference_mode():
         errs = kernel_phase(torch, cap)
         k5_options_phase(torch, dev)
+        k4_options_phase(torch, dev)
         end_to_end_phase(torch, model, prompt0, out0, cap)
         kernels += serve_times(torch, cap, serve_launches, errs)
     serve_profile(torch, model, prompt0)

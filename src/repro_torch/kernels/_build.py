@@ -4,15 +4,20 @@ Each ``csrc/*.cu`` has a plain C interface (no PyTorch headers), so one
 ``nvcc`` call per source builds a shared library in seconds.  Libraries
 land in ``build/repro_torch_kernels/`` at the root of the checkout the
 package runs from (``resolve_build_dir``), named by a hash of the source,
-so an edited source is never served a stale build.  A missing ``nvcc`` or a failed build raises with the compiler's
-output; nothing here falls back to a plain version.  ``use_cuda_for`` is
-the ops modules' one dispatch rule between a kernel and its plain version.
+so an edited source is never served a stale build; the compiler's
+``-Xptxas -v`` report is kept beside each library (``ptxas_report``), and
+``ptxas_usage``, ``sass_counts`` and ``kernel_label`` read registers,
+spills and instruction counts per kernel out of such reports.  A missing
+``nvcc`` or a failed build raises with the compiler's output; nothing
+here falls back to a plain version.  ``use_cuda_for`` is the ops
+modules' one dispatch rule between a kernel and its plain version.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -20,7 +25,9 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_DIR", "SOURCES", "resolve_build_dir", "find_nvcc",
-           "nvcc_command", "build_all", "load", "launch", "use_cuda_for"]
+           "nvcc_command", "build_all", "load", "launch", "use_cuda_for",
+           "library_path", "ptxas_report", "ptxas_usage", "sass_counts",
+           "kernel_label"]
 
 _PKG = Path(__file__).resolve().parent
 BUILD_ENV = "REPRO_TORCH_BUILD_DIR"
@@ -70,16 +77,87 @@ def find_nvcc() -> str:
         f"{DEFAULT_CUDA_HOME}/bin; the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """The shared library built from source ``name``, named by a hash of
+    the source (it may not exist yet)."""
     digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def ptxas_report(name: str) -> str:
+    """The compiler's output (``-Xptxas -v``) from building source
+    ``name``, kept beside the library; empty if it was never built."""
+    path = library_path(name).with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""
+
+
+_PTXAS_FN = re.compile(r"(?:Compiling entry function|Function properties "
+                       r"for) '?([\w$.]+)'?")
+_PTXAS_NUM = {"registers": re.compile(r"Used (\d+) registers"),
+              "stack_bytes": re.compile(r"(\d+) bytes stack frame"),
+              "spill_store_bytes": re.compile(r"(\d+) bytes spill stores"),
+              "spill_load_bytes": re.compile(r"(\d+) bytes spill loads")}
+
+
+def ptxas_usage(report: str) -> dict[str, dict[str, int]]:
+    """Registers, stack and spill bytes per kernel (mangled name) from a
+    ptxas ``-v`` report."""
+    usage: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in report.splitlines():
+        m = _PTXAS_FN.search(line)
+        if m:
+            fn = m.group(1)
+            usage.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        for key, pat in _PTXAS_NUM.items():
+            m = pat.search(line)
+            if m:
+                usage[fn][key] = int(m.group(1))
+    return usage
+
+
+def kernel_label(mangled: str) -> str:
+    """A short name of a kernel instantiation from its mangled name:
+    ``flash_attention_kernel<bf16,256>``, ``linear_scan_kernel<f32>``,
+    ``gwf_waterfill_kernel``."""
+    m = re.search(r"([a-z][a-z_]*_kernel)(?:I(13__nv_bfloat16|f)"
+                  r"(?:Li(\d+)E)?E)?", mangled)
+    if m is None:
+        return mangled
+    name, ty, hd = m.groups()
+    args = ",".join(x for x in ({"13__nv_bfloat16": "bf16",
+                                 "f": "f32"}.get(ty), hd) if x)
+    return f"{name}<{args}>" if args else name
+
+
+def sass_counts(sass: str, opcodes) -> dict[str, dict[str, int]]:
+    """Per function of ``cuobjdump -sass`` output, how many instructions
+    start with each of ``opcodes`` (``HMMA`` counts ``HMMA.16816.F32``)."""
+    counts: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(opcodes, 0)
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                      line)
+        if m and m.group(1) in counts[fn]:
+            counts[fn][m.group(1)] += 1
+    return counts
 
 
 def nvcc_command(name: str, nvcc: str = "nvcc") -> list[str]:
     """The nvcc command line that builds source ``name``."""
     return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
             "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(_target(name)), str(SOURCES[name])]
+            "-o", str(library_path(name)), str(SOURCES[name])]
 
 
 def build_all(names=None) -> dict[str, str]:
@@ -90,7 +168,7 @@ def build_all(names=None) -> dict[str, str]:
     when a build fails.
     """
     names = list(SOURCES if names is None else names)
-    todo = [n for n in names if not _target(n).exists()]
+    todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
     nvcc = find_nvcc()
@@ -102,7 +180,9 @@ def build_all(names=None) -> dict[str, str]:
     for n, p in procs.items():
         out, _ = p.communicate()
         reports[n] = out
-        if p.returncode != 0:
+        if p.returncode == 0:
+            library_path(n).with_suffix(".ptxas.txt").write_text(out)
+        else:
             failed.append(f"--- {n} (nvcc exit {p.returncode}) ---\n{out}")
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
@@ -114,7 +194,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
 

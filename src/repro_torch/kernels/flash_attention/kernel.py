@@ -4,6 +4,8 @@
 q (B, S, H, hd) and k/v (B, T, K, hd), H a multiple of K (query head h
 reads kv head h // (H/K)), with a causal mask, a sliding window and a
 logit softcap; hd ≤ 256; f32 or bf16 in, q's dtype out, f32 inside.
+bf16 runs both products on the tensor cores (``mma.sync``); f32 keeps
+exact f32 FMAs.
 
 The wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates the output with ``torch.empty``, launches on the
@@ -20,7 +22,8 @@ import torch
 
 from .._build import launch
 
-__all__ = ["LAUNCHES", "flash_attention", "reset_launches", "MAX_HEAD_DIM"]
+__all__ = ["LAUNCHES", "flash_attention", "reset_launches", "MAX_HEAD_DIM",
+           "copies_16_bytes"]
 
 # Launches since the last reset, counted where the kernel is launched.
 LAUNCHES = {"flash_attention": 0}
@@ -28,13 +31,21 @@ MAX_HEAD_DIM = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float]
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I]
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 
 
 def reset_launches() -> None:
     LAUNCHES["flash_attention"] = 0
+
+
+def copies_16_bytes(hd, element_size, *tensors) -> bool:
+    """True when the kernel may copy rows in 16-byte pieces: a row of hd
+    elements is whole 16-byte pieces and every tensor starts 16-byte
+    aligned.  Otherwise it copies element by element."""
+    return (hd * element_size) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, cap=None):
@@ -67,10 +78,11 @@ def flash_attention(q, k, v, *, causal=True, window=None, cap=None):
     if cap is not None and cap <= 0:
         raise ValueError(f"cap must be positive, got {cap}")
     out = torch.empty_like(q)
+    vec = copies_16_bytes(hd, q.element_size(), q, k, v, out)
     launch("flash_attention", _ENTRY[q.dtype], _ARGS, q.device,
            _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
            _P(out.data_ptr()), _I(B), _I(S), _I(T), _I(H), _I(K), _I(hd),
            _I(int(bool(causal))), _I(int(window or 0)),
-           ctypes.c_float(float(cap or 0.0)))
+           ctypes.c_float(float(cap or 0.0)), _I(int(vec)))
     LAUNCHES["flash_attention"] += 1
     return out

@@ -6,8 +6,13 @@ linear_scan}.ref``) is held against the JAX package's own plain version
 and its Pallas kernel run in interpret mode, as ``tests/kernels/`` runs
 it on the CPU, on the same inputs made with numpy, at the JAX kernel
 tests' tolerances.  The CUDA kernels themselves are held against these
-plain versions on the card by ``chip_smoke.py``.
+plain versions on the card by ``chip_smoke.py``.  What surrounds them in
+Python is tested here too: K4's launch geometry and scratch sizes, K5's
+rule for 16-byte copies, and the build's ptxas and SASS readers that
+``chip_smoke.py`` reports registers, spills and tensor-core instructions
+with.
 """
+from pathlib import Path
 from unittest import mock
 
 import jax.numpy as jnp
@@ -192,3 +197,116 @@ def test_build_starts_one_nvcc_per_source_all_at_once(monkeypatch, tmp_path):
     assert kinds == ["start"] * 3 + ["wait"] * 3
     assert {e[1].rsplit("/", 1)[-1] for e in events} == {
         "flash_attention.cu", "gwf_waterfill.cu", "linear_scan.cu"}
+
+
+# (B, S, D) of chip_smoke.py's K4_OPTIONS: one step, under one chunk,
+# ragged chunks, ragged lanes, a long look-back chain, the serving shape
+@pytest.mark.parametrize("shape", [(2, 1, 2560), (2, 40, 2560),
+                                   (3, 1000, 2560), (1, 777, 96),
+                                   (1, 65536, 64), (2, 4096, 2560)])
+def test_scan_geometry_covers_the_option_shapes(shape):
+    B, S, D = shape
+    geo = SK.scan_geometry(B, S, D)
+    # every step and channel lies in one block: chunks × d tiles cover
+    # S × D with less than one chunk and one tile to spare
+    assert 0 <= geo.n_chunks * SK.CHUNK - S < SK.CHUNK
+    assert 0 <= geo.n_dtiles * SK.LANES - D < SK.LANES
+    assert geo.blocks == geo.n_chunks * B * geo.n_dtiles
+    # the ticket counter and one flag a block; per chunk and lane the
+    # composite (a, b) and the inclusive prefix
+    assert geo.flag_ints == 1 + geo.blocks
+    assert geo.carry_floats == 3 * geo.n_chunks * B * D
+    assert geo.blocks < 2 ** 31
+
+
+def test_scan_geometry_of_the_serving_shape():
+    assert SK.scan_geometry(2, 4096, 2560) == SK.ScanGeometry(
+        n_chunks=64, n_dtiles=20, blocks=2560, flag_ints=2561,
+        carry_floats=983040)
+
+
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122flash_attention_kernelI13__nv_bfloat16Li256EEEvPKT_S4_S4_PS2_iiiiiiiifii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122flash_attention_kernelI13__nv_bfloat16Li256EEEvPKT_S4_S4_PS2_iiiiiiiifii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 245 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118linear_scan_kernelIfEEvPKT_S3_PS1_iiiiiPiPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118linear_scan_kernelIfEEvPKT_S3_PS1_iiiiiPiPf
+    48 bytes stack frame, 44 bytes spill stores, 44 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 8 bytes smem
+"""
+
+
+def test_ptxas_usage_reads_registers_and_spills_per_kernel():
+    got = {_build.kernel_label(fn): u
+           for fn, u in _build.ptxas_usage(PTXAS_REPORT).items()}
+    assert got == {
+        "flash_attention_kernel<bf16,256>": {
+            "stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
+            "registers": 245},
+        "linear_scan_kernel<f32>": {
+            "stack_bytes": 48, "spill_store_bytes": 44,
+            "spill_load_bytes": 44, "registers": 168}}
+
+
+def test_kernel_label_names_type_and_width():
+    assert _build.kernel_label(
+        "_ZN12_GLOBAL__N_122flash_attention_kernelIfLi64EEEvPKT_S3_S3_PS1_"
+        "iiiiiiiifii") == "flash_attention_kernel<f32,64>"
+    assert _build.kernel_label(
+        "_ZN12_GLOBAL__N_118linear_scan_kernelI13__nv_bfloat16EEvPKT_S4_"
+        "PS2_iiiiiPiPf") == "linear_scan_kernel<bf16>"
+    assert _build.kernel_label(
+        "_ZN12_GLOBAL__N_124generic_waterfill_kernelEPKfS1_") == \
+        "generic_waterfill_kernel"
+
+
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_122flash_attention_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_PS2_iiiiiiiifii
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;
+        /*0020*/              @!P0 HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
+        /*0030*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+\t\tFunction : _ZN12_GLOBAL__N_122flash_attention_kernelIfLi64EEEvPKT_S3_S3_PS1_iiiiiiiifii
+        /*0000*/                   FFMA R4, R5, R6, R4 ;
+"""
+
+
+def test_sass_counts_tensor_core_instructions_per_kernel():
+    got = {_build.kernel_label(fn): c for fn, c in
+           _build.sass_counts(SASS, ("HMMA", "HGMMA")).items()}
+    assert got == {"flash_attention_kernel<bf16,64>": {"HMMA": 1, "HGMMA": 2},
+                   "flash_attention_kernel<f32,64>": {"HMMA": 0, "HGMMA": 0}}
+
+
+def test_copies_16_bytes_needs_whole_pieces_and_aligned_starts():
+    x = torch.zeros(64, dtype=torch.bfloat16)
+    assert x.data_ptr() % 16 == 0
+    assert FK.copies_16_bytes(64, 2, x, x)
+    assert FK.copies_16_bytes(8, 2, x)
+    assert not FK.copies_16_bytes(12, 2, x)        # 24-byte rows
+    assert not FK.copies_16_bytes(64, 2, x, x[1:])  # starts 2 bytes in
+    assert FK.copies_16_bytes(4, 4, torch.zeros(8))  # f32: 4 a piece
+
+
+def test_build_keeps_each_ptxas_report_beside_its_library(monkeypatch,
+                                                          tmp_path):
+    class FakeProc:
+        def __init__(self, cmd, **kw):
+            self.name = Path(cmd[-1]).stem
+            self.returncode = 0
+
+        def communicate(self):
+            return f"ptxas info    : report of {self.name}", None
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+    assert _build.ptxas_report("linear_scan") == ""
+    with mock.patch.object(_build.subprocess, "Popen", FakeProc):
+        _build.build_all()
+    for name in _build.SOURCES:
+        assert _build.ptxas_report(name) == f"ptxas info    : report of {name}"
+        assert _build.library_path(name).parent == tmp_path / "build"
