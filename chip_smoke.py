@@ -7,8 +7,9 @@ Phases (each one is a check; any failure exits non-zero):
   1. the card: CUDA must be available; prints name and power limit;
   2. the build: nvcc builds the kernels from src/repro_torch/**/csrc;
      prints each instantiation's registers and spill bytes from the
-     ptxas report, and fails unless the SASS of every bf16 instantiation
-     of K5 holds tensor-core instructions (HMMA or HGMMA);
+     ptxas report, fails if an instantiation of K1 or K2 spills, and
+     fails unless the SASS of every bf16 instantiation of K5 holds
+     tensor-core instructions (HMMA or HGMMA);
   3. the batched CAP front door at full width (N = 256 tenants ×
      k = 4096 jobs, float32): ``solve_cap_batched(impl="auto")`` with a
      shared shifted power (CUDA kernel generic_waterfill) and a per-job
@@ -19,11 +20,16 @@ Phases (each one is a check; any failure exits non-zero):
      against the float64 closed form) per row in units of the mean
      allocation, check the KKT conditions (K1, K2) or the common level
      and budget (K3), and show that planted faults fail those checks;
+     then K1 and K2 the same ways on ``CAP_OPTIONS`` (pure and saturating
+     shared families, K = 1, 37, 5000 and 65536, N = 1, a row with no
+     active job, b = 1e-3), each with its bisection cut short;
   5. planning on the card in float64: the quickstart instance, the
      batched-planning instance, and ``smartfill_batched`` at N = 256,
      M = 32 against the port's own CPU run;
   6. times: each kernel and its plain version (CUDA events, median of
-     25 after a warm-up) and the wall time of each planning phase;
+     25 after a warm-up), the wall time of each planning phase, and a
+     profile of each op's device kernels (K1's must be at most two a
+     call: its bracket is the kernel's);
   7. serving: full-width recurrentgemma-2b in bf16 (random weights from
      a seeded generator on the card), ``ServeEngine.generate`` over three
      waves of B = 2 prompts of 4096 tokens (past the 2048 window), 16
@@ -118,14 +124,20 @@ def card_line():
 def build_report(_build):
     """Phase 2: registers and spill bytes of every kernel instantiation
     from the ptxas reports, and the tensor-core instructions (HMMA,
-    HGMMA) in the SASS of each K5 instantiation; fails unless every bf16
-    instantiation of K5 holds some."""
+    HGMMA) in the SASS of each K5 instantiation; fails if K1 or K2
+    spills, or unless every bf16 instantiation of K5 holds some."""
     usage = {}
     for name in _build.SOURCES:
         report = _build.ptxas_report(name)
         check(report, f"no ptxas report for {name}")
         for fn, u in _build.ptxas_usage(report).items():
             usage[_build.kernel_label(fn)] = u
+    for label, u in usage.items():
+        if label.split("<")[0] in ("generic_waterfill_kernel",
+                                   "hetero_waterfill_kernel"):
+            check(u.get("spill_store_bytes", 0) == 0
+                  and u.get("spill_load_bytes", 0) == 0,
+                  f"{label} spills: {u}")
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     lib = _build.library_path("flash_attention")
     out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
@@ -267,6 +279,130 @@ def planted_faults(theta, c, A, w, g, s, b, short):
     parked = torch.where(tot > 0, parked * (bk / tot), parked)
     late = torch.where(active, torch.roll(th, 1, dims=-1), 0.0)
     return {"cut_short": short, "park_0.9": parked, "one_slot_late": late}
+
+
+def cap_instance(rng, N_, K_, b_lo, b_hi, kinds=3):
+    """A batched CAP instance from ``rng``: c (N_, K_) with a random
+    prefix of at least half the jobs active, sorted descending in
+    [0.01, 1]; budgets b evenly from b_lo to b_hi; and per-job families
+    (A, w, γ, σ), each job a power, a log or a saturating speedup (the
+    first ``kinds`` of the three) with z_sat in [b_hi, 2 b_hi]."""
+    import numpy as np
+    C = np.zeros((N_, K_))
+    for n in range(N_):
+        k = int(rng.integers(max(K_ // 2, 1), K_ + 1))
+        C[n, :k] = np.sort(rng.uniform(0.01, 1.0, k))[::-1]
+    b = np.linspace(b_lo, b_hi, N_)
+    fam = rng.integers(0, kinds, (N_, K_))       # 0 power, 1 log, 2 satur.
+    a_ = rng.uniform(0.5, 2.0, (N_, K_))
+    p_pow = rng.uniform(0.3, 0.8, (N_, K_))
+    p_log = rng.uniform(0.5, 2.0, (N_, K_))
+    p_sat = rng.uniform(1.5, 3.0, (N_, K_))
+    z_sat = rng.uniform(b_hi, 2.0 * b_hi, (N_, K_))   # z ≥ the largest b
+    A_mix = np.where(fam == 0, a_ * p_pow, np.where(fam == 1, a_,
+                                                    a_ * p_sat))
+    w_mix = np.where(fam == 0, 0.0, np.where(fam == 1, 1.0 / p_log, z_sat))
+    g_mix = np.where(fam == 0, p_pow - 1.0, np.where(fam == 1, -1.0,
+                                                     p_sat - 1.0))
+    s_mix = np.where(fam == 2, -1.0, 1.0)
+    return C, b, (A_mix, w_mix, g_mix, s_mix)
+
+
+# K1 and K2 on the shapes and options that test their job tiles and
+# in-kernel bracket: (kernel, shared family or "mix", N, K, b from, b to,
+# first row without an active job).  K = 1 and 37 take part of one
+# register-tile slot; 5000 puts 904 jobs in shared memory; 65536 (N = 4)
+# streams about 50,000 jobs a pass; N = 1; and b = 1e-3 on pure powers,
+# whose θ = 2^t keeps its relative precision at any scale.  K1's families
+# are shared by every instance: shifted power (phase 3's), a pure power
+# (w = 0, the s'(ε) end of the bracket) and a saturating one (σ = −1,
+# b < z: at b = z, s'(b) = 0 and the bracket degenerates in both
+# versions).  Where a job's θ = z − 2^t, both versions round θ to
+# float32's spacing at z, so the b ranges keep b/k_act well above it, as
+# phase 3 does; the limits are phase 3's.  The bisection cut to
+# SHORT_ITERS steps must fail the checks wherever the plain version cut
+# as short does (not where a 16-step bracket is already within them: few
+# jobs, or one pure power shared by a row, whose θ ∝ λ^{1/γ} the rescale
+# undoes).
+CAP_FAMILIES = {"shifted": (0.5, 4.0, -0.5, 1), "power": (0.5, 0.0, -0.5, 1),
+                "saturating": (2.0, 10.0, 1.0, -1)}
+CAP_OPTIONS = {
+    "K1_power_w0": ("K1", "power", 64, 4096, 1.0, 40.0, False),
+    "K1_saturating": ("K1", "saturating", 64, 512, 4.0, 8.0, False),
+    "K1_K1": ("K1", "shifted", 8, 1, 1.0, 40.0, False),
+    "K1_K37_empty_row": ("K1", "shifted", 16, 37, 1.0, 40.0, True),
+    "K1_K5000": ("K1", "shifted", 16, 5000, 10.0, 40.0, False),
+    "K1_K65536": ("K1", "shifted", 4, 65536, 10.0, 40.0, False),
+    "K1_N1": ("K1", "shifted", 1, 4096, 20.0, 20.0, False),
+    "K1_b_1e-3": ("K1", "power", 16, 4096, 1e-3, 1e-3, False),
+    "K2_K1": ("K2", "mix", 8, 1, 1.0, 40.0, False),
+    "K2_K37_empty_row": ("K2", "mix", 16, 37, 1.0, 40.0, True),
+    "K2_K5000": ("K2", "mix", 16, 5000, 10.0, 40.0, False),
+    "K2_K65536": ("K2", "mix", 4, 65536, 35.0, 40.0, False),
+    "K2_N1": ("K2", "mix", 1, 4096, 20.0, 20.0, False),
+    "K2_b_1e-3": ("K2", "power_mix", 16, 4096, 1e-3, 1e-3, False),
+}
+
+
+def cap_options_phase(torch, dev):
+    """Phase 3, continued: K1 and K2 against their plain versions on
+    ``CAP_OPTIONS``, in units of b/k_act and by their KKT conditions, with
+    the bisection cut to SHORT_ITERS steps as the planted fault."""
+    import numpy as np
+    from repro_torch.kernels.gwf_waterfill import kernel as wk
+    from repro_torch.kernels.gwf_waterfill import ref as wr
+
+    got = {}
+    for i, (name, (kern, fam, N_, K_, b_lo, b_hi, empty)) in \
+            enumerate(CAP_OPTIONS.items()):
+        rng = np.random.default_rng(100 + i)
+        C, b, mix = cap_instance(rng, N_, K_, b_lo, b_hi,
+                                 kinds=1 if fam == "power_mix" else 3)
+        if empty:
+            C[0] = 0.0
+        c = torch.tensor(C, dtype=torch.float32, device=dev)
+        bd = torch.tensor(b, dtype=torch.float32, device=dev)
+        if kern == "K1":
+            A, w, g, sig = CAP_FAMILIES[fam]
+            params = [torch.tensor(float(x), device=dev)
+                      for x in (A, w, g, sig)]
+
+            def run(iters, fn=wk.generic_waterfill):
+                return fn(c, A, w, g, bd, sigma=sig, iters=iters)
+            plain_fn = wr.generic_waterfill_ref
+        else:
+            params = [torch.tensor(x, dtype=torch.float32, device=dev)
+                      for x in mix]
+
+            def run(iters, fn=wk.hetero_waterfill):
+                return fn(c, *params, bd, iters=iters)
+            plain_fn = wr.hetero_waterfill_ref
+        plain = run(ITERS, plain_fn)
+        scale = bd.double() / (c > 0).sum(1).clamp_min(1).double()
+        lim = ALLOC_LIMIT[kern]
+
+        def readings(th):
+            r = {"alloc": alloc_err(th, plain, scale)}
+            r["kkt_spread"], r["kkt_park"] = kkt_residual(th, c, *params, bd)
+            r["bad"] = (r["alloc"] > lim
+                        or max(r["kkt_spread"], r["kkt_park"]) > KKT_LIMIT)
+            return r
+
+        th = run(ITERS)
+        r = readings(th)
+        r["fault_cut_short"] = readings(run(SHORT_ITERS))
+        r["plain_cut_short"] = readings(run(SHORT_ITERS, plain_fn))
+        r["inactive_zero"] = bool((th[c <= 0] == 0).all())
+        r["finite"] = bool(torch.isfinite(th).all())
+        got[name] = r
+        check(r["finite"] and r["inactive_zero"] and not r["bad"],
+              f"{name}: readings {r} beyond alloc {lim}, KKT {KKT_LIMIT}")
+        check(r["fault_cut_short"]["bad"] or not r["plain_cut_short"]["bad"],
+              f"{name}: the bisection cut short passes the checks, the "
+              f"plain version cut as short does not: {r}")
+    emit({"phase": "cap_options",
+          "limits": {"alloc": ALLOC_LIMIT, "kkt": KKT_LIMIT},
+          "readings": got})
 
 
 # ---- the serving path: K4 and K5 ---------------------------------------------
@@ -914,23 +1050,7 @@ def main():
 
     # ---- inputs, made from a seed -----------------------------------------
     rng = np.random.default_rng(0)
-    C = np.zeros((N, K))
-    for n in range(N):
-        k = int(rng.integers(K // 2, K + 1))
-        C[n, :k] = np.sort(rng.uniform(0.01, 1.0, k))[::-1]
-    b = np.linspace(1.0, 40.0, N)
-    fam = rng.integers(0, 3, (N, K))              # 0 power, 1 log, 2 satur.
-    a_ = rng.uniform(0.5, 2.0, (N, K))
-    p_pow = rng.uniform(0.3, 0.8, (N, K))
-    p_log = rng.uniform(0.5, 2.0, (N, K))
-    p_sat = rng.uniform(1.5, 3.0, (N, K))
-    z_sat = rng.uniform(40.0, 80.0, (N, K))       # z ≥ the largest budget
-    A_mix = np.where(fam == 0, a_ * p_pow, np.where(fam == 1, a_,
-                                                    a_ * p_sat))
-    w_mix = np.where(fam == 0, 0.0, np.where(fam == 1, 1.0 / p_log, z_sat))
-    g_mix = np.where(fam == 0, p_pow - 1.0, np.where(fam == 1, -1.0,
-                                                     p_sat - 1.0))
-    s_mix = np.where(fam == 2, -1.0, 1.0)
+    C, b, (A_mix, w_mix, g_mix, s_mix) = cap_instance(rng, N, K, 1.0, 40.0)
     m3 = 3 * K // 4                               # 25% inactive bottles
     c3 = np.sort(rng.uniform(0.01, 1.0, K))[::-1].copy()
     b3 = 200.0
@@ -1022,6 +1142,7 @@ def main():
           "K1_vs_closed_f64": err1c, "K2_vs_plain": err2,
           "limits": {"alloc": ALLOC_LIMIT, "kkt": KKT_LIMIT},
           "readings": readings})
+    cap_options_phase(torch, dev)
 
     # ---- 4. K3 against its plain version and the f64 closed form ----------
     plain3 = ops.gwf_waterfill_op(u3, h3, b3, iters=ITERS, impl="ref")
@@ -1162,7 +1283,7 @@ def main():
         "generic_waterfill": (
             151, lambda impl: ops.generic_waterfill_op(
                 Cd, Af, wf, gf, bd, iters=ITERS, impl=impl),
-            err1, 4 * (2 * N * K + 8 * N), (ITERS + 1) * n_act * 12),
+            err1, 4 * (2 * N * K + 4 * N), (ITERS + 1) * n_act * 12),
         "hetero_waterfill": (
             257, lambda impl: ops.hetero_waterfill_op(
                 Cd, *mix32, bd, iters=ITERS, impl=impl),
@@ -1186,9 +1307,9 @@ def main():
         emit({"phase": "time", **rec})
 
     # where a call's time goes on the device: the kernel itself vs the
-    # wrapper's own small PyTorch kernels (K1's λ-bracket, the casts).
-    # Averaged per launch of the kernel, so a trace that drops events
-    # still gives per-call figures.
+    # wrapper's own small PyTorch kernels (casts, if any).  Averaged per
+    # launch of the kernel, so a trace that drops events still gives
+    # per-call figures.
     split = {}
     for name, (_, op, *_) in calls.items():
         with profile(activities=[ProfilerActivity.CPU,
@@ -1207,7 +1328,13 @@ def main():
                        "other_device_ms": (t_all - t_mine) / n,
                        "device_kernels_per_call":
                            sum(e.count for e in on_dev) / n}
+    for rec in kernels:
+        sp = split[rec["name"]]
+        sp["op_over_kernel_ms"] = rec["ms"] / sp["kernel_device_ms"]
     emit({"phase": "profile", **split})
+    check(split["generic_waterfill"]["device_kernels_per_call"] <= 2,
+          f"K1 launches more than its kernel and one cast a call: "
+          f"{split['generic_waterfill']}")
 
     # ---- 7–10. serving recurrentgemma-2b through K4 and K5 -----------------
     model, prompt0, out0, cap, serve_launches = serve_phase(torch, np, dev)

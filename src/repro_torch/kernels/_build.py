@@ -122,8 +122,8 @@ def ptxas_usage(report: str) -> dict[str, dict[str, int]]:
 def kernel_label(mangled: str) -> str:
     """A short name of a kernel instantiation from its mangled name:
     ``flash_attention_kernel<bf16,256>``, ``linear_scan_kernel<f32>``,
-    ``gwf_waterfill_kernel``."""
-    m = re.search(r"([a-z][a-z_]*_kernel)(?:I(13__nv_bfloat16|f)"
+    ``hetero_waterfill_kernel<256>``, ``gwf_waterfill_kernel``."""
+    m = re.search(r"([a-z][a-z_]*_kernel)(?:I(13__nv_bfloat16|f)?"
                   r"(?:Li(\d+)E)?E)?", mangled)
     if m is None:
         return mangled

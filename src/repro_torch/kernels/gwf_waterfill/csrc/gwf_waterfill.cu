@@ -3,42 +3,74 @@
 //
 // Every kernel is a fixed-count bisection whose step is an elementwise map
 // over the job axis followed by one sum.  One thread block owns one
-// instance: its threads walk the instance's jobs in a strided loop (so any
-// K works, with no padding), each step ends in a block reduction (warp
-// shuffles, then the per-warp partials through shared memory, summed in
-// the same order by every thread), and the bracket stays in registers.
-// Instances are independent, so the grid's order does not matter.
+// instance, every step ends in a block reduction whose result every thread
+// holds, and the bracket stays in registers.  Instances are independent,
+// so the grid's order does not matter.
 //
-// Precision: logf/expf (the accurate library versions, not __logf/__expf;
-// the build passes no --use_fast_math) stand in for the power function, as
-// exp/log did in the TPU kernels.  Each is within 2 ulp, so a power
-// x^e = expf(e·logf(x)) carries about (1 + |e ln x|) ulp, and θ = σ(x^e − w)
-// that much of |w + σθ| in absolute terms: about 1e-4 for a saturating job
-// with w = 80.  chip_smoke.py holds each kernel against its plain version
-// per row in units of the mean allocation b / k_act (limits 1e-2 for K1
-// and K3, 1e-1 for K2, whose saturating jobs leave that 1e-4), and K1 and
-// K2 to their KKT conditions as well, since the final rescale would hide
-// a wrong λ from a row sum; the JAX kernel tests' tolerances stay as
-// outer bounds.
+// K1 and K2 bisect in L = log2 λ.  Job i's allocation at L is
+//   θ_i = clip(σ_i (2^{t_i} − w_i), 0, b),  t_i = (L + log2(c_i/A_i)) / γ_i,
+// and 0 where L ≥ P_i = log2(s_i'(0)/c_i) (parked) or c_i = 0 (inactive).
+// The first pass derives, per job, 1/γ_i, the pair β_i = bhi + blo (float
+// hi and lo words) holding (L_c + log2(c_i/A_i))/γ_i, σ_i, −σ_i w_i and P_i
+// − L_c; a pass is then t = fmaf(1/γ, u, bhi) + blo with u = L − L_c, one
+// exp2, an fmaf, a clip and a select: no division, no log, and for the
+// jobs of the register tile no load.
 //
-// The C interface takes raw pointers, sizes, the iteration count and the
-// stream; every entry point launches on that stream and returns
-// cudaGetLastError().  The wrapper in kernel.py allocates the outputs.
+// Precision.  log2 c and log2 A are each taken as frexpf's exponent plus
+// log2f of the mantissa in [0.5, 1), so their absolute error stays near
+// 1e-7 however large |log2 c| is; β is formed in double and split into
+// two floats.  The centre L_c is 0 until step kRecentre and then the
+// bracket's midpoint, where β moves by fmaf(1/γ, L_c, bhi) + blo: after
+// that u, not L, is bisected, whose float32 spacing is finer than λ's own
+// (L's spacing at |L| in [8, 16) is 9.5e-7, a step of 6.6e-7 in λ, five
+// times λ's float32 spacing).  So t carries one to two ulp of its own
+// value (4.8e-7 at t in [4, 8)) and ex2.approx two ulp of 2^t: a
+// saturating job θ = z − 2^t with z up to 80 keeps ~3e-5 of float32
+// rounding, as much as the plain version's pow does.  The build passes no
+// --use_fast_math.  tools/ablate_kernels.py reads the library exp2f, a
+// move in double and no move at all against the plain version in float64.
+// chip_smoke.py holds each kernel against its plain version per row in
+// units of the mean allocation b / k_act (limits 1e-2 for K1 and K3, 1e-1
+// for K2, whose saturating jobs leave that rounding), and K1 and K2 to
+// their KKT conditions as well, since the final rescale would hide a
+// wrong λ from a row sum; the JAX kernel tests' tolerances stay as outer
+// bounds.
+//
+// The C interface takes raw pointers, sizes, the iteration count, the
+// block size, the job tile it was sized for and the stream; every entry
+// point launches on that stream and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a block size or tile it was not built for.
+// The wrapper in kernel.py allocates the outputs.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr float kF32Big = 1e30f;   // float32 stand-in for an infinite s'(0)
 
+// K1 and K2's job tile: a block holds kTileJobs jobs in registers (jobs
+// j ≡ threadIdx.x mod NT, kTileJobs / NT of them a thread), up to
+// kSmemBytes of further jobs' state in dynamic shared memory, and derives
+// the rest from device memory in every pass.  kernel.py's TILE_JOBS and
+// SMEM_BYTES; the entry points refuse a tile sized otherwise.
+constexpr int kTileJobs = 4096;
+constexpr int kSmemBytes = 196608;
+constexpr int kRecentre = 24;      // the step at which L_c moves (see top)
+
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// ---------------------------------------------------------------------------
+// Reductions.
+// ---------------------------------------------------------------------------
 enum Op { kSum, kMin, kMax };
 
-// Block-wide reduction over NT threads; every thread returns the same
-// value.  The leading __syncthreads keeps a call from overwriting
+// K3's block-wide reduction over NT threads; every thread returns the
+// same value.  The leading __syncthreads keeps a call from overwriting
 // partials an earlier call is still reading.
-template <Op op, int NT = kThreads>
+template <Op op, int NT>
 __device__ float block_reduce(float v, float* partial) {
   for (int o = 16; o > 0; o >>= 1) {
     float u = __shfl_xor_sync(0xffffffffu, v, o);
@@ -55,162 +87,389 @@ __device__ float block_reduce(float v, float* partial) {
   return r;
 }
 
-__device__ __forceinline__ float clip(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
-__device__ __forceinline__ float log_mid(float lo, float hi) {
-  return expf(0.5f * (logf(lo) + logf(hi)));
+__device__ __forceinline__ float2 warp_min_max(float2 v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    v.x = fminf(v.x, __shfl_xor_sync(0xffffffffu, v.x, o));
+    v.y = fmaxf(v.y, __shfl_xor_sync(0xffffffffu, v.y, o));
+  }
+  return v;
+}
+
+// K1 and K2's block reductions, one barrier each.  A warp folds its lanes
+// by an xor butterfly (every lane ends with the same bits, as a + b ==
+// b + a), lane 0 posts the warp's value, and after the barrier every warp
+// folds the posted values the same way: all threads hold the same result
+// and take the same branch.  Calls post to alternate halves of `part`: a
+// warp that runs on posts to the other half, and cannot post to this one
+// again before every warp has passed the next barrier, that is has read it.
+template <int NT>
+struct BlockReduce {
+  float2 (*part)[32];
+  int calls;
+
+  __device__ float sum(float v) {
+    float2* p = part[calls++ & 1];
+    v = warp_sum(v);
+    if ((threadIdx.x & 31) == 0) p[threadIdx.x >> 5].x = v;
+    __syncthreads();
+    const int lane = threadIdx.x & 31;
+    return warp_sum(lane < NT / 32 ? p[lane].x : 0.0f);
+  }
+
+  // (min of v.x, max of v.y) at once
+  __device__ float2 min_max(float2 v) {
+    float2* p = part[calls++ & 1];
+    v = warp_min_max(v);
+    if ((threadIdx.x & 31) == 0) p[threadIdx.x >> 5] = v;
+    __syncthreads();
+    const int lane = threadIdx.x & 31;
+    return warp_min_max(lane < NT / 32
+                            ? p[lane]
+                            : make_float2(CUDART_INF_F, -CUDART_INF_F));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// K1 and K2's job state and the bisection they share.
+// ---------------------------------------------------------------------------
+
+// log2 x (x > 0) as frexpf's exponent plus log2f of a mantissa in [0.5, 1).
+__device__ __forceinline__ double log2_split(float x) {
+  int e;
+  const float m = frexpf(x, &e);
+  return static_cast<double>(e) + static_cast<double>(log2f(m));
+}
+
+struct Pair { float hi, lo; };
+
+__device__ __forceinline__ Pair split(double x) {
+  const float hi = static_cast<float>(x);
+  return {hi, static_cast<float>(x - static_cast<double>(hi))};
+}
+
+// 2^t by the MUFU alone (ex2.approx.ftz: 2 ulp, as exp2f, which adds
+// three instructions a call to keep subnormal results).
+__device__ __forceinline__ float exp2_ftz(float t) {
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(t));
+  return e;
+}
+
+// θ of one job at u = L − L_c (see the top of the file).
+__device__ __forceinline__ float theta_at(float u, float ginv, float bhi,
+                                          float blo, float sg, float nsw,
+                                          float park, float b) {
+  const float t = fmaf(ginv, u, bhi) + blo;
+  const float e = exp2_ftz(t);
+  const float th = clip(fmaf(sg, e, nsw), 0.0f, b);
+  return u >= park ? 0.0f : th;
+}
+
+// Moves a job's centre by Lc: β += Lc/γ, folded into the hi word (after
+// the move |β| ≈ |t|, whose ulp bounds t's error anyway), P −= Lc.
+__device__ __forceinline__ void move_centre(float ginv, float& bhi,
+                                            float& blo, float& park,
+                                            float Lc) {
+  bhi = fmaf(ginv, Lc, bhi) + blo;
+  blo = 0.0f;
+  park -= Lc;
+}
+
+// [log2 λ_lo, log2 λ_hi], or [0, 1] (λ in [1, 2]) for a degenerate bracket
+// (no active job); fabsf(x) < inf is false for inf and NaN alike.
+__device__ __forceinline__ float2 log_bracket(float lo, float hi) {
+  const bool good = fabsf(lo) < CUDART_INF_F && lo > 0.0f &&
+                    fabsf(hi) < CUDART_INF_F;
+  return good ? make_float2(log2f(lo), log2f(hi)) : make_float2(0.0f, 1.0f);
+}
+
+// The bisection K1 and K2 share, on a family Fam that derives a job from
+// device memory (Fam::job, folding it into the bracket's partial min and
+// max), turns the bracket's extremes into log2 λ (Fam::bracket), and
+// evaluates and re-centres a job's state.
+template <class Fam, int NT>
+__device__ void bisect(const Fam& fam, float* __restrict__ out, int K,
+                       int iters, int smem_jobs, float* tile,
+                       BlockReduce<NT>& red) {
+  constexpr int kJobs = kTileJobs / NT;   // register-tile jobs a thread
+  using Job = typename Fam::Job;
+  const int tid = threadIdx.x;
+  const int on_chip = kTileJobs + smem_jobs;
+  const float b = fam.b;
+
+  // first pass: every job derived once, into registers, shared memory,
+  // or (past both) only into the bracket
+  float2 br = make_float2(CUDART_INF_F, -CUDART_INF_F);
+  Job reg[kJobs];
+#pragma unroll
+  for (int k = 0; k < kJobs; ++k) {
+    const int j = tid + k * NT;
+    reg[k] = j < K ? fam.job(j, br) : Fam::idle();
+  }
+  for (int j = kTileJobs + tid; j < K; j += NT) {
+    const Job q = fam.job(j, br);
+    if (j < on_chip) Fam::put(tile, smem_jobs, j - kTileJobs, q);
+  }
+  const float2 L = fam.bracket(red.min_max(br));
+  float lo = L.x, hi = L.y, centre = 0.0f;
+
+  auto streamed = [&](int j, bool moved) {
+    float2 unused = br;
+    Job q = fam.job(j, unused);
+    if (moved) fam.move(q, centre);
+    return q;
+  };
+
+  for (int it = 0; it < iters; ++it) {
+    if (it == kRecentre) {
+      centre = 0.5f * (lo + hi);
+      lo -= centre;
+      hi -= centre;
+#pragma unroll
+      for (int k = 0; k < kJobs; ++k) fam.move(reg[k], centre);
+      for (int i = tid; i < smem_jobs; i += NT) {
+        Job q = Fam::get(tile, smem_jobs, i);
+        fam.move(q, centre);
+        Fam::put(tile, smem_jobs, i, q);
+      }
+    }
+    const float mid = 0.5f * (lo + hi);
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kJobs; ++k)
+      if (k * NT < K) s += fam.theta(reg[k], mid);
+    for (int i = tid; i < smem_jobs; i += NT)
+      s += fam.theta(Fam::get(tile, smem_jobs, i), mid);
+    for (int j = on_chip + tid; j < K; j += NT)
+      s += fam.theta(streamed(j, it >= kRecentre), mid);
+    s = red.sum(s);
+    if (s > b) lo = mid; else hi = mid;   // β > b ⇒ λ* right of mid
+  }
+
+  // last pass: θ kept (registers; shared memory, in the job's first word;
+  // θ's own slot when streamed), then one write of the rescaled θ
+  const float u = 0.5f * (lo + hi);
+  const bool moved = iters > kRecentre;
+  float th[kJobs];
+  float s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kJobs; ++k) {
+    th[k] = k * NT < K ? fam.theta(reg[k], u) : 0.0f;
+    s += th[k];
+  }
+  for (int i = tid; i < smem_jobs; i += NT) {
+    const float t = fam.theta(Fam::get(tile, smem_jobs, i), u);
+    tile[i] = t;
+    s += t;
+  }
+  for (int j = on_chip + tid; j < K; j += NT) {
+    const float t = fam.theta(streamed(j, moved), u);
+    out[j] = t;
+    s += t;
+  }
+  const float tot = red.sum(s);
+  // exact budget: rescale the float residual onto the positive allocations
+  const float scale = tot > 0.0f ? b / tot : 1.0f;
+#pragma unroll
+  for (int k = 0; k < kJobs; ++k) {
+    const int j = tid + k * NT;
+    if (j < K) out[j] = fminf(th[k] * scale, b);
+  }
+  for (int i = tid; i < smem_jobs; i += NT)
+    out[kTileJobs + i] = fminf(tile[i] * scale, b);
+  for (int j = on_chip + tid; j < K; j += NT) out[j] = fminf(out[j] * scale, b);
 }
 
 // ---------------------------------------------------------------------------
 // K1 — generic_waterfill.
 // Replaces src/repro/kernels/gwf_waterfill/kernel.py::generic_waterfill
 // (body _generic_wf_kernel).  Batched CAP for one shared regular family
-// s'(θ) = A(w + σθ)^γ: per instance a log-space bisection on λ until
-// Σ θ_i(λ) = b with θ_i = clip(σ((c_i λ/A)^{1/γ} − w), 0, b), jobs with
-// c_i λ ≥ s'(0) parked, c = 0 inactive; then θ is rescaled onto b.
-// Bound on this card: operations.  Each of the iters + 1 passes costs one
-// logf and one expf per job against 8 bytes per job moved once, so at
-// N·K = 1M jobs the transcendental work outweighs the traffic.  The
-// design keeps every pass on chip: c is re-read through L1 (16 KB per
-// instance at K = 4096), only the bracket and one partial sum per warp
-// leave registers, and θ is written once.
-// par is (N, 8): A, w, 1/γ, b, λ_lo, λ_hi, s'(0), unused.
+// s'(θ) = A(w + σθ)^γ, A, w, γ and b per instance (each read at its own
+// element stride, 0 for a value all instances share): per instance a
+// bisection on λ until Σ θ_i(λ) = b with θ_i = clip(σ((c_i λ/A)^{1/γ} −
+// w), 0, b), jobs with c_i λ ≥ s'(0) parked, c = 0 inactive; then θ is
+// rescaled onto b.  The λ-bracket is lam_bracket's (ref.py): [s'(b)/max c,
+// s'(0)/min c · (1 + 1e-6)] over the active c, s'(0) capped at 1e30 and
+// s'(ε), ε = b/(8K), standing in for an infinite one; the first pass
+// reduces min and max c at once.
+// Bound on this card: the 65 dependent steps, not bytes (8 per job, read
+// and written once) nor the MUFU (6.5e7 exp2 at 256 × 4096 take ~0.02 ms).
+// A step is a pass over the thread's jobs in registers (one exp2 and ~8
+// FP32 operations each), one barrier and a branch every thread takes
+// alike; a job's state is three words (β's two, P), so at 512 threads
+// (8 jobs a thread, 58 registers) two instances share an SM.  By
+// tools/ablate_kernels.py the step's reduction is a fifth of the time and
+// the first and last passes a quarter; without the exp2 it is hardly faster.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
+struct SharedFamily {
+  struct Job { float bhi, blo, park; };
+  const float* c;        // this instance's row
+  float ginv, sg, nsw, b;
+  double lA;             // log2 A
+  float lds0;            // log2 s'(0)
+  float ds_b, ds_top;    // s'(b), and s'(0) or s'(ε)
+
+  __device__ static Job idle() { return {0.0f, 0.0f, -CUDART_INF_F}; }
+
+  __device__ Job job(int j, float2& br) const {
+    const float cj = c[j];
+    if (!(cj > 0.0f)) return idle();
+    br.x = fminf(br.x, cj);
+    br.y = fmaxf(br.y, cj);
+    const double lc = log2_split(cj);
+    const Pair beta = split(static_cast<double>(ginv) * (lc - lA));
+    return {beta.hi, beta.lo, static_cast<float>(lds0 - lc)};
+  }
+
+  __device__ float2 bracket(float2 c_min_max) const {
+    const float lo = ds_b / c_min_max.y;
+    const float hi = ds_top / c_min_max.x * (1.0f + 1e-6f);
+    // a NaN hi stays NaN (torch.maximum's rule), so it fails the check
+    return log_bracket(lo, hi != hi ? hi : fmaxf(hi, lo * (1.0f + 1e-6f)));
+  }
+
+  __device__ float theta(const Job& q, float u) const {
+    return theta_at(u, ginv, q.bhi, q.blo, sg, nsw, q.park, b);
+  }
+  __device__ void move(Job& q, float Lc) const {
+    move_centre(ginv, q.bhi, q.blo, q.park, Lc);
+  }
+  __device__ static void put(float* t, int n, int i, const Job& q) {
+    t[i] = q.bhi;
+    t[n + i] = q.blo;
+    t[2 * n + i] = q.park;
+  }
+  __device__ static Job get(const float* t, int n, int i) {
+    return {t[i], t[n + i], t[2 * n + i]};
+  }
+};
+
+template <int NT>
+__global__ void __launch_bounds__(NT)
 generic_waterfill_kernel(const float* __restrict__ c,
-                         const float* __restrict__ par,
+                         const float* __restrict__ A, int sA,
+                         const float* __restrict__ w, int sw,
+                         const float* __restrict__ g, int sg,
+                         const float* __restrict__ b_arr, int sb,
                          float* __restrict__ theta, int K, int iters,
-                         float sigma) {
-  __shared__ float partial[kThreads / 32];
+                         float sigma, int smem_jobs) {
+  extern __shared__ float tile[];
+  __shared__ float2 part[2][32];
+  BlockReduce<NT> red{part, 0};
   const size_t row = blockIdx.x;
-  const float* cr = c + row * K;
-  float* tr = theta + row * K;
-  const float* p = par + row * 8;
-  const float A = p[0], w = p[1], ginv = p[2], b = p[3];
-  const float ds0 = p[6];
-  float lo = p[4], hi = p[5];
-
-  auto theta_of = [&](float ci, float lam) {
-    if (!(ci > 0.0f)) return 0.0f;
-    float y = ci * lam;
-    float th = clip(sigma * (expf(ginv * logf(y / A)) - w), 0.0f, b);
-    return y >= ds0 ? 0.0f : th;
-  };
-
-  for (int it = 0; it < iters; ++it) {
-    float mid = log_mid(lo, hi);
-    float s = 0.0f;
-    for (int i = threadIdx.x; i < K; i += kThreads) s += theta_of(cr[i], mid);
-    s = block_reduce<kSum>(s, partial);
-    if (s > b) lo = mid; else hi = mid;   // β > b ⇒ λ* right of mid
-  }
-  float lam = log_mid(lo, hi);
-  float s = 0.0f;
-  for (int i = threadIdx.x; i < K; i += kThreads) {
-    float th = theta_of(cr[i], lam);
-    tr[i] = th;
-    s += th;
-  }
-  float tot = block_reduce<kSum>(s, partial);
-  // exact budget: rescale the fp residual onto the positive allocations;
-  // each thread rescales only the elements it wrote
-  for (int i = threadIdx.x; i < K; i += kThreads) {
-    float th = tr[i];
-    if (tot > 0.0f) th *= b / tot;
-    tr[i] = fminf(th, b);
-  }
+  const float Ar = A[row * sA], wr = w[row * sw], gr = g[row * sg];
+  SharedFamily fam;
+  fam.c = c + row * K;
+  fam.b = b_arr[row * sb];
+  fam.ginv = 1.0f / gr;
+  fam.sg = sigma;
+  fam.nsw = -sigma * wr;
+  fam.lA = log2_split(Ar);
+  const float ds0 = wr > 0.0f ? Ar * powf(wr, gr) : kF32Big;
+  fam.lds0 = log2f(ds0);
+  fam.ds_b = Ar * powf(wr + sigma * fam.b, gr);
+  const float eps = fam.b / (8.0f * K);
+  fam.ds_top = wr > 0.0f ? ds0 : Ar * powf(wr + sigma * eps, gr);
+  bisect<SharedFamily, NT>(fam, theta + row * K, K, iters, smem_jobs, tile,
+                           red);
 }
 
 // ---------------------------------------------------------------------------
 // K2 — hetero_waterfill.
 // Replaces src/repro/kernels/gwf_waterfill/kernel.py::hetero_waterfill
 // (body _hetero_wf_kernel).  The same bisection with job-indexed A, w, γ,
-// σ (paper §7); the λ-bracket and each job's parking threshold s_i'(0)
-// are computed in the kernel.  Every power is guarded (base clamped to
-// 1e-30, inactive base 1), so padding lanes cannot NaN the sums.
-// Bound on this card: operations (two transcendentals per job and pass
-// against 24 bytes per job moved once).  The per-job threshold s_i'(0)
-// costs two more transcendentals, so the first pass stores it in θ's own
-// slot — each thread later reads back only the slots it wrote — and the
-// bisection passes pay for one power each.
+// σ (paper §7); the λ-bracket [min_i s_i'(b)/c_i, max_i s_i'(0⁺)/c_i ·
+// (1 + 1e-6)] and each job's parking threshold s_i'(0) come from the
+// first pass, with ε = b/(8·k_act) after a count of the active jobs.  The
+// bracket's powers are guarded (base clamped to 1e-30), so padding lanes
+// cannot NaN the reductions; the passes take no log, so they need no guard.
+// Bound on this card: as K1, the dependent steps.  A job's state is six
+// words (1/γ, β's two, σ, −σw, P): at 256 threads (16 jobs a thread)
+// that is 128 registers, just what lets two instances share an SM; at
+// 512 or 1024 threads one instance holds an SM and 256 instances take two
+// waves (tools/ablate_kernels.py times the three).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ float guarded_pow(float base, float e) {
   return expf(e * logf(fmaxf(base, 1e-30f)));
 }
 
-__global__ void __launch_bounds__(kThreads)
+struct JobFamily {
+  struct Job { float ginv, bhi, blo, sg, nsw, park; };
+  const float *c, *A, *w, *g, *s;   // this instance's rows
+  float b, eps;
+
+  __device__ static Job idle() {
+    return {1.0f, 0.0f, 0.0f, 1.0f, 0.0f, -CUDART_INF_F};
+  }
+
+  __device__ Job job(int j, float2& br) const {
+    const float cj = c[j], Aj = A[j], wj = w[j], gj = g[j], sj = s[j];
+    Job q{1.0f / gj, 0.0f, 0.0f, sj, -sj * wj, -CUDART_INF_F};
+    if (!(cj > 0.0f)) return q;
+    const float ds0 = wj > 0.0f ? Aj * guarded_pow(wj, gj) : kF32Big;
+    const float ds_b = Aj * guarded_pow(wj + sj * b, gj);
+    const float ds_top = wj > 0.0f ? ds0 : Aj * guarded_pow(wj + sj * eps, gj);
+    br.x = fminf(br.x, ds_b / cj);
+    br.y = fmaxf(br.y, ds_top / cj);
+    const double lc = log2_split(cj);
+    const Pair beta = split(static_cast<double>(q.ginv) *
+                            (lc - log2_split(Aj)));
+    q.bhi = beta.hi;
+    q.blo = beta.lo;
+    q.park = static_cast<float>(static_cast<double>(log2f(ds0)) - lc);
+    return q;
+  }
+
+  __device__ float2 bracket(float2 m) const {
+    const float hi = m.y * (1.0f + 1e-6f);
+    return log_bracket(m.x, fmaxf(hi, m.x * (1.0f + 1e-6f)));
+  }
+
+  __device__ float theta(const Job& q, float u) const {
+    return theta_at(u, q.ginv, q.bhi, q.blo, q.sg, q.nsw, q.park, b);
+  }
+  __device__ void move(Job& q, float Lc) const {
+    move_centre(q.ginv, q.bhi, q.blo, q.park, Lc);
+  }
+  __device__ static void put(float* t, int n, int i, const Job& q) {
+    t[i] = q.ginv;
+    t[n + i] = q.bhi;
+    t[2 * n + i] = q.blo;
+    t[3 * n + i] = q.sg;
+    t[4 * n + i] = q.nsw;
+    t[5 * n + i] = q.park;
+  }
+  __device__ static Job get(const float* t, int n, int i) {
+    return {t[i], t[n + i], t[2 * n + i], t[3 * n + i], t[4 * n + i],
+            t[5 * n + i]};
+  }
+};
+
+template <int NT>
+__global__ void __launch_bounds__(NT)
 hetero_waterfill_kernel(const float* __restrict__ c,
                         const float* __restrict__ A,
                         const float* __restrict__ w,
                         const float* __restrict__ g,
                         const float* __restrict__ sg,
                         const float* __restrict__ b_arr,
-                        float* __restrict__ theta, int K, int iters) {
-  __shared__ float partial[kThreads / 32];
+                        float* __restrict__ theta, int K, int iters,
+                        int smem_jobs) {
+  extern __shared__ float tile[];
+  __shared__ float2 part[2][32];
+  BlockReduce<NT> red{part, 0};
   const size_t off = static_cast<size_t>(blockIdx.x) * K;
-  const float b = b_arr[blockIdx.x];
-  float* tr = theta + off;
-
-  // pass 1: active count, then the bracket and the parking thresholds
+  JobFamily fam{c + off, A + off, w + off, g + off, sg + off,
+                b_arr[blockIdx.x], 0.0f};
   float n_act = 0.0f;
-  for (int i = threadIdx.x; i < K; i += kThreads)
-    n_act += c[off + i] > 0.0f ? 1.0f : 0.0f;
-  n_act = fmaxf(block_reduce<kSum>(n_act, partial), 1.0f);
-  const float eps = b / (8.0f * n_act);
-
-  float lo_part = CUDART_INF_F, hi_part = -CUDART_INF_F;
-  for (int i = threadIdx.x; i < K; i += kThreads) {
-    const size_t j = off + i;
-    const float ci = c[j], Ai = A[j], wi = w[j], gi = g[j], si = sg[j];
-    const float ds_b = Ai * guarded_pow(wi + si * b, gi);
-    const float ds0 = wi > 0.0f ? Ai * guarded_pow(wi, gi) : kF32Big;
-    const float ds_top = wi > 0.0f ? ds0 : Ai * guarded_pow(wi + si * eps, gi);
-    tr[i] = ds0;
-    if (ci > 0.0f) {
-      lo_part = fminf(lo_part, ds_b / ci);
-      hi_part = fmaxf(hi_part, ds_top / ci);
-    }
-  }
-  float lo = block_reduce<kMin>(lo_part, partial);
-  float hi = block_reduce<kMax>(hi_part, partial) * (1.0f + 1e-6f);
-  hi = fmaxf(hi, lo * (1.0f + 1e-6f));
-  // fabsf(x) < inf is false for inf and NaN alike
-  const bool good = fabsf(lo) < CUDART_INF_F && lo > 0.0f &&
-                    fabsf(hi) < CUDART_INF_F;
-  if (!good) { lo = 1.0f; hi = 2.0f; }
-
-  auto theta_of = [&](int i, float lam) {
-    const size_t j = off + i;
-    const float ci = c[j];
-    if (!(ci > 0.0f)) return 0.0f;
-    const float y = ci * lam;
-    const float th = clip(sg[j] * (guarded_pow(y / A[j], 1.0f / g[j]) - w[j]),
-                          0.0f, b);
-    return y >= tr[i] ? 0.0f : th;      // tr[i] holds s_i'(0) here
-  };
-
-  for (int it = 0; it < iters; ++it) {
-    float mid = log_mid(lo, hi);
-    float s = 0.0f;
-    for (int i = threadIdx.x; i < K; i += kThreads) s += theta_of(i, mid);
-    s = block_reduce<kSum>(s, partial);
-    if (s > b) lo = mid; else hi = mid;
-  }
-  const float lam = log_mid(lo, hi);
-  float s = 0.0f;
-  for (int i = threadIdx.x; i < K; i += kThreads) {
-    const float th = theta_of(i, lam);
-    tr[i] = th;                          // s_i'(0) is no longer needed
-    s += th;
-  }
-  const float tot = block_reduce<kSum>(s, partial);
-  for (int i = threadIdx.x; i < K; i += kThreads) {
-    float th = tr[i];
-    if (tot > 0.0f) th *= b / tot;
-    tr[i] = fminf(th, b);
-  }
+  for (int j = threadIdx.x; j < K; j += NT) n_act += fam.c[j] > 0.0f ? 1.0f : 0.0f;
+  fam.eps = fam.b / (8.0f * fmaxf(red.sum(n_act), 1.0f));
+  bisect<JobFamily, NT>(fam, theta + off, K, iters, smem_jobs, tile, red);
 }
 
 // ---------------------------------------------------------------------------
@@ -255,28 +514,71 @@ gwf_waterfill_kernel(const float* __restrict__ u,
     theta[i] = clip(u[i] * (h - h0[i]), 0.0f, b);
 }
 
+// Jobs past the register tile that a block keeps in shared memory, each
+// `fields` floats (kernel.py's job_tiles).
+constexpr int smem_jobs_for(int K, int fields) {
+  const int rest = K > kTileJobs ? K - kTileJobs : 0;
+  const int cap = kSmemBytes / (4 * fields);
+  return rest < cap ? rest : cap;
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_tile(Kernel kernel, int threads, int N, int smem_jobs,
+                        int fields, cudaStream_t stream, Args... args) {
+  const int bytes = smem_jobs * fields * static_cast<int>(sizeof(float));
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<N, threads, bytes, stream>>>(args..., smem_jobs);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-cudaError_t generic_waterfill_f32(const float* c, const float* par,
+cudaError_t generic_waterfill_f32(const float* c, const float* A, int sA,
+                                  const float* w, int sw, const float* g,
+                                  int sg, const float* b, int sb,
                                   float* theta, int N, int K, int iters,
-                                  int sigma, cudaStream_t stream) {
-  if (N > 0)
-    generic_waterfill_kernel<<<N, kThreads, 0, stream>>>(
-        c, par, theta, K, iters, static_cast<float>(sigma));
-  return cudaGetLastError();
+                                  int sigma, int threads, int smem_jobs,
+                                  cudaStream_t stream) {
+  if (smem_jobs != smem_jobs_for(K, 3) || (sigma != 1 && sigma != -1))
+    return cudaErrorInvalidValue;
+  if (N <= 0) return cudaGetLastError();
+  const float s = static_cast<float>(sigma);
+#define K1_LAUNCH(NT)                                                        \
+  launch_tile(generic_waterfill_kernel<NT>, NT, N, smem_jobs, 3, stream, c, \
+              A, sA, w, sw, g, sg, b, sb, theta, K, iters, s)
+  switch (threads) {
+    case 256: return K1_LAUNCH(256);
+    case 512: return K1_LAUNCH(512);
+    case 1024: return K1_LAUNCH(1024);
+  }
+#undef K1_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t hetero_waterfill_f32(const float* c, const float* A,
                                  const float* w, const float* g,
                                  const float* sg, const float* b,
                                  float* theta, int N, int K, int iters,
+                                 int threads, int smem_jobs,
                                  cudaStream_t stream) {
-  if (N > 0)
-    hetero_waterfill_kernel<<<N, kThreads, 0, stream>>>(c, A, w, g, sg, b,
-                                                        theta, K, iters);
-  return cudaGetLastError();
+  if (smem_jobs != smem_jobs_for(K, 6)) return cudaErrorInvalidValue;
+  if (N <= 0) return cudaGetLastError();
+#define K2_LAUNCH(NT)                                                       \
+  launch_tile(hetero_waterfill_kernel<NT>, NT, N, smem_jobs, 6, stream, c, \
+              A, w, g, sg, b, theta, K, iters)
+  switch (threads) {
+    case 256: return K2_LAUNCH(256);
+    case 512: return K2_LAUNCH(512);
+    case 1024: return K2_LAUNCH(1024);
+  }
+#undef K2_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t gwf_waterfill_f32(const float* u, const float* h0, float b,

@@ -5,37 +5,79 @@
 ``gwf_waterfill``      K3 — single-instance rectangle-bottle WFP.
 
 Each wrapper takes CUDA tensors only: it checks device, dtype and shape,
-casts to contiguous float32 (the kernels compute in float32, as the TPU
-kernels did), allocates the output with ``torch.empty``, launches on the
-current stream, raises if the launch is refused, and adds one to
-``LAUNCHES[name]``.  The library is built from the repo's sources on
-first use (``kernels/_build.py``).  The plain versions live in
-``ref.py``; ``ops.py`` chooses between the two.
+casts to float32 what is not float32 already (the kernels compute in
+float32, as the TPU kernels did), allocates the output with
+``torch.empty``, launches on the current stream, raises if the launch is
+refused, and adds one to ``LAUNCHES[name]``.  K1 and K2 compute their
+λ-bracket in the kernel; K1 reads its per-instance A, w, γ and b at an
+element stride, 0 for a value every instance shares
+(``instance_values``), and both are launched with the block size in
+``THREADS`` and the job tile of ``job_tiles``.  The library is built from
+the repo's sources on first use (``kernels/_build.py``).  The plain
+versions live in ``ref.py``; ``ops.py`` chooses between the two.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .._build import launch
-from .ref import lam_bracket
 
 __all__ = ["LAUNCHES", "generic_waterfill", "hetero_waterfill",
-           "gwf_waterfill", "reset_launches"]
+           "gwf_waterfill", "reset_launches", "generic_args",
+           "instance_values", "job_tiles", "JobTiles", "THREADS",
+           "TILE_JOBS", "SMEM_BYTES", "FIELDS"]
 
 # Launches of each kernel since the last reset, counted where the kernel
 # is launched and nowhere else.
 LAUNCHES = {"generic_waterfill": 0, "hetero_waterfill": 0,
             "gwf_waterfill": 0}
 
+# Block size of K1 and K2, the fastest of the 256, 512 and 1024 threads
+# each is built for (tools/ablate_kernels.py times the three): the size
+# at which two instances' job state fits an SM's registers.
+THREADS = {"generic_waterfill": 512, "hetero_waterfill": 256}
+# A block's job tile: TILE_JOBS jobs in registers, then up to SMEM_BYTES
+# of job state in shared memory, FIELDS floats a job; the rest are
+# derived from device memory in every pass.  csrc's kTileJobs and
+# kSmemBytes, which the entry points check.
+TILE_JOBS = 4096
+SMEM_BYTES = 196608
+FIELDS = {"generic_waterfill": 3, "hetero_waterfill": 6}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "generic_waterfill_f32": [_P, _P, _P, _I, _I, _I, _I],
-    "hetero_waterfill_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I],
+    "generic_waterfill_f32": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P,
+                              _I, _I, _I, _I, _I, _I],
+    "hetero_waterfill_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I],
     "gwf_waterfill_f32": [_P, _P, ctypes.c_float, _P, _I, _I],
 }
+
+
+class JobTiles(NamedTuple):
+    """Where a K1/K2 block keeps an instance's K jobs: ``reg_jobs`` in
+    registers (``jobs_per_thread`` a thread), ``smem_jobs`` in shared
+    memory (``smem_bytes``), and ``streamed_jobs`` derived from device
+    memory in every pass."""
+    jobs_per_thread: int
+    reg_jobs: int
+    smem_jobs: int
+    streamed_jobs: int
+    smem_bytes: int
+
+
+def job_tiles(K: int, threads: int, fields: int) -> JobTiles:
+    if threads not in (256, 512, 1024):
+        raise ValueError(f"K1/K2 are built for 256, 512 or 1024 threads, "
+                         f"not {threads}")
+    reg = min(K, TILE_JOBS)
+    smem = min(K - reg, SMEM_BYTES // (4 * fields))
+    return JobTiles(TILE_JOBS // threads, reg, smem, K - reg - smem,
+                    4 * fields * smem)
 
 
 def reset_launches() -> None:
@@ -48,17 +90,24 @@ def _launch(name: str, counter: str, device, *args) -> None:
     LAUNCHES[counter] += 1
 
 
-def _on(x, device, dtype=None):
+def _on(x, device):
     """x as a tensor on ``device``: Python numbers are placed there, a
     tensor must already be there (no silent copy across devices)."""
-    if isinstance(x, torch.Tensor) and x.device != device:
-        raise ValueError(f"expected a tensor on {device}, got one on "
-                         f"{x.device}")
-    return torch.as_tensor(x, dtype=dtype, device=device)
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(f"expected a tensor on {device}, got one on "
+                             f"{x.device}")
+        return x
+    return torch.as_tensor(x, device=device)
 
 
 def _f32(x, device, shape):
-    """x as contiguous float32 of ``shape`` on ``device`` (broadcasting)."""
+    """x as contiguous float32 of ``shape`` on ``device`` (broadcasting);
+    a tensor that is that already is passed as it is."""
+    if (isinstance(x, torch.Tensor) and x.dtype == torch.float32
+            and x.shape == shape and x.device == device
+            and x.is_contiguous()):
+        return x
     x = _on(x, device)
     if not x.is_floating_point():
         raise TypeError(f"expected a floating tensor, got {x.dtype}")
@@ -80,29 +129,51 @@ def _ptr(t):
     return _P(t.data_ptr())
 
 
+def instance_values(x, n: int, device):
+    """One of K1's per-instance values as (float32 tensor, element
+    stride): stride 0 for a value every instance shares (a number, a
+    one-element tensor, or an (n,) tensor expanded from one), else the
+    (n,) tensor's own stride.  Casts only what is not float32, so a
+    float32 tensor is passed as it lies."""
+    if not isinstance(x, torch.Tensor):
+        return torch.tensor(float(x), dtype=torch.float32, device=device), 0
+    x = _on(x, device)
+    if x.ndim > 1 or (x.ndim == 1 and x.shape[0] not in (1, n)):
+        raise ValueError(f"expected a per-instance value of shape ({n},), "
+                         f"got {tuple(x.shape)}")
+    shared = x.ndim == 0 or x.shape[0] == 1 or x.stride(0) == 0
+    if x.dtype != torch.float32:
+        x = (x.reshape(-1)[:1] if shared else x).to(torch.float32)
+    return x, 0 if shared else x.stride(0)
+
+
+def generic_args(c, A, w, gamma, b):
+    """K1's inputs as the kernel reads them: c as contiguous float32
+    (N, K), then (tensor, stride) for each of A, w, gamma, b."""
+    N, K = c.shape
+    return (_f32(c, c.device, (N, K)),
+            [instance_values(x, N, c.device) for x in (A, w, gamma, b)])
+
+
 def generic_waterfill(c, A, w, gamma, b, *, sigma: int = 1, iters: int = 64):
     """K1: (N, K) c-vectors → (N, K) θ for s'(θ) = A(w + σθ)^γ.
 
-    A, w, gamma, b are (N,) per-instance scalars (or broadcast to it);
+    A, w, gamma, b are (N,) per-instance values or one value for all;
     ``sigma`` ∈ {+1, −1} is shared.  Inactive slots are c = 0.  The safe
-    λ-bracket is computed on the card in c's dtype (``lam_bracket``).
+    λ-bracket is computed in the kernel, as ``ref.lam_bracket`` does.
     """
     _check_cuda(c, 2)
     if sigma not in (1, -1):
         raise ValueError("sigma must be ±1")
     N, K = c.shape
-    dev = c.device
-    A, w, gamma, b = (torch.broadcast_to(_on(x, dev, c.dtype), (N,))
-                      for x in (A, w, gamma, b))
-    lam_lo, lam_hi, ds0 = lam_bracket(c, A, w, gamma, b, sigma)
-    par = torch.stack([A, w, 1.0 / gamma, b, lam_lo, lam_hi, ds0,
-                       torch.zeros_like(A)], dim=1).to(torch.float32)
-    par = par.contiguous()
-    cf = _f32(c, dev, (N, K))
-    theta = torch.empty((N, K), dtype=torch.float32, device=dev)
-    _launch("generic_waterfill_f32", "generic_waterfill", dev,
-            _ptr(cf), _ptr(par), _ptr(theta), _I(N), _I(K),
-            _I(iters), _I(int(sigma)))
+    cf, vals = generic_args(c, A, w, gamma, b)
+    threads = THREADS["generic_waterfill"]
+    tiles = job_tiles(K, threads, FIELDS["generic_waterfill"])
+    theta = torch.empty((N, K), dtype=torch.float32, device=c.device)
+    _launch("generic_waterfill_f32", "generic_waterfill", c.device,
+            _ptr(cf), *[a for t, st in vals for a in (_ptr(t), _I(st))],
+            _ptr(theta), _I(N), _I(K), _I(iters), _I(int(sigma)),
+            _I(threads), _I(tiles.smem_jobs))
     return theta
 
 
@@ -118,10 +189,13 @@ def hetero_waterfill(c, A, w, gamma, sigma, b, *, iters: int = 64):
     cf, Af, wf, gf, sf = (_f32(x, dev, (N, K)) for x in (c, A, w, gamma,
                                                           sigma))
     bf = _f32(b, dev, (N,))
+    threads = THREADS["hetero_waterfill"]
+    tiles = job_tiles(K, threads, FIELDS["hetero_waterfill"])
     theta = torch.empty((N, K), dtype=torch.float32, device=dev)
     _launch("hetero_waterfill_f32", "hetero_waterfill", dev,
             _ptr(cf), _ptr(Af), _ptr(wf), _ptr(gf), _ptr(sf), _ptr(bf),
-            _ptr(theta), _I(N), _I(K), _I(iters))
+            _ptr(theta), _I(N), _I(K), _I(iters), _I(threads),
+            _I(tiles.smem_jobs))
     return theta
 
 

@@ -260,6 +260,9 @@ def test_kernel_label_names_type_and_width():
     assert _build.kernel_label(
         "_ZN12_GLOBAL__N_124generic_waterfill_kernelEPKfS1_") == \
         "generic_waterfill_kernel"
+    assert _build.kernel_label(
+        "_ZN12_GLOBAL__N_123hetero_waterfill_kernelILi256EEEvPKfS2_S2_S2_"
+        "S2_S2_Pfiii") == "hetero_waterfill_kernel<256>"
 
 
 SASS = """\

@@ -6,6 +6,7 @@ against the JAX Pallas kernel run in interpret mode, as
 the JAX kernel tests' tolerances.  The CUDA kernels themselves are held
 against these plain versions on the card by ``chip_smoke.py``.
 """
+import ctypes
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -166,6 +167,99 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         PK.gwf_waterfill(f32(C[0]), f32(C[0]), 1.0)
     assert PK.LAUNCHES == {"generic_waterfill": 0, "hetero_waterfill": 0,
                            "gwf_waterfill": 0}
+
+
+# K, block size, fields a job → (jobs a thread, in registers, in shared
+# memory, streamed, shared-memory bytes)
+@pytest.mark.parametrize("K, threads, fields, want", [
+    (1, 1024, 3, (4, 1, 0, 0, 0)),
+    (37, 256, 6, (16, 37, 0, 0, 0)),
+    (4096, 512, 6, (8, 4096, 0, 0, 0)),
+    (5000, 1024, 3, (4, 4096, 904, 0, 904 * 12)),
+    (5000, 256, 6, (16, 4096, 904, 0, 904 * 24)),
+    (65536, 1024, 3, (4, 4096, 16384, 45056, 196608)),
+    (65536, 256, 6, (16, 4096, 8192, 53248, 196608)),
+])
+def test_job_tiles_split_registers_shared_memory_and_streamed(
+        K, threads, fields, want):
+    assert tuple(PK.job_tiles(K, threads, fields)) == want
+
+
+def test_job_tiles_refuse_other_block_sizes_and_match_the_source():
+    with pytest.raises(ValueError, match="256, 512 or 1024"):
+        PK.job_tiles(100, 128, 3)
+    src = _build.SOURCES["gwf_waterfill"].read_text()
+    assert f"constexpr int kTileJobs = {PK.TILE_JOBS};" in src
+    assert f"constexpr int kSmemBytes = {PK.SMEM_BYTES};" in src
+    for name, fields in PK.FIELDS.items():
+        assert f"smem_jobs_for(K, {fields})" in src
+        assert PK.THREADS[name] in (256, 512, 1024)
+    assert PK.SMEM_BYTES <= 227 * 1024      # a block's dynamic maximum
+
+
+def test_generic_args_pass_float32_at_element_strides():
+    c = torch.rand(3, 5)
+    shared = torch.tensor(0.5, dtype=torch.float64).expand(3)
+    w = torch.tensor([1.0, 2.0, 3.0])
+    every_other = torch.arange(6.0)[::2]
+    b = torch.arange(6, dtype=torch.float64)[::2]
+    cf, vals = PK.generic_args(c, shared, w, -0.5, b)
+    assert cf.data_ptr() == c.data_ptr() and cf.dtype == torch.float32
+    assert all(t.dtype == torch.float32 for t, _ in vals)
+    (At, sA), (wt, sw), (gt, sg), (bt, sb) = vals
+    assert (sA, sw, sg, sb) == (0, 1, 0, 1)
+
+    def first(t):        # the element the kernel reads at stride 0
+        return t.reshape(-1)[0].item()
+
+    assert At.numel() == 1 and first(At) == 0.5 and first(gt) == -0.5
+    assert bt.tolist() == [0.0, 2.0, 4.0]
+    # float32 is passed as it lies, strided or expanded
+    assert wt.data_ptr() == w.data_ptr()
+    expanded = torch.tensor([-0.5]).expand(3)
+    (_, (wt, sw), (gt, sg), _) = PK.generic_args(c, 1, every_other,
+                                                 expanded, b)[1]
+    assert wt.data_ptr() == every_other.data_ptr() and sw == 2
+    assert sg == 0 and gt.data_ptr() == expanded.data_ptr()
+    # c other than contiguous float32 becomes a contiguous float32 copy
+    ct = c.double().t().contiguous().t()
+    cf = PK.generic_args(ct, 1, 1, 1, 1)[0]
+    assert cf.dtype == torch.float32 and cf.is_contiguous()
+    assert torch.equal(cf, c)
+    with pytest.raises(ValueError, match="per-instance value"):
+        PK.generic_args(c, torch.ones(4), w, -0.5, b)
+
+
+def test_cuda_paths_launch_without_a_host_bracket(monkeypatch):
+    def no_bracket(*args, **kw):
+        raise AssertionError("the CUDA path computed a bracket on the host")
+
+    monkeypatch.setattr(PR, "lam_bracket", no_bracket)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        PK.generic_waterfill(torch.rand(2, 8), 1.0, 4.0, -0.5, torch.ones(2))
+    # past the device check the launch takes the argument plan, and no
+    # other kernel runs: the bracket is the kernel's
+    calls = []
+    monkeypatch.setattr(PK, "_check_cuda", lambda c, ndim: None)
+    monkeypatch.setattr(PK, "_launch", lambda *args: calls.append(args))
+    c = torch.rand(2, 5000)
+    out = PK.generic_waterfill(c, 1.0, 4.0, -0.5, torch.ones(2), sigma=-1,
+                               iters=16)
+    assert out.shape == (2, 5000) and out.dtype == torch.float32
+    out = PK.hetero_waterfill(*[torch.rand(3, 65536)] * 5, torch.ones(3))
+    assert out.shape == (3, 65536)
+    (k1, counter1, _, *args1), (k2, counter2, _, *args2) = calls
+    assert (k1, counter1) == ("generic_waterfill_f32", "generic_waterfill")
+    assert (k2, counter2) == ("hetero_waterfill_f32", "hetero_waterfill")
+    for name, args in ((k1, args1), (k2, args2)):
+        assert len(args) == len(PK._SIGNATURES[name])
+    ints = [[a.value for a in args if isinstance(a, ctypes.c_int)]
+            for args in (args1, args2)]
+    # K1: sA, sw, sg, sb, N, K, iters, sigma, threads, shared-memory jobs
+    assert ints[0] == [0, 0, 0, 1, 2, 5000, 16, -1,
+                       PK.THREADS["generic_waterfill"], 904]
+    # K2: N, K, iters, threads, shared-memory jobs
+    assert ints[1] == [3, 65536, 64, PK.THREADS["hetero_waterfill"], 8192]
 
 
 def test_build_command_targets_sm90a_into_build_dir():

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of K5 (flash attention, bf16) and K4 (linear scan, f32)
-goes on the card, at the serving path's shapes.
+"""Where the time of K5 (flash attention, bf16), K4 (linear scan, f32),
+K1 and K2 (the batched CAP water-fills, f32) goes on the card, at the
+main path's shapes.
 
 Run from the root of a checkout on a machine with one CUDA card and nvcc:
 
@@ -8,12 +9,19 @@ Run from the root of a checkout on a machine with one CUDA card and nvcc:
 
 It needs no hardware profiler: it takes parts out instead.  Each
 variant is a kernel's source with one statement replaced (``VARIANTS``),
-built with the same nvcc command as the kernel, and timed with CUDA
+built with the same nvcc command as the kernel (K1 and K2's variants
+print their registers and spills), and timed with CUDA
 events beside the whole kernel, in two interleaved rounds.  A variant's
 output is wrong by design; only its time counts.  A replacement that no
 longer matches the source raises.  K4's yardstick is ``torch.add`` over
-the same bytes (a and b read, one array written).  Prints one JSON line
-per variant and round, then the card's name and power limit.
+the same bytes (a and b read, one array written).  K1 and K2 run at
+chip_smoke.py's phase-3 instance (256 × 4096) at each block size they
+are built for (256, 512, 1024); their variants that change only how t
+is rounded (``PRECISION``) also print their readings, at kernel.py's
+block size, against the plain version and against the plain version in
+float64, in units of b/k_act.
+Prints one JSON line per variant and round, then the card's name and
+power limit.
 """
 import ctypes
 import json
@@ -26,11 +34,27 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import torch  # noqa: E402
 
-from chip_smoke import card_line, timed  # noqa: E402
+import numpy as np  # noqa: E402
+
+from chip_smoke import (ITERS, alloc_err, cap_instance, card_line,  # noqa: E402
+                        kkt_residual, timed)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.gwf_waterfill import kernel as wk  # noqa: E402
+from repro_torch.kernels.gwf_waterfill import ref as wr  # noqa: E402
 from repro_torch.kernels.linear_scan.kernel import scan_geometry  # noqa: E402
 
-# kernel: {variant: [(statement, replacement), ...]}
+_EXP2 = "  const float e = exp2_ftz(t);"
+_NO_LO = ("  const float t = fmaf(ginv, u, bhi) + blo;",
+          "  const float t = fmaf(ginv, u, bhi);")
+_NO_RECENTRE = [("    if (it == kRecentre) {", "    if (it < 0) {"),
+                ("streamed(j, it >= kRecentre)", "streamed(j, false)"),
+                ("  const bool moved = iters > kRecentre;",
+                 "  const bool moved = false;")]
+_DOUBLE_MOVE = ("  bhi = fmaf(ginv, Lc, bhi) + blo;\n  blo = 0.0f;",
+                "  const Pair p = split(static_cast<double>(bhi) + blo +\n"
+                "                       static_cast<double>(ginv) * Lc);\n"
+                "  bhi = p.hi;\n  blo = p.lo;")
+# source: {variant: [(statement, replacement), ...]}
 VARIANTS = {
     "flash_attention": {
         "whole": [],
@@ -64,7 +88,24 @@ VARIANTS = {
         "no_look_back": [("  if (chunk > 0) {\n    if (live) {",
                           "  if (chunk < 0) {\n    if (live) {")],
     },
+    # K1 and K2 share these statements
+    "gwf_waterfill": {
+        "whole": [],
+        "no_exp2": [(_EXP2, "  const float e = t;")],
+        "no_reduction": [("    s = red.sum(s);",
+                          "    s = s * 1e-30f + ((it & 1) ? 2.0f * b : 0.0f);")],
+        "no_steps": [("  for (int it = 0; it < iters; ++it) {\n"
+                      "    if (it == kRecentre) {",
+                      "  for (int it = 0; it < 0; ++it) {\n"
+                      "    if (it == kRecentre) {")],
+        "exp2f": [(_EXP2, "  const float e = exp2f(t);")],
+        "no_lo_word": [_NO_LO],
+        "no_recentre": _NO_RECENTRE,
+        "double_move": [_DOUBLE_MOVE],
+    },
 }
+# the variants of K1 and K2 that only round t otherwise: their readings
+PRECISION = ("whole", "exp2f", "no_lo_word", "no_recentre", "double_move")
 
 
 def build(out: Path) -> dict:
@@ -84,7 +125,8 @@ def build(out: Path) -> dict:
             cu.write_text(text)
             lib = cu.with_suffix(".so")
             cmd = [nvcc, *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-                   "-Xcompiler", "-fPIC", "-o", str(lib), str(cu)]
+                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(lib),
+                   str(cu)]
             procs[kernel, name] = (lib, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
@@ -94,7 +136,80 @@ def build(out: Path) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"{key}: nvcc failed\n{log}")
         libs[key] = lib
+        if key[0] == "gwf_waterfill":
+            usage = {_build.kernel_label(fn): u for fn, u in
+                     _build.ptxas_usage(log).items() if "waterfill_kernel<"
+                     in _build.kernel_label(fn)}
+            print(json.dumps({"kernel": key[0], "variant": key[1],
+                              "ptxas": usage}), flush=True)
     return libs
+
+
+class CapCalls:
+    """K1 and K2 on chip_smoke.py's phase-3 instance (256 × 4096 jobs),
+    called through a variant library's C entry points with the arguments
+    kernel.py passes, at each block size; and their readings."""
+
+    def __init__(self, dev):
+        rng = np.random.default_rng(0)
+        C, b, mix = cap_instance(rng, 256, 4096, 1.0, 40.0)
+        self.c = torch.tensor(C, dtype=torch.float32, device=dev)
+        self.b = torch.tensor(b, dtype=torch.float32, device=dev)
+        self.mix = [torch.tensor(x, dtype=torch.float32, device=dev)
+                    for x in mix]
+        # phase 3's shared family: shifted_power(1, 4, 0.5)
+        self.shared = [torch.tensor(x, device=dev).expand(256)
+                       for x in (0.5, 4.0, -0.5)]
+        self.scale = self.b.double() / (self.c > 0).sum(1).double()
+        self.plain, self.plain64, self.fam = {}, {}, {}
+        one = torch.ones(1, 1, device=dev)
+        for name, fn, args in (
+                ("generic_waterfill", wr.generic_waterfill_ref,
+                 self.shared),
+                ("hetero_waterfill", wr.hetero_waterfill_ref, self.mix)):
+            self.plain[name] = fn(self.c, *args, self.b, iters=ITERS)
+            self.plain64[name] = fn(self.c.double(),
+                                    *[x.double() for x in args],
+                                    self.b.double(), iters=200)
+            self.fam[name] = ((self.c, *[x[:, None] for x in args], one,
+                               self.b) if name == "generic_waterfill" else
+                              (self.c, *args, self.b))
+
+    def bind(self, lib, variant):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        stream = P(torch.cuda.current_stream().cuda_stream)
+        N, K = self.c.shape
+        cf, vals = wk.generic_args(self.c, *self.shared, self.b)
+        calls = {}
+        for threads in (256, 512, 1024):
+            for name in wk.THREADS:
+                entry = f"{name}_f32"
+                fn = getattr(lib, entry)
+                fn.argtypes = [*wk._SIGNATURES[entry], P]
+                fn.restype = I
+                out = torch.empty_like(self.c)
+                tiles = wk.job_tiles(K, threads, wk.FIELDS[name])
+                if name == "generic_waterfill":
+                    args = (P(cf.data_ptr()),
+                            *[a for t, st in vals
+                              for a in (P(t.data_ptr()), st)],
+                            P(out.data_ptr()), N, K, ITERS, 1, threads,
+                            tiles.smem_jobs, stream)
+                else:
+                    args = (*[P(x.data_ptr()) for x in (self.c, *self.mix,
+                                                        self.b, out)],
+                            N, K, ITERS, threads, tiles.smem_jobs, stream)
+                calls[name, variant, threads] = (fn, args, None, out)
+        return calls
+
+    def readings(self, name, out):
+        r = {"alloc_vs_plain": alloc_err(out, self.plain[name], self.scale),
+             "alloc_vs_plain_f64": alloc_err(out, self.plain64[name],
+                                             self.scale),
+             "plain_vs_plain_f64": alloc_err(self.plain[name],
+                                             self.plain64[name], self.scale)}
+        r["kkt_spread"], r["kkt_park"] = kkt_residual(out, *self.fam[name])
+        return r
 
 
 def main():
@@ -123,8 +238,13 @@ def main():
     flags = torch.zeros(geo.flag_ints, dtype=torch.int32, device=dev)
     carry = torch.empty(geo.carry_floats, device=dev)
 
+    cap = CapCalls(dev)
     calls = {}
     for (kernel, name), lib in libs.items():
+        if kernel == "gwf_waterfill":
+            for key, call in cap.bind(ctypes.CDLL(str(lib)), name).items():
+                calls[key] = call
+            continue
         if kernel == "flash_attention":
             fn = ctypes.CDLL(str(lib)).flash_attention_bf16
             fn.argtypes = [P, P, P, P, *[I] * 8, ctypes.c_float, I, P]
@@ -132,7 +252,7 @@ def main():
                     P(o.data_ptr()), 2, 4096, 4096, 10, 1, 256, 1, 2048,
                     ctypes.c_float(0.0), 1, stream)
             calls[kernel, name] = (fn, args, None)
-        else:
+        else:  # linear_scan
             fn = ctypes.CDLL(str(lib)).linear_scan_f32
             fn.argtypes = [P, P, P, *[I] * 5, P, P, P]
             args = (P(a.data_ptr()), P(b.data_ptr()), P(y.data_ptr()), B, S,
@@ -148,10 +268,22 @@ def main():
         if err != 0:
             raise RuntimeError(f"launch failed with CUDA error {err}")
 
+    for fn, args, scratch, *_ in calls.values():
+        run(fn, args, scratch)
+    torch.cuda.synchronize()
+
+    for key, out in calls.items():
+        if (key[0] in wk.THREADS and key[1] in PRECISION
+                and key[2] == wk.THREADS[key[0]]):
+            print(json.dumps({"kernel": key[0], "variant": key[1],
+                              "threads": key[2],
+                              **cap.readings(key[0], out[3])}), flush=True)
     for rnd in range(2):
-        for (kernel, name), (fn, args, scratch) in calls.items():
+        for key, (fn, args, scratch, *_) in calls.items():
             ms = timed(torch, lambda: run(fn, args, scratch))
-            print(json.dumps({"kernel": kernel, "variant": name,
+            print(json.dumps({"kernel": key[0], "variant": key[1],
+                              **({"threads": key[2]} if len(key) > 2
+                                 else {}),
                               "round": rnd, "ms": ms}), flush=True)
         print(json.dumps({"kernel": "linear_scan", "variant":
                           "torch.add over the same bytes", "round": rnd,
