@@ -7,7 +7,7 @@ Phases (each one is a check; any failure exits non-zero):
   1. the card: CUDA must be available; prints name and power limit;
   2. the build: nvcc builds the kernels from src/repro_torch/**/csrc;
      prints each instantiation's registers and spill bytes from the
-     ptxas report, fails if an instantiation of K1 or K2 spills, and
+     ptxas report, fails if an instantiation of K1, K2 or K3 spills, and
      fails unless the SASS of every bf16 instantiation of K5 holds
      tensor-core instructions (HMMA or HGMMA);
   3. the batched CAP front door at full width (N = 256 tenants ×
@@ -22,7 +22,11 @@ Phases (each one is a check; any failure exits non-zero):
      and budget (K3), and show that planted faults fail those checks;
      then K1 and K2 the same ways on ``CAP_OPTIONS`` (pure and saturating
      shared families, K = 1, 37, 5000 and 65536, N = 1, a row with no
-     active job, b = 1e-3), each with its bisection cut short;
+     active job, b = 1e-3), each with its bisection cut short, and K3 on
+     ``K3_OPTIONS`` (M = 1 … 65536, one or no active bottle, b = 1e-3, a
+     level at 0); phase 4 also counts the steps K3's bisection takes to
+     its float32 fixed point (``k3_fixed_point_steps``), which must
+     exceed the cut-short fault's;
   5. planning on the card in float64: the quickstart instance, the
      batched-planning instance, and ``smartfill_batched`` at N = 256,
      M = 32 against the port's own CPU run;
@@ -64,7 +68,8 @@ Launch counters are reset before phases 3–4 drive the planning path
 and before phase 7 drives the serving path, and read right after each;
 the comparisons and timings come later and do not count.  Prints one
 JSON line per measurement, the kernel summary line ``{"kernels": [...]}``
-(five kernels), the card line, and last ``{"ok": true, "device": {...}}``.
+(five kernels, each with its device ms), the card line, and last
+``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 import json
@@ -124,7 +129,7 @@ def card_line():
 def build_report(_build):
     """Phase 2: registers and spill bytes of every kernel instantiation
     from the ptxas reports, and the tensor-core instructions (HMMA,
-    HGMMA) in the SASS of each K5 instantiation; fails if K1 or K2
+    HGMMA) in the SASS of each K5 instantiation; fails if K1, K2 or K3
     spills, or unless every bf16 instantiation of K5 holds some."""
     usage = {}
     for name in _build.SOURCES:
@@ -134,7 +139,8 @@ def build_report(_build):
             usage[_build.kernel_label(fn)] = u
     for label, u in usage.items():
         if label.split("<")[0] in ("generic_waterfill_kernel",
-                                   "hetero_waterfill_kernel"):
+                                   "hetero_waterfill_kernel",
+                                   "gwf_waterfill_kernel"):
             check(u.get("spill_store_bytes", 0) == 0
                   and u.get("spill_load_bytes", 0) == 0,
                   f"{label} spills: {u}")
@@ -245,11 +251,14 @@ def level_residual(theta, u, h0, b):
     """(level spread, parking shortfall, budget miss) of a level-WFP θ,
     the first two in units of the mean allocation b / m_act: every bottle
     with 0 < θ_i < b fills to one level h, and a parked bottle has
-    h0_i ≥ h."""
+    h0_i ≥ h.  Without a bottle strictly inside (0, b) there is no level
+    to read, and only the budget counts."""
     import torch
     th, u, h0 = theta.double(), u.double(), h0.double()
     active = u > 0
     pos = interior(th, active, b)
+    if not bool(pos.any()):
+        return 0.0, 0.0, float(abs(th.sum() - b) / b)
     unit = b / float(active.sum())
     h = level_of(th, u, h0, b)
     lev = h0 + th / u.clamp_min(1e-30)
@@ -403,6 +412,135 @@ def cap_options_phase(torch, dev):
     emit({"phase": "cap_options",
           "limits": {"alloc": ALLOC_LIMIT, "kkt": KKT_LIMIT},
           "readings": got})
+
+
+def level_bottles(torch, c3, dev):
+    """Phase 4's bottles from its c (K,), sorted descending: the shifted
+    power's widths u and bottoms h0 in float32, the last quarter inactive
+    (u = h0 = 0).  Returns (active, u, h0)."""
+    from repro_torch.core import shifted_power
+    sp3 = shifted_power(1.0, 4.0, 0.5, B, device=dev, dtype=torch.float32)
+    c3d = torch.tensor(c3, dtype=torch.float32, device=dev)
+    act3 = torch.arange(len(c3), device=dev) < 3 * len(c3) // 4
+    return (act3,
+            torch.where(act3, sp3.bottle_width(c3d), 0.0).contiguous(),
+            torch.where(act3, sp3.bottle_bottom(c3d), 0.0).contiguous())
+
+
+def fixed_point_steps(run, full):
+    """The smallest ``iters`` at which ``run(iters)`` gives the bits of
+    ``full`` (K3 at ITERS steps): the steps the bisection takes to its
+    float32 fixed point, or ITERS if it has none within them."""
+    import torch
+    bits = full.view(torch.int32)
+    return next((n for n in range(1, ITERS)
+                 if torch.equal(run(n).view(torch.int32), bits)), ITERS)
+
+
+# K3 on the shapes and options that test its bottle tiles, bracket and
+# exit: name → (M, b, bottles).  M = 1 and 37 take part of one
+# register-tile slot; 5000 puts 904 bottles in shared memory; 65536
+# streams 36,864 bottles a round.  "random" is the JAX kernel test's
+# instance (u in [0.1, 5], h0 in [−2, 3], a quarter inactive);
+# "one_active" and "none_active" keep one bottle active or none (θ = 0,
+# the plain version's zeros); "at_b_scale" has bottoms in b·[−2, 3]: a
+# reading in units of b/m_act compares θ's error with the mean
+# allocation, and θ_i = u_i (h − h0_i) carries float32's spacing at h,
+# which with b = 1e-3 and a level near 1 is about a unit itself in both
+# versions (the plain version in float32 is that far from itself in
+# float64), so the bottoms follow b's scale; "level_at_0" has bottoms of
+# both signs shifted so that the level sits at 0, where float32 is
+# finest and the bisection takes the most steps.  The limits are
+# level_wfp's.  The bisection cut to SHORT_ITERS steps is read but not
+# required to fail: with one active bottle a 16-step bracket misses b by
+# less than SUM_LIMIT.
+K3_OPTIONS = {
+    "M1": (1, 10.0, "one_active"),
+    "M37": (37, 10.0, "random"),
+    "M4096": (4096, 200.0, "random"),
+    "M5000": (5000, 200.0, "random"),
+    "M65536": (65536, 200.0, "random"),
+    "one_active": (4096, 10.0, "one_active"),
+    "none_active": (4096, 10.0, "none_active"),
+    "b_1e-3": (4096, 1e-3, "at_b_scale"),
+    "level_at_0": (4096, 50.0, "level_at_0"),
+}
+
+
+def level_instance(torch, rng, M, b, kind, dev):
+    """Bottles (u, h0), float32 on ``dev``, of a ``K3_OPTIONS`` kind."""
+    import numpy as np
+    from repro_torch.kernels.gwf_waterfill.ref import gwf_waterfill_ref
+    u = rng.uniform(0.1, 5.0, M)
+    h0 = rng.uniform(-2.0, 3.0, M)
+    if kind == "random":
+        u[rng.random(M) < 0.25] = 0.0
+    elif kind == "one_active":
+        u[1:] = 0.0
+    elif kind == "none_active":
+        u[:] = 0.0
+    elif kind == "at_b_scale":
+        h0 *= b
+    else:                                         # level_at_0
+        h0 = rng.uniform(-1.0, 1.0, M)
+        ud, hd = (torch.tensor(x, device=dev) for x in (u, h0))
+        th = gwf_waterfill_ref(ud, hd, b)
+        h0 = h0 - level_of(th, ud, hd, b)
+    return (torch.tensor(np.asarray(x, np.float32), device=dev)
+            for x in (u, h0))
+
+
+def k3_options_phase(torch, dev):
+    """Phase 4, continued: K3 against its plain version on
+    ``K3_OPTIONS`` at level_wfp's limits (in units of b/m_act, the
+    level, the budget), the plain version in float32 against itself in
+    float64 beside it, and the steps to the fixed point."""
+    import numpy as np
+    from repro_torch.kernels.gwf_waterfill import kernel as wk
+    from repro_torch.kernels.gwf_waterfill.ref import gwf_waterfill_ref
+
+    got = {}
+    for i, (name, (M, b, kind)) in enumerate(K3_OPTIONS.items()):
+        rng = np.random.default_rng(200 + i)
+        u, h0 = level_instance(torch, rng, M, b, kind, dev)
+
+        def run(iters):
+            return wk.gwf_waterfill(u, h0, b, iters=iters)
+        th = run(ITERS)
+        plain = gwf_waterfill_ref(u, h0, b)
+        active = u > 0
+        r = {"finite": bool(torch.isfinite(th).all()),
+             "inactive_zero": bool((th[~active] == 0).all()),
+             "fixed_point_steps": fixed_point_steps(run, th)}
+        if kind == "none_active":
+            r["zeros"] = bool((th == 0).all() and (plain == 0).all())
+            got[name] = r
+            check(r["finite"] and r["zeros"],
+                  f"K3 {name}: θ is not zero without an active bottle: {r}")
+            continue
+        unit = b / float(active.sum())
+        plain64 = gwf_waterfill_ref(u.double(), h0.double(), b)
+
+        def readings(t):
+            f = {"alloc": alloc_err(t, plain, unit)}
+            f["level_spread"], f["level_park"], f["sum"] = level_residual(
+                t, u, h0, b)
+            f["bad"] = (f["alloc"] > ALLOC_LIMIT["K3"]
+                        or f["sum"] > SUM_LIMIT
+                        or max(f["level_spread"], f["level_park"])
+                        > KKT_LIMIT)
+            return f
+        r.update(readings(th))
+        r["plain_vs_plain_f64"] = alloc_err(plain, plain64, unit)
+        r["fault_cut_short"] = readings(run(SHORT_ITERS))
+        got[name] = r
+        check(r["finite"] and r["inactive_zero"] and not r["bad"],
+              f"K3 {name}: readings {r} beyond alloc {ALLOC_LIMIT['K3']}, "
+              f"level {KKT_LIMIT}, budget {SUM_LIMIT}")
+    emit({"phase": "k3_options",
+          "limits": {"alloc": ALLOC_LIMIT["K3"], "level": KKT_LIMIT,
+                     "sum": SUM_LIMIT},
+          "threads": wk.THREADS["gwf_waterfill"], "readings": got})
 
 
 # ---- the serving path: K4 and K5 ---------------------------------------------
@@ -997,10 +1135,10 @@ def serve_times(torch, cap, launches, errs):
         rec = {"name": name, "route": "cuda", "source": src,
                "replaces": tpu, "launches": launches[name],
                "max_abs_err": errs[name], "ms": ms_k, "plain_ms": ms_p,
-               "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+               "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+               "kernel_device_ms": dev_ms}
         recs.append(rec)
-        emit({"phase": "time", **rec, "kernel_device_ms": dev_ms,
-              "traced_launches": n})
+        emit({"phase": "time", **rec, "traced_launches": n})
     q32, k32, v32 = q.float(), k.float(), v.float()
     emit({"phase": "K5_f32_time", "q": list(q.shape), **kw,
           "ms": timed(torch, lambda: fo.flash_attention_op(
@@ -1062,11 +1200,7 @@ def main():
     sp_mix = StackedSpeedup(
         *(torch.tensor(x, dtype=torch.float64, device=dev)
           for x in (A_mix, w_mix, g_mix, s_mix)), B=B)
-    sp3 = shifted_power(1.0, 4.0, 0.5, B, device=dev, dtype=torch.float32)
-    c3d = torch.tensor(c3, dtype=torch.float32, device=dev)
-    act3 = torch.arange(K, device=dev) < m3
-    u3 = torch.where(act3, sp3.bottle_width(c3d), 0.0).contiguous()
-    h3 = torch.where(act3, sp3.bottle_bottom(c3d), 0.0).contiguous()
+    act3, u3, h3 = level_bottles(torch, c3, dev)
     torch.cuda.synchronize()
 
     # ---- 3–4. the main path, counted ----------------------------------------
@@ -1181,10 +1315,19 @@ def main():
     for what, thf in faults3.items():
         f = readings3[f"K3_fault_{what}"] = k3_readings(thf, plain3)
         check(f["bad"], f"K3: the planted fault {what} passes the checks: {f}")
+    # K3 stops at its fixed point; the cut-short fault only bites while
+    # the fixed point lies beyond SHORT_ITERS steps
+    fp_steps = fixed_point_steps(
+        lambda n: ops.gwf_waterfill_op(u3, h3, b3, iters=n, impl="cuda"),
+        th3)
     emit({"phase": "level_wfp", "K3_vs_plain": err3,
-          "K3_vs_closed_f64": err3c,
+          "K3_vs_closed_f64": err3c, "k3_fixed_point_steps": fp_steps,
           "limits": {"alloc": ALLOC_LIMIT["K3"], "level": KKT_LIMIT,
                      "sum": SUM_LIMIT}, "readings": readings3})
+    check(fp_steps > SHORT_ITERS,
+          f"K3 reaches its fixed point in {fp_steps} ≤ {SHORT_ITERS} steps: "
+          "the cut-short fault has nothing to show")
+    k3_options_phase(torch, dev)
 
     # ---- 5. planning on the card, float64 -----------------------------------
     wk.reset_launches()
@@ -1278,7 +1421,8 @@ def main():
     # name: (line of the TPU kernel, op(impl), max |Δ|, bytes, operations).
     # Operations per active job and pass: K1 12 (mul, div, log, mul, exp,
     # sub, mul, max, min, compare, select, add); K2 14 (adds the clamp and
-    # 1/γ) plus 20 in its bracket pass; K3 5 (sub, mul, max, min, add).
+    # 1/γ) plus 20 in its bracket pass; K3 5 (sub, mul, max, min, add),
+    # in the steps this instance needs to its fixed point.
     calls = {
         "generic_waterfill": (
             151, lambda impl: ops.generic_waterfill_op(
@@ -1291,7 +1435,7 @@ def main():
         "gwf_waterfill": (
             82, lambda impl: ops.gwf_waterfill_op(u3, h3, b3, iters=ITERS,
                                                   impl=impl),
-            err3, 4 * 3 * K, ITERS * m3 * 5),
+            err3, 4 * 3 * K, fp_steps * m3 * 5),
     }
     kernels = []
     for name, (line, op, err, nbytes, nops) in calls.items():
@@ -1331,6 +1475,7 @@ def main():
     for rec in kernels:
         sp = split[rec["name"]]
         sp["op_over_kernel_ms"] = rec["ms"] / sp["kernel_device_ms"]
+        rec["kernel_device_ms"] = sp["kernel_device_ms"]
     emit({"phase": "profile", **split})
     check(split["generic_waterfill"]["device_kernels_per_call"] <= 2,
           f"K1 launches more than its kernel and one cast a call: "

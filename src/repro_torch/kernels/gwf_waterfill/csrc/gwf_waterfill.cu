@@ -1,11 +1,12 @@
 // Water-filling kernels for Hopper (sm_90a): the three bisection solves of
 // the paper's General Water-Filling step, in float32.
 //
-// Every kernel is a fixed-count bisection whose step is an elementwise map
-// over the job axis followed by one sum.  One thread block owns one
-// instance, every step ends in a block reduction whose result every thread
-// holds, and the bracket stays in registers.  Instances are independent,
-// so the grid's order does not matter.
+// Every kernel is a bisection whose step is an elementwise map over the
+// job axis followed by one sum: K1 and K2 take a fixed count of steps, K3
+// stops at its float32 fixed point.  One thread block owns one instance,
+// every step ends in a block reduction whose result every thread holds,
+// and the bracket stays in registers.  Instances are independent, so the
+// grid's order does not matter.
 //
 // K1 and K2 bisect in L = log2 λ.  Job i's allocation at L is
 //   θ_i = clip(σ_i (2^{t_i} − w_i), 0, b),  t_i = (L + log2(c_i/A_i)) / γ_i,
@@ -49,8 +50,8 @@ namespace {
 
 constexpr float kF32Big = 1e30f;   // float32 stand-in for an infinite s'(0)
 
-// K1 and K2's job tile: a block holds kTileJobs jobs in registers (jobs
-// j ≡ threadIdx.x mod NT, kTileJobs / NT of them a thread), up to
+// The job tile of K1, K2 and K3: a block holds kTileJobs jobs in registers
+// (jobs j ≡ threadIdx.x mod NT, kTileJobs / NT of them a thread), up to
 // kSmemBytes of further jobs' state in dynamic shared memory, and derives
 // the rest from device memory in every pass.  kernel.py's TILE_JOBS and
 // SMEM_BYTES; the entry points refuse a tile sized otherwise.
@@ -65,28 +66,6 @@ __device__ __forceinline__ float clip(float x, float lo, float hi) {
 // ---------------------------------------------------------------------------
 // Reductions.
 // ---------------------------------------------------------------------------
-enum Op { kSum, kMin, kMax };
-
-// K3's block-wide reduction over NT threads; every thread returns the
-// same value.  The leading __syncthreads keeps a call from overwriting
-// partials an earlier call is still reading.
-template <Op op, int NT>
-__device__ float block_reduce(float v, float* partial) {
-  for (int o = 16; o > 0; o >>= 1) {
-    float u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = op == kSum ? v + u : (op == kMin ? fminf(v, u) : fmaxf(v, u));
-  }
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = partial[0];
-  for (int i = 1; i < NT / 32; ++i) {
-    float u = partial[i];
-    r = op == kSum ? r + u : (op == kMin ? fminf(r, u) : fmaxf(r, u));
-  }
-  return r;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -476,42 +455,184 @@ hetero_waterfill_kernel(const float* __restrict__ c,
 // K3 — gwf_waterfill.
 // Replaces src/repro/kernels/gwf_waterfill/kernel.py::gwf_waterfill (body
 // _wf_kernel).  Single-instance rectangle-bottle WFP (paper §4.5.1):
-// bisection on the level h with Σ clip(u_i (h − h0_i), 0, b) = b, then θ
-// from h; u = 0 marks an inactive bottle.
-// Bound on this card: neither bytes nor operations but latency — one
-// instance is one block on one of 132 SMs, and each of the iters steps
-// waits for a block reduction.  The design keeps the step short (no
-// transcendentals, 1024 threads so K = 4096 is four jobs per thread) and
-// leaves batching instances, which would fill the card, to K1.
+// bisection on the level h over [min h0_i, max (h0_i + b/u_i)] (active
+// bottles, u_i > 0), lo ← mid where Σ clip(u_i (mid − h0_i), 0, b) < b,
+// else hi ← mid, at most iters halvings; then θ_i = clip(u_i (h − h0_i),
+// 0, b) at the final bracket's midpoint h, 0 where u_i ≤ 0, and θ = 0
+// everywhere when no bottle is active (the plain version's zeros).
+// Bound on this card: neither bytes (12 a bottle) nor operations (5 a
+// bottle and step) but latency: one instance is one block on one SM and
+// every step waits for a block-wide sum.  So the design shortens the chain
+// of dependent steps and each step:
+//  - the bisection stops at its float32 fixed point.  A step is a function
+//    of the bracket's bits alone (the sums are folded in one fixed order
+//    that gives every thread the same bits, so every thread also takes the
+//    same branch); once a step leaves (lo, hi) as they were, every later
+//    step does too, and stopping there gives the bits of all iters steps.
+//    From chip_smoke.py's bracket [0.25, 204] that is 29 of 64 steps;
+//  - each bottle (u, h0) is loaded once, into registers (the job tile of
+//    K1/K2 with two words a bottle), then shared memory, and read from
+//    device memory in every step only past both; an inactive one is (0, 0);
+//  - the bracket is one min-max reduction;
+//  - multi-section: a round evaluates the 2^R − 1 midpoints of the next R
+//    steps (a binary tree of brackets), folds their sums with one barrier
+//    and walks the tree, which replays the R steps of bisection bit for
+//    bit; R = kLevelBits = 2 halves the barriers for three times the
+//    pass.  At 512 threads it beat R = 1 and R = 3 on the card
+//    (tools/ablate_kernels.py times all three, and fails unless they
+//    give the same bits).
 // ---------------------------------------------------------------------------
-constexpr int kLevelThreads = 1024;
+constexpr int kLevelBits = 2;
 
-__global__ void __launch_bounds__(kLevelThreads)
+__device__ __forceinline__ bool same_bits(float x, float y) {
+  return __float_as_uint(x) == __float_as_uint(y);
+}
+
+// The block's sums of L values with one barrier, folded as BlockReduce::sum
+// folds one (lane butterflies, a post a warp, the posts folded alike by
+// every warp), into alternate halves of `part`.
+template <int NT, int L>
+struct LevelSums {
+  float (*part)[L][32];
+  int calls;
+
+  __device__ void fold(float (&s)[L]) {
+    float (*p)[32] = part[calls++ & 1];
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int n = 0; n < L; ++n) s[n] = warp_sum(s[n]);
+    if (lane == 0) {
+#pragma unroll
+      for (int n = 0; n < L; ++n) p[n][threadIdx.x >> 5] = s[n];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < L; ++n)
+      s[n] = warp_sum(lane < NT / 32 ? p[n][lane] : 0.0f);
+  }
+};
+
+template <int NT>
+__global__ void __launch_bounds__(NT)
 gwf_waterfill_kernel(const float* __restrict__ u,
                      const float* __restrict__ h0, float b,
-                     float* __restrict__ theta, int M, int iters) {
-  __shared__ float partial[kLevelThreads / 32];
-  // bracket: β(lo) ≤ b ≤ β(hi)
-  float lo_part = CUDART_INF_F, hi_part = -CUDART_INF_F;
-  for (int i = threadIdx.x; i < M; i += kLevelThreads) {
-    if (u[i] > 0.0f) {
-      lo_part = fminf(lo_part, h0[i]);
-      hi_part = fmaxf(hi_part, h0[i] + b / fmaxf(u[i], 1e-30f));
+                     float* __restrict__ theta, int M, int iters,
+                     int smem_jobs) {
+  constexpr int kJobs = kTileJobs / NT;        // register-tile bottles a thread
+  constexpr int L = (1 << kLevelBits) - 1;     // levels a round
+  extern __shared__ float tile[];              // u, then h0, of smem_jobs
+  __shared__ float2 part[2][32];
+  __shared__ float level_part[2][L][32];
+  BlockReduce<NT> red{part, 0};
+  LevelSums<NT, L> sums{level_part, 0};
+  const int tid = threadIdx.x;
+  const int on_chip = kTileJobs + smem_jobs;
+
+  auto load = [&](int j) {
+    const float uj = u[j];
+    return uj > 0.0f ? make_float2(uj, h0[j]) : make_float2(0.0f, 0.0f);
+  };
+  // one load of every bottle, into registers, shared memory, or (past
+  // both) only into the bracket
+  float2 br = make_float2(CUDART_INF_F, -CUDART_INF_F);
+  auto first = [&](int j) {
+    const float2 q = load(j);
+    if (q.x > 0.0f) {
+      br.x = fminf(br.x, q.y);
+      br.y = fmaxf(br.y, q.y + b / fmaxf(q.x, 1e-30f));
+    }
+    return q;
+  };
+  float ru[kJobs], rh[kJobs];
+#pragma unroll
+  for (int k = 0; k < kJobs; ++k) {
+    const int j = tid + k * NT;
+    const float2 q = j < M ? first(j) : make_float2(0.0f, 0.0f);
+    ru[k] = q.x;
+    rh[k] = q.y;
+  }
+  for (int j = kTileJobs + tid; j < M; j += NT) {
+    const float2 q = first(j);
+    if (j < on_chip) {
+      tile[j - kTileJobs] = q.x;
+      tile[smem_jobs + j - kTileJobs] = q.y;
     }
   }
-  float lo = block_reduce<kMin, kLevelThreads>(lo_part, partial);
-  float hi = block_reduce<kMax, kLevelThreads>(hi_part, partial);
-  for (int it = 0; it < iters; ++it) {
-    const float mid = 0.5f * (lo + hi);
-    float s = 0.0f;
-    for (int i = threadIdx.x; i < M; i += kLevelThreads)
-      s += clip(u[i] * (mid - h0[i]), 0.0f, b);
-    s = block_reduce<kSum, kLevelThreads>(s, partial);
-    if (s < b) lo = mid; else hi = mid;
+  br = red.min_max(br);
+  float lo = br.x, hi = br.y;
+  if (lo > hi) {                     // no active bottle: (+inf, −inf)
+    for (int j = tid; j < M; j += NT) theta[j] = 0.0f;
+    return;
   }
+
+  for (int it = 0; it < iters;) {
+    // the round's levels: tree node n (children 2n+1 below, 2n+2 above)
+    // holds the midpoint of its bracket [a, c]
+    float lv[L], a[L], c[L];
+#pragma unroll
+    for (int n = 0; n < L; ++n) {
+      const int p = (n - 1) / 2;
+      a[n] = n == 0 ? lo : (n & 1 ? a[p] : lv[p]);
+      c[n] = n == 0 ? hi : (n & 1 ? lv[p] : c[p]);
+      lv[n] = 0.5f * (a[n] + c[n]);
+    }
+    float s[L];
+#pragma unroll
+    for (int n = 0; n < L; ++n) s[n] = 0.0f;
+    auto add = [&](float uj, float hj) {
+#pragma unroll
+      for (int n = 0; n < L; ++n) s[n] += clip(uj * (lv[n] - hj), 0.0f, b);
+    };
+#pragma unroll
+    for (int k = 0; k < kJobs; ++k)
+      if (k * NT < M) add(ru[k], rh[k]);
+    for (int i = tid; i < smem_jobs; i += NT)
+      add(tile[i], tile[smem_jobs + i]);
+    for (int j = on_chip + tid; j < M; j += NT) {
+      const float2 q = load(j);
+      add(q.x, q.y);
+    }
+    sums.fold(s);
+    // walk the tree: the steps a one-level bisection takes, bit for bit
+    bool fixed = false;
+    int node = 0;
+#pragma unroll
+    for (int d = 0; d < kLevelBits; ++d) {
+      if (it < iters) {
+        float m = lv[0], sm = s[0];
+#pragma unroll
+        for (int n = 1; n < L; ++n)
+          if (n == node) m = lv[n], sm = s[n];
+        if (sm < b) {
+          fixed |= same_bits(m, lo);
+          lo = m;
+          node = 2 * node + 2;
+        } else {
+          fixed |= same_bits(m, hi);
+          hi = m;
+          node = 2 * node + 1;
+        }
+        ++it;
+      }
+    }
+    if (fixed) break;   // every later step leaves (lo, hi) as they are
+  }
+
   const float h = 0.5f * (lo + hi);
-  for (int i = threadIdx.x; i < M; i += kLevelThreads)
-    theta[i] = clip(u[i] * (h - h0[i]), 0.0f, b);
+  auto level_theta = [&](float uj, float hj) {
+    return uj > 0.0f ? clip(uj * (h - hj), 0.0f, b) : 0.0f;
+  };
+#pragma unroll
+  for (int k = 0; k < kJobs; ++k) {
+    const int j = tid + k * NT;
+    if (j < M) theta[j] = level_theta(ru[k], rh[k]);
+  }
+  for (int i = tid; i < smem_jobs; i += NT)
+    theta[kTileJobs + i] = level_theta(tile[i], tile[smem_jobs + i]);
+  for (int j = on_chip + tid; j < M; j += NT) {
+    const float2 q = load(j);
+    theta[j] = level_theta(q.x, q.y);
+  }
 }
 
 // Jobs past the register tile that a block keeps in shared memory, each
@@ -582,11 +703,20 @@ cudaError_t hetero_waterfill_f32(const float* c, const float* A,
 }
 
 cudaError_t gwf_waterfill_f32(const float* u, const float* h0, float b,
-                              float* theta, int M, int iters,
-                              cudaStream_t stream) {
-  gwf_waterfill_kernel<<<1, kLevelThreads, 0, stream>>>(u, h0, b, theta, M,
-                                                        iters);
-  return cudaGetLastError();
+                              float* theta, int M, int iters, int threads,
+                              int smem_jobs, cudaStream_t stream) {
+  if (smem_jobs != smem_jobs_for(M, 2)) return cudaErrorInvalidValue;
+  if (M <= 0) return cudaGetLastError();
+#define K3_LAUNCH(NT)                                                       \
+  launch_tile(gwf_waterfill_kernel<NT>, NT, 1, smem_jobs, 2, stream, u, h0, \
+              b, theta, M, iters)
+  switch (threads) {
+    case 256: return K3_LAUNCH(256);
+    case 512: return K3_LAUNCH(512);
+    case 1024: return K3_LAUNCH(1024);
+  }
+#undef K3_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

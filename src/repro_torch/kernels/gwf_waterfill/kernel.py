@@ -11,7 +11,7 @@ float32, as the TPU kernels did), allocates the output with
 refused, and adds one to ``LAUNCHES[name]``.  K1 and K2 compute their
 λ-bracket in the kernel; K1 reads its per-instance A, w, γ and b at an
 element stride, 0 for a value every instance shares
-(``instance_values``), and both are launched with the block size in
+(``instance_values``), and all three are launched with the block size in
 ``THREADS`` and the job tile of ``job_tiles``.  The library is built from
 the repo's sources on first use (``kernels/_build.py``).  The plain
 versions live in ``ref.py``; ``ops.py`` chooses between the two.
@@ -35,17 +35,19 @@ __all__ = ["LAUNCHES", "generic_waterfill", "hetero_waterfill",
 LAUNCHES = {"generic_waterfill": 0, "hetero_waterfill": 0,
             "gwf_waterfill": 0}
 
-# Block size of K1 and K2, the fastest of the 256, 512 and 1024 threads
-# each is built for (tools/ablate_kernels.py times the three): the size
-# at which two instances' job state fits an SM's registers.
-THREADS = {"generic_waterfill": 512, "hetero_waterfill": 256}
+# Block size of each kernel, the fastest of the 256, 512 and 1024 threads
+# each is built for (tools/ablate_kernels.py times the three): for K1 and
+# K2 the size at which two instances' job state fits an SM's registers;
+# for K3, one instance, the size whose step (pass and barrier) is shortest.
+THREADS = {"generic_waterfill": 512, "hetero_waterfill": 256,
+           "gwf_waterfill": 512}
 # A block's job tile: TILE_JOBS jobs in registers, then up to SMEM_BYTES
 # of job state in shared memory, FIELDS floats a job; the rest are
 # derived from device memory in every pass.  csrc's kTileJobs and
 # kSmemBytes, which the entry points check.
 TILE_JOBS = 4096
 SMEM_BYTES = 196608
-FIELDS = {"generic_waterfill": 3, "hetero_waterfill": 6}
+FIELDS = {"generic_waterfill": 3, "hetero_waterfill": 6, "gwf_waterfill": 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,12 +56,12 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _I],
     "hetero_waterfill_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I],
-    "gwf_waterfill_f32": [_P, _P, ctypes.c_float, _P, _I, _I],
+    "gwf_waterfill_f32": [_P, _P, ctypes.c_float, _P, _I, _I, _I, _I],
 }
 
 
 class JobTiles(NamedTuple):
-    """Where a K1/K2 block keeps an instance's K jobs: ``reg_jobs`` in
+    """Where a block keeps an instance's K jobs: ``reg_jobs`` in
     registers (``jobs_per_thread`` a thread), ``smem_jobs`` in shared
     memory (``smem_bytes``), and ``streamed_jobs`` derived from device
     memory in every pass."""
@@ -72,8 +74,8 @@ class JobTiles(NamedTuple):
 
 def job_tiles(K: int, threads: int, fields: int) -> JobTiles:
     if threads not in (256, 512, 1024):
-        raise ValueError(f"K1/K2 are built for 256, 512 or 1024 threads, "
-                         f"not {threads}")
+        raise ValueError(f"the waterfill kernels are built for 256, 512 or "
+                         f"1024 threads, not {threads}")
     reg = min(K, TILE_JOBS)
     smem = min(K - reg, SMEM_BYTES // (4 * fields))
     return JobTiles(TILE_JOBS // threads, reg, smem, K - reg - smem,
@@ -200,15 +202,20 @@ def hetero_waterfill(c, A, w, gamma, sigma, b, *, iters: int = 64):
 
 
 def gwf_waterfill(u, h0, b, *, iters: int = 64):
-    """K3: rectangle-bottle WFP.  u (M,) widths (0 ⇒ inactive), h0 (M,)
-    bottoms, scalar budget b.  Returns θ (M,) with Σθ = b."""
+    """K3: rectangle-bottle WFP.  u (M,) widths (u ≤ 0 ⇒ inactive), h0
+    (M,) bottoms, scalar budget b.  Returns θ (M,) with Σθ = b, or zeros
+    where no bottle is active.  ``iters`` bounds the halvings of the level
+    bracket; the kernel stops earlier, with the same bits, at the
+    bisection's float32 fixed point."""
     _check_cuda(u, 1)
     M = u.shape[0]
     dev = u.device
     uf = _f32(u, dev, (M,))
     hf = _f32(h0, dev, (M,))
+    threads = THREADS["gwf_waterfill"]
+    tiles = job_tiles(M, threads, FIELDS["gwf_waterfill"])
     theta = torch.empty((M,), dtype=torch.float32, device=dev)
     _launch("gwf_waterfill_f32", "gwf_waterfill", dev,
             _ptr(uf), _ptr(hf), ctypes.c_float(float(b)), _ptr(theta),
-            _I(M), _I(iters))
+            _I(M), _I(iters), _I(threads), _I(tiles.smem_jobs))
     return theta

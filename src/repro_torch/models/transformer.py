@@ -170,15 +170,28 @@ def logits_of(model: Transformer, h):
 # ---------------------------------------------------------------------------
 # serving: prefill + single-token decode with a per-layer state
 # ---------------------------------------------------------------------------
+def _check_cache_room(pos: int, n: int, max_len: int) -> None:
+    """Raise unless positions [pos, pos + n) fit a global attention
+    layer's cache of ``max_len`` positions.  (The JAX package drops such
+    writes and decodes on without those keys.)"""
+    if pos + n > max_len:
+        raise ValueError(f"a KV-cache write of {n} token(s) at pos {pos} "
+                         f"runs past max_len {max_len} of the global "
+                         f"attention cache")
+
+
 def prefill(model: Transformer, batch, max_len: int,
             cache_dtype=torch.bfloat16):
     """Full forward over batch['tokens'] (B, S) that returns the last
     position's logits (B, vocab) and the decode state: ``pos`` (an int)
     and one cache per layer — KV (a ring buffer for local layers) or the
     RG-LRU's (h, conv window).  ``cache_dtype`` defaults to bf16 even for
-    an f32 model, as in the JAX package."""
+    an f32 model, as in the JAX package.  Raises ValueError when S >
+    ``max_len`` and the model has a global attention layer."""
     cfg = model.cfg
     tokens = _tokens(batch["tokens"], model.device)
+    if any(blk.kind == "attn" for blk in model.layers):
+        _check_cache_room(0, tokens.shape[1], max_len)
     h = embed_tokens(model, tokens)
     positions = _positions(tokens)
     caches = []
@@ -226,9 +239,15 @@ def block_decode(blk: Block, h, cfg, cache, pos):
 def decode_step(model: Transformer, tokens, state):
     """One decode step. tokens (B, 1) → (logits (B, vocab), new state).
 
-    KV caches are written in place, so ``state`` is consumed."""
+    KV caches are written in place, so ``state`` is consumed.  Raises
+    ValueError, before any write, when ``pos`` has reached the length of
+    a global attention layer's cache (local layers are rings)."""
     cfg = model.cfg
     pos = state["pos"]
+    for blk, cache in zip(model.layers, state["layers"]):
+        if blk.kind == "attn":
+            _check_cache_room(pos, 1, cache["k"].shape[1])
+            break
     h = embed_tokens(model, _tokens(tokens, model.device))
     caches = []
     for blk, cache in zip(model.layers, state["layers"]):

@@ -117,6 +117,67 @@ def test_greedy_generate_matches_jax_engine(pair):
     np.testing.assert_array_equal(out, ref)
 
 
+# A global attention layer's cache holds max_len positions; a write past
+# it is refused before anything is written (the JAX package drops it).
+ROOM = 24
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-27b"])
+def test_cache_writes_past_max_len_are_refused(arch, monkeypatch):
+    jcfg = JC.get_config(arch, smoke=True)
+    params = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    model = params_from_arrays(PC.get_config(arch, smoke=True),
+                               jax.tree_util.tree_map(np.asarray, params),
+                               device="cpu")
+    toks = np.random.default_rng(2).integers(
+        0, jcfg.vocab, (B, ROOM + 1)).astype(np.int32)
+    with monkeypatch.context() as m:     # refused before any layer runs
+        m.setattr(PM.transformer, "prefill_attention",
+                  lambda *a, **k: pytest.fail("prefill wrote a cache"))
+        with pytest.raises(ValueError, match=f"{ROOM + 1} token.*pos 0 "
+                                             f".*max_len {ROOM}"):
+            PM.prefill(model, {"tokens": toks}, max_len=ROOM)
+    # the last position that fits still matches JAX
+    lj, sj = JM.prefill(params, {"tokens": jnp.asarray(toks[:, :ROOM - 1])},
+                        jcfg, max_len=ROOM, cache_dtype=jnp.float32)
+    lp, sp = PM.prefill(model, {"tokens": toks[:, :ROOM - 1]},
+                        max_len=ROOM, cache_dtype=torch.float32)
+    close(lp, lj)
+    last = toks[:, ROOM - 1:ROOM]
+    lj, sj = JM.decode_step(params, jnp.asarray(last), sj, jcfg)
+    lp, sp = PM.decode_step(model, last, sp)
+    close(lp, lj)
+    assert sp["pos"] == ROOM
+    kept = [{k: v.clone() for k, v in c.items()} for c in sp["layers"]]
+    with pytest.raises(ValueError, match=f"pos {ROOM} .*max_len {ROOM}"):
+        PM.decode_step(model, toks[:, ROOM:], sp)
+    assert sp["pos"] == ROOM
+    for cache, before in zip(sp["layers"], kept):
+        for key, val in cache.items():
+            assert torch.equal(val, before[key])
+
+
+def test_local_rings_decode_past_max_len():
+    """recurrentgemma's attention layers are all local rings: a prompt and
+    decode steps past max_len (= the window) are not refused, and agree
+    with the cache-free forward."""
+    model = PM.init_params(PC.get_config("recurrentgemma-2b", smoke=True),
+                           torch.Generator().manual_seed(0), device="cpu")
+    assert "attn" not in model.cfg.layer_kinds()
+    window = model.cfg.window
+    toks = np.random.default_rng(3).integers(
+        0, model.cfg.vocab, (B, window + 8)).astype(np.int32)
+    n = window + 4
+    full = model(toks)
+    lp, st = PM.prefill(model, {"tokens": toks[:, :n]}, max_len=window,
+                        cache_dtype=torch.float32)
+    torch.testing.assert_close(lp, full[:, n - 1], atol=2e-4, rtol=1e-3)
+    for t in range(n, toks.shape[1]):
+        lp, st = PM.decode_step(model, toks[:, t:t + 1], st)
+        torch.testing.assert_close(lp, full[:, t], atol=2e-4, rtol=1e-3)
+    assert st["pos"] == toks.shape[1]
+
+
 @pytest.mark.parametrize("temperature", [0.0, 1.0])
 def test_generate_is_deterministic_for_a_seed(temperature):
     model = PM.init_params(PC.get_config("recurrentgemma-2b", smoke=True),

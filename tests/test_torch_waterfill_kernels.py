@@ -7,6 +7,7 @@ the JAX kernel tests' tolerances.  The CUDA kernels themselves are held
 against these plain versions on the card by ``chip_smoke.py``.
 """
 import ctypes
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -112,19 +113,64 @@ def test_hetero_plain_matches_pallas_interpret(case):
         assert np.all(out[n, int(m[n]):] == 0.0)
 
 
-@pytest.mark.parametrize("M", [4, 100, 1500])
-@pytest.mark.parametrize("b", [0.5, 10.0, 200.0])
-def test_level_plain_matches_pallas_interpret(M, b):
-    rng = np.random.default_rng(M)
-    u = rng.uniform(0.1, 5.0, M).astype(np.float32)
-    h0 = rng.uniform(-2.0, 3.0, M).astype(np.float32)
-    u[rng.random(M) < 0.25] = 0.0
+def _level_close(u, h0, b):
+    """The plain K3 against the Pallas kernel in interpret mode, at the
+    JAX kernel test's tolerances."""
     ker = np.asarray(JK.gwf_waterfill(jnp.asarray(u), jnp.asarray(h0), b,
                                       interpret=True))
     out = np_(PR.gwf_waterfill_ref(f32(u), f32(h0), b))
     np.testing.assert_allclose(out, ker, atol=1e-2 * max(1, b / 10),
                                rtol=1e-3)
     assert abs(float(out.sum()) - b) < 1e-3 * max(1.0, b)
+    assert np.all(out[u <= 0] == 0.0)
+
+
+# M = 37 and 5000 are shapes of chip_smoke.py's k3_options: part of one
+# register-tile slot, and 904 bottles in shared memory
+@pytest.mark.parametrize("M", [4, 100, 1500, 37, 5000])
+@pytest.mark.parametrize("b", [0.5, 10.0, 200.0])
+def test_level_plain_matches_pallas_interpret(M, b):
+    rng = np.random.default_rng(M)
+    u = rng.uniform(0.1, 5.0, M).astype(np.float32)
+    h0 = rng.uniform(-2.0, 3.0, M).astype(np.float32)
+    u[rng.random(M) < 0.25] = 0.0
+    _level_close(u, h0, b)
+
+
+# The other options of k3_options: one bottle; one active bottle of 100;
+# b = 1e-3 with the bottoms at its scale; bottoms of both signs shifted
+# so that the level sits at 0, where the float32 bisection takes the
+# most steps.
+@pytest.mark.parametrize("case", ["M1", "one_active", "b_1e-3",
+                                  "level_near_0"])
+def test_level_plain_matches_pallas_interpret_on_options(case):
+    rng = np.random.default_rng(7)
+    M, b = (1, 10.0) if case == "M1" else (100, 10.0)
+    u = rng.uniform(0.1, 5.0, M)
+    h0 = rng.uniform(-2.0, 3.0, M)
+    if case == "one_active":
+        u[1:] = 0.0
+    elif case == "b_1e-3":
+        b, h0 = 1e-3, 1e-3 * h0
+    elif case == "level_near_0":
+        h0 = rng.uniform(-1.0, 1.0, M)
+        th = np_(PR.gwf_waterfill_ref(torch.tensor(u), torch.tensor(h0), b))
+        part = (th > 0) & (th < b * (1 - 1e-4))
+        h0 = h0 - np.median((h0 + th / u)[part])
+    _level_close(u.astype(np.float32), h0.astype(np.float32), b)
+
+
+def test_level_plain_gives_zeros_without_an_active_bottle():
+    """Port only: no active bottle gives θ = 0, as the plain version's
+    sort-based solve does and the CUDA kernel is built to.  The JAX Pallas
+    kernel returns NaN there (its bracket is (+inf, −inf)), a reference
+    caveat, so it is not compared."""
+    h0 = f32(np.linspace(-2.0, 3.0, 37))
+    for u in (torch.zeros(37), -torch.ones(37)):
+        out = PR.gwf_waterfill_ref(u, h0, 5.0)
+        assert out.dtype == torch.float32 and torch.equal(out,
+                                                          torch.zeros(37))
+        assert torch.equal(PO.gwf_waterfill_op(u, h0, 5.0, impl="cuda"), out)
 
 
 def test_ops_cuda_impl_on_cpu_runs_the_plain_version():
@@ -179,6 +225,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     (5000, 256, 6, (16, 4096, 904, 0, 904 * 24)),
     (65536, 1024, 3, (4, 4096, 16384, 45056, 196608)),
     (65536, 256, 6, (16, 4096, 8192, 53248, 196608)),
+    (5000, 256, 2, (16, 4096, 904, 0, 904 * 8)),
+    (65536, 256, 2, (16, 4096, 24576, 36864, 196608)),
+    (65536, 1024, 2, (4, 4096, 24576, 36864, 196608)),
 ])
 def test_job_tiles_split_registers_shared_memory_and_streamed(
         K, threads, fields, want):
@@ -191,8 +240,11 @@ def test_job_tiles_refuse_other_block_sizes_and_match_the_source():
     src = _build.SOURCES["gwf_waterfill"].read_text()
     assert f"constexpr int kTileJobs = {PK.TILE_JOBS};" in src
     assert f"constexpr int kSmemBytes = {PK.SMEM_BYTES};" in src
+    assert sorted(PK.FIELDS) == sorted(PK.THREADS) == sorted(PK.LAUNCHES)
     for name, fields in PK.FIELDS.items():
-        assert f"smem_jobs_for(K, {fields})" in src
+        # the entry point of each kernel checks the tile of its own fields
+        assert re.search(rf"{name}_f32\(.*?smem_jobs_for\([KM], {fields}\)",
+                         src, re.S)
         assert PK.THREADS[name] in (256, 512, 1024)
     assert PK.SMEM_BYTES <= 227 * 1024      # a block's dynamic maximum
 
@@ -260,6 +312,26 @@ def test_cuda_paths_launch_without_a_host_bracket(monkeypatch):
                        PK.THREADS["generic_waterfill"], 904]
     # K2: N, K, iters, threads, shared-memory jobs
     assert ints[1] == [3, 65536, 64, PK.THREADS["hetero_waterfill"], 8192]
+
+
+def test_level_launch_passes_block_size_and_tile(monkeypatch):
+    calls = []
+    monkeypatch.setattr(PK, "_check_cuda", lambda c, ndim: None)
+    monkeypatch.setattr(PK, "_launch", lambda *args: calls.append(args))
+    for M, iters in ((37, 64), (5000, 16), (65536, 64)):
+        out = PK.gwf_waterfill(torch.rand(M), torch.rand(M).double(), 2.5,
+                               iters=iters)
+        assert out.shape == (M,) and out.dtype == torch.float32
+    threads = PK.THREADS["gwf_waterfill"]
+    for (name, counter, _, *args), (M, iters, smem) in zip(
+            calls, ((37, 64, 0), (5000, 16, 904), (65536, 64, 24576))):
+        assert (name, counter) == ("gwf_waterfill_f32", "gwf_waterfill")
+        assert len(args) == len(PK._SIGNATURES[name])
+        assert args[2].value == 2.5
+        # M, iters, threads, shared-memory bottles
+        assert [a.value for a in args if isinstance(a, ctypes.c_int)] == [
+            M, iters, threads, smem]
+        assert smem == PK.job_tiles(M, threads, 2).smem_jobs
 
 
 def test_build_command_targets_sm90a_into_build_dir():

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of K5 (flash attention, bf16), K4 (linear scan, f32),
-K1 and K2 (the batched CAP water-fills, f32) goes on the card, at the
-main path's shapes.
+K1 and K2 (the batched CAP water-fills, f32) and K3 (the level WFP, f32)
+goes on the card, at the main path's shapes.
 
 Run from the root of a checkout on a machine with one CUDA card and nvcc:
 
-    python3 tools/ablate_kernels.py
+    python3 tools/ablate_kernels.py [GROUP ...]
+
+where a GROUP (a key of ``VARIANTS``: flash_attention, linear_scan,
+gwf_waterfill for K1/K2, K3) limits the run to those kernels' variants.
 
 It needs no hardware profiler: it takes parts out instead.  Each
 variant is a kernel's source with one statement replaced (``VARIANTS``),
@@ -19,7 +22,19 @@ chip_smoke.py's phase-3 instance (256 × 4096) at each block size they
 are built for (256, 512, 1024); their variants that change only how t
 is rounded (``PRECISION``) also print their readings, at kernel.py's
 block size, against the plain version and against the plain version in
-float64, in units of b/k_act.
+float64, in units of b/k_act.  K3 runs at chip_smoke.py's phase-4
+instance (4096 bottles, 3072 active) at each block size: whole (two
+bits a round), without its fixed-point exit (all 64 bits), without the
+round's reduction (and without the exit, to compare with that), as
+plain bisection (one bit a round) and with three bits a round, with the
+warps' posts summed by every thread in turn rather than by a butterfly,
+with the register tile's bottles in shared memory, without any round
+(the first pass, bracket and write alone), and as an empty kernel (the
+launch's floor); the variants without the exit, with one or three bits
+a round and with the bottles in shared memory must give the whole
+kernel's bits at each block size, or the tool fails.
+K3's rows also carry the kernel's device time from the profiler
+(``device_ms``): an event-timed call of K3 is mostly the host's launch.
 Prints one JSON line per variant and round, then the card's name and
 power limit.
 """
@@ -37,7 +52,7 @@ import torch  # noqa: E402
 import numpy as np  # noqa: E402
 
 from chip_smoke import (ITERS, alloc_err, cap_instance, card_line,  # noqa: E402
-                        kkt_residual, timed)
+                        kkt_residual, level_bottles, timed)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.gwf_waterfill import kernel as wk  # noqa: E402
 from repro_torch.kernels.gwf_waterfill import ref as wr  # noqa: E402
@@ -104,16 +119,81 @@ VARIANTS = {
         "double_move": [_DOUBLE_MOVE],
     },
 }
+_NO_EXIT = ("    if (fixed) break;   // every later step leaves (lo, hi) "
+            "as they are\n", "")
+_K3_FIRST = ("  constexpr int kJobs = kTileJobs / NT;        "
+             "// register-tile bottles")
+VARIANTS["K3"] = {     # K3's statements, in the same source as K1 and K2
+    "whole": [],
+    "no_exit": [_NO_EXIT],
+    "no_reduction_no_exit": [
+        ("    sums.fold(s);",
+         "    for (int n = 0; n < L; ++n)\n"
+         "      s[n] = s[n] * 1e-30f + ((it & 1) ? 2.0f * b : 0.0f);"),
+        _NO_EXIT],
+    "bisection_r1": [("constexpr int kLevelBits = 2;",
+                      "constexpr int kLevelBits = 1;")],
+    "multisection_r3": [("constexpr int kLevelBits = 2;",
+                         "constexpr int kLevelBits = 3;")],
+    "broadcast_fold": [
+        ("      s[n] = warp_sum(lane < NT / 32 ? p[n][lane] : 0.0f);",
+         "    {\n      float t = 0.0f;\n#pragma unroll\n"
+         "      for (int w = 0; w < NT / 32; ++w) t += p[n][w];\n"
+         "      s[n] = t;\n    }")],
+    "no_steps": [("  for (int it = 0; it < iters;) {",
+                  "  for (int it = 0; it < 0;) {")],
+    "bottles_in_smem": [
+        ("""  float ru[kJobs], rh[kJobs];
+#pragma unroll
+  for (int k = 0; k < kJobs; ++k) {
+    const int j = tid + k * NT;
+    const float2 q = j < M ? first(j) : make_float2(0.0f, 0.0f);
+    ru[k] = q.x;
+    rh[k] = q.y;
+  }
+""",
+         """  __shared__ float2 stage[kTileJobs];
+#pragma unroll 1
+  for (int j = tid; j < M && j < kTileJobs; j += NT) stage[j] = first(j);
+"""),
+        ("""#pragma unroll
+    for (int k = 0; k < kJobs; ++k)
+      if (k * NT < M) add(ru[k], rh[k]);
+""",
+         """#pragma unroll 1
+    for (int j = tid; j < M && j < kTileJobs; j += NT) {
+      const float2 q = stage[j];
+      add(q.x, q.y);
+    }
+"""),
+        ("""#pragma unroll
+  for (int k = 0; k < kJobs; ++k) {
+    const int j = tid + k * NT;
+    if (j < M) theta[j] = level_theta(ru[k], rh[k]);
+  }
+""",
+         """#pragma unroll 1
+  for (int j = tid; j < M && j < kTileJobs; j += NT)
+    theta[j] = level_theta(stage[j].x, stage[j].y);
+""")],
+    "empty": [(_K3_FIRST, "  return;\n" + _K3_FIRST)],
+}
+SOURCE = {"K3": "gwf_waterfill"}
 # the variants of K1 and K2 that only round t otherwise: their readings
 PRECISION = ("whole", "exp2f", "no_lo_word", "no_recentre", "double_move")
+# the K3 variants that must give the whole kernel's bits
+K3_EXACT = ("no_exit", "bisection_r1", "multisection_r3", "bottles_in_smem")
+CAP = ("generic_waterfill", "hetero_waterfill")
 
 
-def build(out: Path) -> dict:
-    """Every variant's library, built at once: {(kernel, variant): path}."""
+def build(out: Path, groups) -> dict:
+    """Every variant's library of ``groups``, built at once:
+    {(kernel, variant): path}."""
     nvcc = _build.find_nvcc()
     procs = {}
-    for kernel, variants in VARIANTS.items():
-        src = _build.SOURCES[kernel].read_text()
+    for kernel in groups:
+        variants = VARIANTS[kernel]
+        src = _build.SOURCES[SOURCE.get(kernel, kernel)].read_text()
         for name, subs in variants.items():
             text = src
             for old, new in subs:
@@ -136,7 +216,7 @@ def build(out: Path) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"{key}: nvcc failed\n{log}")
         libs[key] = lib
-        if key[0] == "gwf_waterfill":
+        if key[0] in ("gwf_waterfill", "K3"):
             usage = {_build.kernel_label(fn): u for fn, u in
                      _build.ptxas_usage(log).items() if "waterfill_kernel<"
                      in _build.kernel_label(fn)}
@@ -182,7 +262,7 @@ class CapCalls:
         cf, vals = wk.generic_args(self.c, *self.shared, self.b)
         calls = {}
         for threads in (256, 512, 1024):
-            for name in wk.THREADS:
+            for name in CAP:
                 entry = f"{name}_f32"
                 fn = getattr(lib, entry)
                 fn.argtypes = [*wk._SIGNATURES[entry], P]
@@ -212,12 +292,67 @@ class CapCalls:
         return r
 
 
+class LevelCalls:
+    """K3 on chip_smoke.py's phase-4 instance, called through a variant
+    library's C entry point with the arguments kernel.py passes, at each
+    block size."""
+
+    def __init__(self, dev):
+        rng = np.random.default_rng(0)
+        cap_instance(rng, 256, 4096, 1.0, 40.0)      # phase 4's draws follow
+        c3 = np.sort(rng.uniform(0.01, 1.0, 4096))[::-1].copy()
+        _, self.u, self.h0 = level_bottles(torch, c3, dev)
+        self.b = 200.0
+
+    def bind(self, lib, variant):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        stream = P(torch.cuda.current_stream().cuda_stream)
+        M = self.u.shape[0]
+        fn = lib.gwf_waterfill_f32
+        fn.argtypes = [*wk._SIGNATURES["gwf_waterfill_f32"], P]
+        fn.restype = I
+        calls = {}
+        for threads in (256, 512, 1024):
+            out = torch.empty_like(self.u)
+            tiles = wk.job_tiles(M, threads, wk.FIELDS["gwf_waterfill"])
+            args = (P(self.u.data_ptr()), P(self.h0.data_ptr()),
+                    ctypes.c_float(self.b), P(out.data_ptr()), M, ITERS,
+                    threads, tiles.smem_jobs, stream)
+            calls["gwf_waterfill", variant, threads] = (fn, args, None, out)
+        return calls
+
+
+def device_ms(fn, kernel):
+    """Mean device ms of the kernels named ``kernel`` over a profiled run
+    of ten calls of ``fn`` (the profiler keeps some launches of a
+    repeated kernel, once none: up to three tries), or None."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        mine = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.key]
+        n = sum(e.count for e in mine)
+        if n:
+            return sum(e.device_time_total for e in mine) / 1e3 / n
+    return None
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("tools/ablate_kernels.py: no CUDA card")
+    groups = sys.argv[1:] or list(VARIANTS)
+    unknown = set(groups) - set(VARIANTS)
+    if unknown:
+        sys.exit(f"tools/ablate_kernels.py: no variants of {sorted(unknown)}; "
+                 f"choose from {sorted(VARIANTS)}")
     out = _build.BUILD_DIR / "ablation"
     out.mkdir(parents=True, exist_ok=True)
-    libs = build(out)
+    libs = build(out, groups)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     P, I = ctypes.c_void_p, ctypes.c_int
@@ -239,11 +374,12 @@ def main():
     carry = torch.empty(geo.carry_floats, device=dev)
 
     cap = CapCalls(dev)
+    level = LevelCalls(dev)
     calls = {}
     for (kernel, name), lib in libs.items():
-        if kernel == "gwf_waterfill":
-            for key, call in cap.bind(ctypes.CDLL(str(lib)), name).items():
-                calls[key] = call
+        if kernel in ("gwf_waterfill", "K3"):
+            bound = cap if kernel == "gwf_waterfill" else level
+            calls.update(bound.bind(ctypes.CDLL(str(lib)), name))
             continue
         if kernel == "flash_attention":
             fn = ctypes.CDLL(str(lib)).flash_attention_bf16
@@ -273,18 +409,31 @@ def main():
     torch.cuda.synchronize()
 
     for key, out in calls.items():
-        if (key[0] in wk.THREADS and key[1] in PRECISION
+        if (key[0] in CAP and key[1] in PRECISION
                 and key[2] == wk.THREADS[key[0]]):
             print(json.dumps({"kernel": key[0], "variant": key[1],
                               "threads": key[2],
                               **cap.readings(key[0], out[3])}), flush=True)
+        if key[0] == "gwf_waterfill" and key[1] in K3_EXACT:
+            whole = calls["gwf_waterfill", "whole", key[2]][3]
+            same = torch.equal(out[3].view(torch.int32),
+                               whole.view(torch.int32))
+            print(json.dumps({"kernel": key[0], "variant": key[1],
+                              "threads": key[2],
+                              "bits_equal_to_whole": same}), flush=True)
+            if not same:
+                sys.exit(f"K3 {key[1]} at {key[2]} threads: θ differs from "
+                         "the whole kernel's")
     for rnd in range(2):
         for key, (fn, args, scratch, *_) in calls.items():
             ms = timed(torch, lambda: run(fn, args, scratch))
+            dev_ms = ({"device_ms": device_ms(lambda: run(fn, args, scratch),
+                                              "gwf_waterfill_kernel")}
+                      if key[0] == "gwf_waterfill" else {})
             print(json.dumps({"kernel": key[0], "variant": key[1],
                               **({"threads": key[2]} if len(key) > 2
                                  else {}),
-                              "round": rnd, "ms": ms}), flush=True)
+                              "round": rnd, "ms": ms, **dev_ms}), flush=True)
         print(json.dumps({"kernel": "linear_scan", "variant":
                           "torch.add over the same bytes", "round": rnd,
                           "ms": timed(torch, lambda: torch.add(a, b,
@@ -293,6 +442,11 @@ def main():
         print(json.dumps({"kernel": "linear_scan", "variant":
                           "zeroing the flags alone", "round": rnd,
                           "ms": timed(torch, flags.zero_)}), flush=True)
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(json.dumps({"sm_clock_now_and_max": clocks}), flush=True)
     print(card_line(), flush=True)
 
 
