@@ -13,7 +13,10 @@ Phases (each one is a check; any failure exits non-zero):
   3. the batched CAP front door at full width (N = 256 tenants ×
      k = 4096 jobs, float32): ``solve_cap_batched(impl="auto")`` with a
      shared shifted power (CUDA kernel generic_waterfill) and a per-job
-     power/log/saturating mix (hetero_waterfill);
+     power/log/saturating mix (hetero_waterfill); then the same shared
+     call in float64, which ``impl="auto"`` must keep off the float32
+     kernels: float64 out, no launch, the float64 closed form to 1e-12
+     (``cap_dtype_rule``, with both dtypes' times);
   4. the level WFP: ``gwf_waterfill_op`` at k = 4096 with 25% inactive
      bottles (gwf_waterfill).
      Phases 3–4 hold each kernel against its plain version (and K1, K3
@@ -62,10 +65,20 @@ Phases (each one is a check; any failure exits non-zero):
      the kernel's device time from the profiler, the bound, for K5 one
      ``scaled_dot_product_attention`` call as a yardstick and the f32
      instantiation's time), and a
-     profile of one wave: the device's busy share in prefill and decode.
+     profile of one wave: the device's busy share in prefill and decode;
+ 11. per-job SmartFill (paper §7) in float64 on the card, counted
+     (``hetero_*`` lines): the sampler's five-family per-job fleet (N =
+     256, M = 32, 2..32 live jobs) through ``smartfill_hetero_batched``,
+     held to the port's CPU run (same orders, J to 1e-9), to J_linear,
+     and at its largest instance to ``smartfill_hetero`` (1e-6), with
+     wall time, device kernels a call and busy share from the profiler;
+     the exchange search (windows 1 and 2) on ten mixed members, card
+     against CPU; ``smartfill_warm`` seeded by its own first run against
+     a cold plan; no K1–K5 launch in the phase.
 
-Launch counters are reset before phases 3–4 drive the planning path
-and before phase 7 drives the serving path, and read right after each;
+Launch counters are reset before phases 3–4 drive the planning path,
+before phase 7 drives the serving path and before phase 11, and read
+right after each;
 the comparisons and timings come later and do not count.  Prints one
 JSON line per measurement, the kernel summary line ``{"kernels": [...]}``
 (five kernels, each with its device ms), the card line, and last
@@ -351,6 +364,37 @@ CAP_OPTIONS = {
     "K2_N1": ("K2", "mix", 1, 4096, 20.0, 20.0, False),
     "K2_b_1e-3": ("K2", "power_mix", 16, 4096, 1e-3, 1e-3, False),
 }
+
+
+def dtype_rule_phase(torch, sp, b, c, active):
+    """Phase 3, continued: ``impl="auto"`` on float64 CUDA input takes
+    the float64 closed form, not the float32 kernel: the output stays
+    float64, no kernel is launched, and it is the closed form's to
+    1e-12 relative.  Times both dtypes' auto calls."""
+    from repro_torch.core import solve_cap_batched, solve_cap_regular
+    from repro_torch.kernels.gwf_waterfill import kernel as wk
+
+    b64, c64 = b.double(), c.double()
+    before = dict(wk.LAUNCHES)
+    th = solve_cap_batched(sp, b64, c64, active, impl="auto", iters=ITERS)
+    torch.cuda.synchronize()
+    check(dict(wk.LAUNCHES) == before,
+          f"a float64 auto call launched a kernel: {before} → {wk.LAUNCHES}")
+    check(th.is_cuda and th.dtype == torch.float64 and th.shape == c.shape,
+          f"float64 auto output {th.dtype} {tuple(th.shape)} on {th.device}")
+    closed = solve_cap_regular(sp, b64, c64, active)
+    nz = closed != 0
+    rel = float(((th - closed).abs()[nz] / closed.abs()[nz]).max())
+    check(rel <= 1e-12 and bool((th[~nz] == 0).all()),
+          f"float64 auto vs the closed form: {rel:.3e} > 1e-12")
+    ms64 = timed(torch, lambda: solve_cap_batched(sp, b64, c64, active,
+                                                  impl="auto", iters=ITERS))
+    ms32 = timed(torch, lambda: solve_cap_batched(sp, b, c, active,
+                                                  impl="auto", iters=ITERS))
+    emit({"phase": "cap_dtype_rule", "N": int(c.shape[0]),
+          "k": int(c.shape[1]), "f64_dtype": str(th.dtype),
+          "f64_vs_closed_rel": rel, "f64_launches": 0,
+          "f64_auto_ms": ms64, "f32_auto_ms": ms32})
 
 
 def cap_options_phase(torch, dev):
@@ -1150,6 +1194,194 @@ def serve_times(torch, cap, launches, errs):
     return recs
 
 
+# Phase 11: per-job SmartFill (paper §7) in float64 on the card.  The
+# fleet is the sampler's mixed five-family per-job batch at N = 256, M =
+# 32 (2..32 live jobs); the exchange search runs on ten mixed members
+# with slowdown weights under each job's own curve, w_i = s_i(B)/x_i (the
+# shape of examples/hetero_fleet.py).  SmartFill's inner CAP is the
+# float64 sorted solver: no K1–K5 launch may happen in the phase.  The
+# fleet's heuristic orders are realized (J == J_linear) on 62 of its 256
+# instances; on the others J is a schedule quantity (see the check).
+HETERO_N, HETERO_M, HETERO_SEED = 256, 32, 0
+EXCHANGE_M, EXCHANGE_SEED = 10, 1
+
+
+def all_launches():
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.gwf_waterfill import kernel as wk
+    from repro_torch.kernels.linear_scan import kernel as sk
+    return {**wk.LAUNCHES, **fk.LAUNCHES, **sk.LAUNCHES}
+
+
+def reset_all_launches():
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.gwf_waterfill import kernel as wk
+    from repro_torch.kernels.linear_scan import kernel as sk
+    for mod in (wk, fk, sk):
+        mod.reset_launches()
+
+
+def exchange_instance(torch, np, dev):
+    """Ten mixed per-job members, sizes U(2, 15), w_i = s_i(B)/x_i."""
+    from repro_torch.core import sample_workloads
+    from repro_torch.core.speedup import map_leaves
+    wl = sample_workloads(EXCHANGE_SEED, K=1, M=EXCHANGE_M, B=B,
+                          family=("power", "shifted", "log", "neg_power",
+                                  "saturating"), per_job=True, device=dev)
+    sp = map_leaves(wl.sp, lambda l: l[0])
+    x = np.random.default_rng(EXCHANGE_SEED).uniform(2.0, 15.0, EXCHANGE_M)
+    rate = sp.s(torch.full((EXCHANGE_M,), B, dtype=torch.float64,
+                           device=sp.A.device)).cpu().numpy()
+    return sp, x, rate / x
+
+
+def device_profile(torch, run):
+    """(wall s, device busy s, device kernels) of one ``run()`` traced by
+    the profiler's CUDA activity alone.  The device events are summed
+    straight from the trace: building the profiler's per-op tables for
+    a call of ~10⁶ kernels takes minutes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t_all = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    events = prof.profiler.kineto_results.events()
+    on_dev = [e for e in events if e.device_type() == DeviceType.CUDA]
+    busy = sum(e.duration_ns() for e in on_dev) / 1e9
+    emit({"phase": "profile_cost", "trace_stop_s": t1 - t0 - wall,
+          "events": len(events), "read_s": time.perf_counter() - t1,
+          "total_s": time.perf_counter() - t_all})
+    return wall, busy, len(on_dev)
+
+
+def hetero_phase(torch, np, dev):
+    """Phase 11: the per-job planning path on ``dev``, held against the
+    same calls on the CPU (on a CPU ``dev``, a rehearsal: no profile).
+    Returns the launch counts of the phase, all of which must be 0."""
+    from repro_torch.core import (FAMILIES, sample_workloads,
+                                  smartfill_hetero, smartfill_hetero_batched,
+                                  smartfill_warm)
+    from repro_torch.core.speedup import map_leaves
+
+    cpu = torch.device("cpu")
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    reset_all_launches()
+    kw = dict(family=FAMILIES, per_job=True, m_range=(2, HETERO_M), B=B)
+    wl = sample_workloads(HETERO_SEED, K=HETERO_N, M=HETERO_M, device=dev,
+                          **kw)
+    wl_cpu = sample_workloads(HETERO_SEED, K=HETERO_N, M=HETERO_M,
+                              device=cpu, **kw)
+
+    def fleet_on(w):
+        return smartfill_hetero_batched(w.sp, w.X, w.W, B=B, active=w.active)
+
+    t0 = time.perf_counter()
+    orders, sched = fleet_on(wl)
+    sync()
+    t1 = time.perf_counter()
+    orders_c, sched_c = fleet_on(wl_cpu)
+    fleet = {"N": HETERO_N, "M": HETERO_M, "families": list(FAMILIES),
+             "live_jobs": [2, HETERO_M], "wall_s": t1 - t0,
+             "host_cpu_wall_s": time.perf_counter() - t1}
+    check(sched.J.device.type == dev.type and sched.J.dtype == torch.float64,
+          "the fleet ran off the device or out of float64")
+    check(np.array_equal(orders, orders_c),
+          "fleet: the card's orders differ from the CPU run's")
+    Jg, Jc = sched.J.cpu(), sched_c.J
+    Jlin, Jlin_c = sched.J_linear.cpu(), sched_c.J_linear
+    check(bool(torch.isfinite(Jg).all()), "fleet J not finite")
+    # J is the value function (Prop. 9) only where the order is realized
+    # (J == J_linear); elsewhere it is the executed cost of clamped
+    # durations, linear in where the μ-descent stops, which rounding
+    # moves: a schedule quantity, held to T's tolerance
+    realized = ((Jc - Jlin_c).abs() / Jc) <= 1e-9
+    rel = (Jg - Jc).abs() / Jc
+    n0 = int(np.argmax(wl.m))
+    m0 = int(wl.m[n0])
+    # the single-instance planner as the yardstick, on the host: one
+    # instance costs the card as many launches as the whole fleet
+    single = smartfill_hetero(
+        map_leaves(wl_cpu.sp, lambda l: l[n0, :m0]), wl.X[n0, :m0],
+        wl.W[n0, :m0], B=B, exchange_passes=0)
+    fleet.update(
+        card_vs_cpu_realized=float(torch.where(realized, rel, 0.0).max()),
+        card_vs_cpu_unrealized=float(torch.where(realized, 0.0, rel).max()),
+        J_linear_card_vs_cpu=float(((Jlin - Jlin_c).abs() / Jlin_c).max()),
+        rows_over_1e_9=int((rel > 1e-9).sum()), realized=int(realized.sum()),
+        J_below_J_linear=float((Jlin * (1 - 1e-9) - Jg).clamp_min(0).max()),
+        largest_vs_single=abs(float(Jg[n0]) - single.J) / single.J)
+    emit({"phase": "hetero_fleet", **fleet})
+    check(fleet["card_vs_cpu_realized"] <= 1e-9
+          and fleet["J_linear_card_vs_cpu"] <= 1e-9
+          and fleet["card_vs_cpu_unrealized"] <= 1e-6,
+          f"fleet card vs CPU beyond 1e-9 (J on realized orders, J_linear) "
+          f"or 1e-6 (J on the others): {fleet}")
+    check(fleet["J_below_J_linear"] == 0.0,
+          "fleet: J below J_linear·(1 − 1e-9)")
+    check(fleet["largest_vs_single"] <= 1e-6,
+          f"fleet: largest instance vs single {fleet['largest_vs_single']}")
+    if on_card:
+        wall, busy, n_dev = device_profile(torch,
+                                           lambda: (fleet_on(wl), sync()))
+        check(busy > 0, "the fleet's profile saw no device work")
+        emit({"phase": "hetero_fleet_profile", "wall_s": wall,
+              "device_busy_s": busy, "busy_share": busy / wall,
+              "busy_share_of_unprofiled_wall": busy / fleet["wall_s"],
+              "device_kernels": n_dev})
+
+    # the exchange search, window 1 and 2, card against the CPU (the
+    # heuristic order's plan, the yardstick, from the CPU)
+    sp, x, w = exchange_instance(torch, np, dev)
+    sp_c, _, _ = exchange_instance(torch, np, cpu)
+    heur = smartfill_hetero(sp_c, x, w, B=B, exchange_passes=0)
+    for window in (1, 2):
+        t0 = time.perf_counter()
+        plan = smartfill_hetero(sp, x, w, B=B, exchange_passes=2,
+                                exchange_window=window)
+        sync()
+        wall = time.perf_counter() - t0
+        plan_c = smartfill_hetero(sp_c, x, w, B=B, exchange_passes=2,
+                                  exchange_window=window)
+        r = {"M": EXCHANGE_M, "wall_s": wall, "J": plan.J,
+             "J_linear": plan.J_linear, "heuristic_J": heur.J,
+             "order": plan.order.tolist(),
+             "heuristic_order": heur.order.tolist(),
+             "J_vs_J_linear": abs(plan.J - plan.J_linear) / plan.J,
+             "card_vs_cpu": abs(plan.J - plan_c.J) / plan_c.J}
+        emit({"phase": f"hetero_exchange_window_{window}", **r})
+        check(r["J_vs_J_linear"] <= 1e-6,
+              f"exchange window {window}: J vs J_linear {r}")
+        check(plan.J <= heur.J * (1 + 1e-12),
+              f"exchange window {window}: J above the heuristic order's")
+        check(np.array_equal(plan.order, plan_c.order)
+              and r["card_vs_cpu"] <= 1e-9,
+              f"exchange window {window}: card vs CPU {r}")
+
+    # warm re-planning in the searched order: a cold call, then a call
+    # seeded with its payload
+    p = torch.as_tensor(plan.order)
+    sp_o = map_leaves(sp, lambda l: l[p.to(l.device)])
+    x_o, w_o = x[plan.order], w[plan.order]
+    t0 = time.perf_counter()
+    cold, payload = smartfill_warm(sp_o, x_o, w_o, B=B)
+    sync()
+    t1 = time.perf_counter()
+    warm, _ = smartfill_warm(sp_o, x_o, w_o, B=B, warm=payload)
+    sync()
+    r = {"cold_wall_s": t1 - t0, "warm_wall_s": time.perf_counter() - t1,
+         "warm_vs_cold": abs(warm.J - cold.J) / cold.J}
+    emit({"phase": "hetero_warm", **r})
+    check(r["warm_vs_cold"] <= 1e-9, f"warm vs cold J {r}")
+    launches = all_launches()
+    check(not any(launches.values()),
+          f"a kernel was launched in the per-job phase: {launches}")
+    return launches
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -1276,6 +1508,7 @@ def main():
           "K1_vs_closed_f64": err1c, "K2_vs_plain": err2,
           "limits": {"alloc": ALLOC_LIMIT, "kkt": KKT_LIMIT},
           "readings": readings})
+    dtype_rule_phase(torch, sp_shift, bd, Cd, act)
     cap_options_phase(torch, dev)
 
     # ---- 4. K3 against its plain version and the f64 closed form ----------
@@ -1490,6 +1723,12 @@ def main():
         end_to_end_phase(torch, model, prompt0, out0, cap)
         kernels += serve_times(torch, cap, serve_launches, errs)
     serve_profile(torch, model, prompt0)
+
+    # ---- 11. per-job SmartFill (§7), float64, counted -----------------------
+    t0 = time.perf_counter()
+    launches11 = hetero_phase(torch, np, dev)
+    emit({"phase": "hetero_planning", "launches": launches11,
+          "wall_s": time.perf_counter() - t0})
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

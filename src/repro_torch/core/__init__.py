@@ -1,5 +1,6 @@
-"""Core algorithms: speedup families, GWF, SmartFill, heSRPT, CDR
-verification and the host reference simulator."""
+"""Core algorithms: speedup families, GWF, SmartFill (shared and per-job
+speedups), heSRPT, CDR verification, the seeded workload sampler and the
+host reference simulator."""
 from .speedup import (  # noqa: F401
     GenericSpeedup,
     RegularSpeedup,
@@ -16,13 +17,18 @@ from .speedup import (  # noqa: F401
     rowwise,
     saturating,
     shifted_power,
+    stack_speedup_rows,
     stack_speedups,
     take_job,
 )
 from .gwf import (  # noqa: F401
     HeteroPrep,
+    auto_impl,
     cap_bracket_probe,
     cap_residual,
+    hetero_approx,
+    hetero_breakpoints_init,
+    hetero_breakpoints_insert,
     hetero_prepare,
     hetero_solve,
     solve_cap,
@@ -37,20 +43,30 @@ from .gwf import (  # noqa: F401
     waterfill_solve,
 )
 from .smartfill import (  # noqa: F401
+    HeteroSmartFillSchedule,
     SmartFillSchedule,
+    WarmStart,
     completion_times,
+    normalized_order,
     objective,
     smartfill,
     smartfill_allocations,
+    smartfill_hetero,
+    smartfill_hetero_reference,
+    smartfill_reference,
+    smartfill_warm,
 )
 from .batch import (  # noqa: F401
     BatchedSmartFillSchedule,
     current_allocations_from,
+    hetero_order_batch,
     smartfill_allocations_batched,
     smartfill_batched,
+    smartfill_hetero_batched,
 )
 from .hesrpt import fit_power, hesrpt_allocations, hesrpt_policy  # noqa: F401
 from .cdr import cdr_violation, estimate_constants  # noqa: F401
+from .workloads import FAMILIES, WorkloadBatch, sample_workloads  # noqa: F401
 from .simulator import (  # noqa: F401
     SimResult,
     n_events_for,

@@ -16,8 +16,11 @@ Padding / masking convention (matches ``solve_cap``'s ``active`` mask):
   * ``B`` is a scalar or an (N,) vector.
 
 Speedup leaves with leading dimension N are per instance; leaves with a
-job dimension beyond that are per job (paper §7), which the port does
-not plan yet.  Padded outputs are exact zeros.
+job dimension beyond that are per job (paper §7): ``(N, M)`` leaves give
+every job of every instance its own function, and the solve takes the
+sorted per-job CAP.  ``smartfill_hetero_batched`` adds the per-instance
+completion order (rows must otherwise already be in completion order).
+Padded outputs are exact zeros.
 """
 from __future__ import annotations
 
@@ -27,16 +30,19 @@ import numpy as np
 import torch
 
 from .._device import as_tensor, resolve_device
-from .smartfill import (_PER_JOB_LATER, SmartFillSchedule, _fast_ok, _on,
+from .smartfill import (SmartFillSchedule, _fast_ok, _host, _on, _solo_order,
                         _solve, _validate_instance)
-from .speedup import Speedup, collapse_homogeneous, inner_per_job, leaves
+from .speedup import (Speedup, collapse_homogeneous, host_call, leaves,
+                      map_leaves, per_instance)
 
 __all__ = [
     "BatchedSmartFillSchedule",
     "batch_axes",
     "check_axes_unambiguous",
     "current_allocations_from",
+    "hetero_order_batch",
     "smartfill_batched",
+    "smartfill_hetero_batched",
     "smartfill_allocations_batched",
     "validate_padded_instances",
 ]
@@ -158,20 +164,18 @@ def smartfill_batched(
     """SmartFill over N padded instances in one batched call.
 
     Args:
-      sp: shared speedup, or one with per-instance (N,) leaves.
+      sp: shared speedup, or one with per-instance (N,) leaves, or per
+        job ((M,) or (N, M) leaves, paper §7; rows in completion order).
       X, W: (N, M) padded sizes and weights.
       B: scalar or (N,) budgets; defaults to sp.B.
       active: optional (N, M) prefix masks; defaults to ``X > 0``.
       fast_path: as in ``smartfill``.
       validate: host-side check of each instance's sorting convention.
         The prefix-mask property is always checked.
-      stol_rel: the per-job minimizer's exit tolerance; that path is not
-        ported yet, so only the default None is accepted.
+      stol_rel: the per-job μ* descent's exit tolerance (see
+        ``smartfill._solve``); None keeps the size-dependent default.
       device: where to run; defaults to the inputs' device, else CUDA.
     """
-    if stol_rel is not None:
-        raise NotImplementedError(
-            "stol_rel tunes the per-job SmartFill minimizer; " + _PER_JOB_LATER)
     dev = resolve_device(device, X, sp)
     Xm, Wm, active, m = _prepare(X, W, active, dev)
     N, M = Xm.shape
@@ -180,14 +184,72 @@ def smartfill_batched(
         validate_padded_instances(Xm, Wm, m)
     sp = collapse_homogeneous(_on(sp, dev, Xm.dtype))
     check_axes_unambiguous(sp, N, M, "sp")
-    if inner_per_job(sp, N):
-        raise NotImplementedError(_PER_JOB_LATER)
     fast = _fast_ok(sp, N) and fast_path is not False
-    theta, c, a, d, T, J, J_lin = _solve(sp, Xm, Wm, Bv.contiguous(), m,
-                                         coarse, descent_iters, cap_iters,
-                                         fast)
+    theta, c, a, d, T, J, J_lin, _, _ = _solve(
+        sp, Xm, Wm, Bv.contiguous(), m, coarse, descent_iters, cap_iters,
+        fast, stol_rel=stol_rel)
     return BatchedSmartFillSchedule(theta=theta, c=c, a=a, durations=d, T=T,
                                     J=J, J_linear=J_lin, active=active, m=m)
+
+
+def smartfill_hetero_batched(sp: Speedup, X, W, B=None, active=None,
+                             device=None, **kwargs):
+    """Per-job batched planning: per-instance completion order + solve.
+
+    The fleet front door for per-job speedups (paper §7): each padded
+    instance's order is SJF by normalized size under each job's own s_i
+    (``normalized_order``, ties by weight), rows and per-job speedup
+    leaves are permuted to it, and the whole batch is solved in one
+    ``smartfill_batched`` call.  Rows of X/W need not arrive sorted;
+    padding stays a prefix.  The exchange search is the single-instance
+    planner's (``smartfill_hetero``), not the fleet path's.
+
+    Returns ``(orders, BatchedSmartFillSchedule)``, ``orders[n][r]`` the
+    original column of instance n in schedule row r.
+    """
+    dev = resolve_device(device, X, sp)
+    Xm, Wm, active, m = _prepare(X, W, active, dev)
+    N, M = Xm.shape
+    B = sp.B if B is None else B
+    sp = collapse_homogeneous(_on(sp, dev, Xm.dtype))
+    check_axes_unambiguous(sp, N, M, "sp")
+    orders, sp_p, Xp, Wp = hetero_order_batch(sp, Xm, Wm, m, B)
+    sched = smartfill_batched(sp_p, Xp, Wp, B=B, active=active, device=dev,
+                              **kwargs)
+    return orders, sched
+
+
+def hetero_order_batch(sp, Xm, Wm, m, B):
+    """Per-instance §7 order heuristic + batch permutation.
+
+    For each padded instance the SJF-by-normalized-size order of its
+    live prefix (the rates s_i(B_n) of every job of every instance come
+    from one device call; the orders are host numpy), then rows and
+    per-job speedup leaves permuted to it.  ``Xm``/``Wm``/``m`` follow
+    ``_prepare``'s conventions.  Returns ``(orders, sp_p, Xp, Wp)``.
+    """
+    N, M = Xm.shape
+    Xh, Wh, ms = _host(Xm), _host(Wm), _host(m).astype(np.int64)
+    Bv = np.broadcast_to(_host(B), (N,)).copy()
+    rate = np.broadcast_to(host_call(per_instance(sp, N), "s", Bv[:, None]),
+                           (N, M))
+    orders = np.tile(np.arange(M), (N, 1))
+    for n in range(N):
+        mk = int(ms[n])
+        if mk:
+            orders[n, :mk] = _solo_order(Xh[n, :mk], Wh[n, :mk],
+                                         rate[n, :mk])
+    gather = torch.as_tensor(orders, device=Xm.device)
+
+    def permute_leaf(l):
+        if l.ndim == 2 and l.shape == (N, M):
+            return l.gather(1, gather)
+        if l.ndim == 1 and l.shape[0] == M:
+            return l[gather]        # shared per-job → per-instance copies
+        return l
+
+    return (orders, map_leaves(sp, permute_leaf), Xm.gather(1, gather),
+            Wm.gather(1, gather))
 
 
 def smartfill_allocations_batched(sp: Speedup, REM, W, B=None, active=None,

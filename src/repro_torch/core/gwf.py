@@ -26,11 +26,16 @@ scalars are shared, ``(..., 1)`` leaves are per instance and
 ``hetero_prepare`` / ``hetero_solve`` / ``solve_cap_hetero_sorted``
     The sorted-breakpoint per-job solver: ``searchsorted`` brackets λ*
     inside one segment, a safeguarded Newton step in log λ polishes it.
+    Per-job SmartFill keeps the breakpoints in a store it updates one
+    job an iteration (``hetero_breakpoints_init``/``_insert``), runs
+    warm probes with ``hetero_solve(unroll=)`` and places its μ-grid
+    with the one-pass ``hetero_approx``.
 ``solve_cap_batched``
-    The N-instance front door.  On a CUDA tensor a regular family goes
-    to the hand-written CUDA waterfill kernels at every k; on the CPU
-    ``impl="auto"`` takes the closed form, the sorted solver or the
-    bisection, as the JAX package does off the TPU.
+    The N-instance front door.  ``impl="auto"`` (``auto_impl``) sends a
+    float32 CUDA call on a regular family to the hand-written float32
+    CUDA waterfill kernels at every k; every other call, float64 on the
+    card included, takes the closed form, the sorted solver or the
+    bisection in its own dtype, as the JAX package does off the TPU.
 
 Adaptive loops (JAX's ``while_loop``) run a fixed maximum count with a
 per-row ``done`` mask that freezes the carry, so the result is JAX's and
@@ -60,7 +65,11 @@ __all__ = [
     "waterfill_level",
     "HeteroPrep",
     "hetero_prepare",
+    "hetero_breakpoints_init",
+    "hetero_breakpoints_insert",
     "hetero_solve",
+    "hetero_approx",
+    "auto_impl",
     "cap_residual",
 ]
 
@@ -395,30 +404,112 @@ def _beta_tilde(P, E, Q, act, lam):
     return torch.where(act, torch.clamp_min(term, 0.0), 0.0).sum(-1)
 
 
+def hetero_breakpoints_init(M: int, dtype=torch.float64, device=None,
+                            batch: tuple = ()):
+    """Empty per-job breakpoint store: λ = 0, β̃-value = +∞ sentinels.
+
+    Two ``batch + (M,)`` tensors; slot i belongs to job i (unsorted).
+    ``hetero_breakpoints_insert`` activates one job at a time in O(M),
+    which lets SmartFill keep the exact sorted-breakpoint curve across
+    its iterations instead of re-evaluating the O(M²) breakpoint matrix:
+    the constants c of already-active jobs never change, one c_k arrives
+    per iteration.
+    """
+    dev = resolve_device(device)
+    shape = tuple(batch) + (M,)
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.full(shape, _INF, dtype=dtype, device=dev))
+
+
+def hetero_breakpoints_insert(sp: Speedup, c, k: int, bp_lam, bp_val,
+                              live=True):
+    """Activate job ``k`` (with its ratio constant ``c[..., k]``) in O(M).
+
+    Adds job k's uncapped term max(P_k λ^{E_k} − Q_k, 0) to the stored
+    β̃ value of every existing breakpoint and evaluates the current curve
+    once at job k's own breakpoint λ_act_k.  ``live`` (a bool or one per
+    instance) masks the insert, so padded iterations leave the store as
+    it was.
+    """
+    M = c.shape[-1]
+    idx = torch.arange(M, device=c.device)
+    prev = (idx < k).expand(c.shape)            # jobs already in the store
+    A, w, gamma, sigma = _hetero_leaves(sp, c)
+    P, E, Q, _ = _hetero_coeffs(A, w, gamma, sigma, c, prev)
+
+    c_k = torch.clamp_min(c[..., k], 1e-300)
+    E_k, A_k, w_k, s_k = E[..., k], A[..., k], w[..., k], sigma[..., k]
+    P_k = s_k * (c_k / A_k) ** E_k
+    Q_k = s_k * w_k
+    ds0_k = torch.where(w_k > 0, A_k * torch.clamp_min(w_k, 1e-300)
+                        ** gamma[..., k], _INF)
+    lam_k = ds0_k / c_k
+
+    g = torch.clamp_min(P_k[..., None] * bp_lam ** E_k[..., None]
+                        - Q_k[..., None], 0.0)
+    val_k = _beta_tilde(P, E, Q, prev, lam_k)
+    here = idx == k
+    bp_lam2 = torch.where(here, lam_k[..., None], bp_lam)
+    bp_val2 = torch.where(here, val_k[..., None], bp_val + g)
+    live = as_tensor(live, c.device, torch.bool)[..., None]
+    return (torch.where(live, bp_lam2, bp_lam),
+            torch.where(live, bp_val2, bp_val))
+
+
+def _hetero_prepare(sp, c, active, breakpoints=None):
+    A, w, gamma, sigma = _hetero_leaves(sp, c)
+    P, E, Q, lam_act = _hetero_coeffs(A, w, gamma, sigma, c, active)
+    if breakpoints is None:
+        term = (P[..., None, :] * lam_act[..., :, None] ** E[..., None, :]
+                - Q[..., None, :])                      # (..., λ, job)
+        curve = torch.where(active[..., None, :], torch.clamp_min(term, 0.0),
+                            0.0).sum(-1)
+        bp_lam, bp_val = lam_act, torch.where(active, curve, _INF)
+    else:
+        bp_lam, bp_val = breakpoints
+    order = torch.argsort(-bp_lam, dim=-1, stable=True)
+    return HeteroPrep(P=P, E=E, Q=Q, A=A, w=w, gamma=gamma, sigma=sigma,
+                      c=c, act=active, pos=bp_lam.gather(-1, order),
+                      vals=bp_val.gather(-1, order))
+
+
 def hetero_prepare(sp: Speedup, c, active=None, breakpoints=None,
                    device=None):
     """Factorize the per-job CAP: sort the activation breakpoints once.
 
-    The curve values at the breakpoints are evaluated directly (an
-    O(M²) pass).  ``breakpoints`` (the incrementally maintained store of
-    per-job SmartFill) belongs to a later part of the port.
+    Everything budget-independent — the term coefficients (P, E, Q), the
+    breakpoints λ_act_i and the uncapped curve values β̃(λ_act_j) — is
+    computed here, so ``hetero_solve`` prices any number of budgets
+    against one sort.  Without ``breakpoints`` the curve values are
+    evaluated directly (an O(M²) pass); per-job SmartFill passes the
+    ``(bp_lam, bp_val)`` store it keeps with ``hetero_breakpoints_insert``
+    instead, which keeps an iteration at O(M log M).
     """
-    if breakpoints is not None:
-        raise NotImplementedError(
-            "hetero_prepare(breakpoints=...) serves per-job SmartFill, "
-            "which is not ported yet")
     sp, c, active = _inputs(sp, c, active, device)
-    A, w, gamma, sigma = _hetero_leaves(sp, c)
-    P, E, Q, lam_act = _hetero_coeffs(A, w, gamma, sigma, c, active)
-    term = (P[..., None, :] * lam_act[..., :, None] ** E[..., None, :]
-            - Q[..., None, :])                          # (..., λ, job)
-    curve = torch.where(active[..., None, :], torch.clamp_min(term, 0.0),
-                        0.0).sum(-1)
-    bp_val = torch.where(active, curve, _INF)
-    order = torch.argsort(-lam_act, dim=-1, stable=True)
-    return HeteroPrep(P=P, E=E, Q=Q, A=A, w=w, gamma=gamma, sigma=sigma,
-                      c=c, act=active, pos=lam_act.gather(-1, order),
-                      vals=bp_val.gather(-1, order))
+    return _hetero_prepare(sp, c, active, breakpoints)
+
+
+def _safe_lam_bounds(prep, b_lo, b_hi):
+    """Safe λ bracket of ``solve_cap_generic`` from the prepared leaves:
+    λ_lo = min_i s_i'(b_hi)/c_i, λ_hi = max_i s_i'(0⁺)/c_i with s_i'(ε),
+    ε = b_lo/(8M), for an infinite s_i'(0).  b_lo, b_hi (..., 1)."""
+    act, c = prep.act, prep.c
+    M = c.shape[-1]
+    c_safe = torch.where(act, c, 1.0)
+    ds_b = prep.A * torch.clamp_min(prep.w + prep.sigma * b_hi,
+                                    1e-300) ** prep.gamma
+    eps = b_lo / (8.0 * M)
+    ds0 = torch.where(prep.w > 0,
+                      prep.A * torch.clamp_min(prep.w, 1e-300) ** prep.gamma,
+                      _INF)
+    ds_top = torch.where(prep.w > 0, ds0, prep.A * eps ** prep.gamma)
+    lam_lo_s = torch.where(act, ds_b / c_safe, _INF).amin(-1)
+    lam_hi_s = torch.where(act, ds_top / c_safe, -_INF).amax(-1) * (1 + 1e-9)
+    good = (torch.isfinite(lam_lo_s) & (lam_lo_s > 0)
+            & torch.isfinite(lam_hi_s) & (lam_hi_s > 0))
+    lam_lo_s = torch.where(good, lam_lo_s, 1.0)
+    lam_hi_s = torch.where(good, lam_hi_s, 2.0)
+    return lam_lo_s, torch.maximum(lam_hi_s, lam_lo_s * (1 + 1e-9))
 
 
 def hetero_solve(prep: HeteroPrep, b, iters: int = 48, lam_hint=None,
@@ -432,37 +523,21 @@ def hetero_solve(prep: HeteroPrep, b, iters: int = 48, lam_hint=None,
     Newton iteration in t = log λ (Illinois false position and then the
     midpoint as fallbacks) converges from a log-secant start, or from
     ``lam_hint``, and each row stops once its step is a few ulp or its
-    budget residual is within ``rtol``·b.  ``unroll`` (a fixed step count
-    for warm per-job SmartFill probes) belongs to a later part of the
-    port.
+    budget residual is within ``rtol``·b.
+
+    ``unroll`` > 0 runs exactly that many steps instead, on every row
+    (no exit), and trusts the stored segment-end values for the false
+    position's residuals instead of re-evaluating β̃ at the ends: the
+    warm probes of per-job SmartFill, where a neighbouring λ* reaches
+    float64 precision in a few steps.
     """
-    if unroll:
-        raise NotImplementedError(
-            "hetero_solve(unroll=...) serves per-job SmartFill, which is "
-            "not ported yet")
     P, E, Q, act, c = prep.P, prep.E, prep.Q, prep.act, prep.c
     dt = c.dtype
     M = c.shape[-1]
     b = _scalar(b, c).expand(c.shape[:-1])
     b_safe = torch.clamp_min(b, 1e-300)
     bk = b_safe[..., None]
-
-    # safe bracket — identical bounds to solve_cap_generic
-    c_safe = torch.where(act, c, 1.0)
-    ds_b = prep.A * torch.clamp_min(prep.w + prep.sigma * bk,
-                                    1e-300) ** prep.gamma
-    eps = bk / (8.0 * M)
-    ds0 = torch.where(prep.w > 0,
-                      prep.A * torch.clamp_min(prep.w, 1e-300) ** prep.gamma,
-                      _INF)
-    ds_top = torch.where(prep.w > 0, ds0, prep.A * eps ** prep.gamma)
-    lam_lo_s = torch.where(act, ds_b / c_safe, _INF).amin(-1)
-    lam_hi_s = torch.where(act, ds_top / c_safe, -_INF).amax(-1) * (1 + 1e-9)
-    good = (torch.isfinite(lam_lo_s) & (lam_lo_s > 0)
-            & torch.isfinite(lam_hi_s) & (lam_hi_s > 0))
-    lam_lo_s = torch.where(good, lam_lo_s, 1.0)
-    lam_hi_s = torch.where(good, lam_hi_s, 2.0)
-    lam_hi_s = torch.maximum(lam_hi_s, lam_lo_s * (1 + 1e-9))
+    lam_lo_s, lam_hi_s = _safe_lam_bounds(prep, bk, bk)
 
     # segment bracket: vals[idx−1] ≤ b ≤ vals[idx] ⇒ λ* ∈ [pos[idx],
     # pos[idx−1]] (pos descending, β̃ decreasing)
@@ -473,12 +548,25 @@ def hetero_solve(prep: HeteroPrep, b, iters: int = 48, lam_hint=None,
     bad = ~(hi > lo)
     lo = torch.where(bad, lam_lo_s, lo)
     hi = torch.where(bad, lam_hi_s, hi)
-    lo = torch.where(_beta_tilde(P, E, Q, act, lo) >= b_safe, lo, lam_lo_s)
-    hi = torch.where(_beta_tilde(P, E, Q, act, hi) <= b_safe, hi, lam_hi_s)
-    hi = torch.maximum(hi, lo * (1 + 1e-12))
-    # residuals at the ends actually used (false position steers by them)
-    flo = _beta_tilde(P, E, Q, act, lo) - b_safe
-    fhi = _beta_tilde(P, E, Q, act, hi) - b_safe
+    if unroll > 0:
+        # a degenerate segment marks the residuals non-finite, which
+        # turns the false position off (the midpoint takes over)
+        v_lo = prep.vals.gather(-1, idx)[..., 0]
+        v_hi = prep.vals.gather(-1, (idx - 1) % M)[..., 0]
+        okf = ~bad & torch.isfinite(v_lo) & torch.isfinite(v_hi)
+        flo = torch.where(okf, v_lo - b_safe, _INF)
+        fhi = torch.where(okf, v_hi - b_safe, -_INF)
+        hi = torch.maximum(hi, lo * (1 + 1e-12))
+    else:
+        lo = torch.where(_beta_tilde(P, E, Q, act, lo) >= b_safe, lo,
+                         lam_lo_s)
+        hi = torch.where(_beta_tilde(P, E, Q, act, hi) <= b_safe, hi,
+                         lam_hi_s)
+        hi = torch.maximum(hi, lo * (1 + 1e-12))
+        # residuals at the ends actually used (false position steers by
+        # them)
+        flo = _beta_tilde(P, E, Q, act, lo) - b_safe
+        fhi = _beta_tilde(P, E, Q, act, hi) - b_safe
 
     tlo = torch.log(lo)
     thi = torch.log(hi)
@@ -506,11 +594,8 @@ def hetero_solve(prep: HeteroPrep, b, iters: int = 48, lam_hint=None,
 
     tol = 4.0 * torch.finfo(dt).eps
     rtol_b = rtol * b_safe
-    side = torch.zeros_like(t)
-    # a non-positive budget has the trivial answer θ = 0: start converged
-    step = torch.where(b > 0, _INF, 0.0).to(dt)
-    for _ in range(iters):
-        run = step > tol
+
+    def step_(t, tlo, thi, flo, fhi, prev_up, first):
         u = P * torch.exp(E * t[..., None])
         th = u - Q
         on = act & (th > 0)
@@ -523,29 +608,43 @@ def hetero_solve(prep: HeteroPrep, b, iters: int = 48, lam_hint=None,
         flo2 = torch.where(up, phi, flo)
         thi2 = torch.where(up, thi, t)
         fhi2 = torch.where(up, fhi, phi)
-        # Illinois: halve the stale end's residual when one end moves twice
-        fhi2 = torch.where(up & (side < 0), 0.5 * fhi2, fhi2)
-        flo2 = torch.where((~up) & (side > 0), 0.5 * flo2, flo2)
-        side2 = torch.where(up, -1.0, 1.0).to(dt)
+        if not first:
+            # Illinois: halve the stale end's residual when one end moves
+            # twice running
+            fhi2 = torch.where(up & prev_up, 0.5 * fhi2, fhi2)
+            flo2 = torch.where(~(up | prev_up), 0.5 * flo2, flo2)
         # Newton on log β̃(t), exact for a one-family segment
         tn = t - torch.log(torch.clamp_min(beta, 1e-300) / b_safe) * beta / dphi
         den = flo2 - fhi2
-        tf = tlo2 + (flo2 / torch.where(den > 0, den, 1.0)) * (thi2 - tlo2)
-        use_n = (beta > 0) & torch.isfinite(tn) & (tn > tlo2) & (tn < thi2)
-        use_f = (den > 0) & torch.isfinite(tf) & (tf > tlo2) & (tf < thi2)
+        den_ok = den > 0
+        tf = tlo2 + (flo2 / torch.where(den_ok, den, 1.0)) * (thi2 - tlo2)
+        # the bracket ends are finite, so the comparisons also reject a
+        # step that is not
+        use_n = (beta > 0) & (tn > tlo2) & (tn < thi2)
+        use_f = den_ok & (tf > tlo2) & (tf < thi2)
         t2 = torch.where(use_n, tn,
                          torch.where(use_f, tf, 0.5 * (tlo2 + thi2)))
-        t2 = torch.where(done, t, t2)
-        step2 = torch.where(done, 0.0, torch.abs(t2 - t))
-        t = torch.where(run, t2, t)
-        tlo = torch.where(run, tlo2, tlo)
-        thi = torch.where(run, thi2, thi)
-        flo = torch.where(run, flo2, flo)
-        fhi = torch.where(run, fhi2, fhi)
-        side = torch.where(run, side2, side)
-        step = torch.where(run, step2, step)
-        if stops_early(~(step > tol)):
-            break
+        return torch.where(done, t, t2), tlo2, thi2, flo2, fhi2, up, done
+
+    prev_up = torch.zeros_like(t, dtype=torch.bool)
+    if unroll > 0:
+        for i in range(unroll):
+            t, tlo, thi, flo, fhi, prev_up, _ = step_(
+                t, tlo, thi, flo, fhi, prev_up, i == 0)
+    else:
+        # a non-positive budget has the trivial answer θ = 0: start
+        # converged
+        step = torch.where(b > 0, _INF, 0.0).to(dt)
+        for i in range(iters):
+            run = step > tol
+            t2, *rest, done = step_(t, tlo, thi, flo, fhi, prev_up, i == 0)
+            step2 = torch.where(done, 0.0, torch.abs(t2 - t))
+            t, tlo, thi, flo, fhi, prev_up, step = (
+                torch.where(run, n, o) for n, o in zip(
+                    (t2, *rest, step2), (t, tlo, thi, flo, fhi, prev_up,
+                                         step)))
+            if stops_early(~(step > tol)):
+                break
 
     lam = torch.exp(t)
     theta = torch.where(act, P * torch.exp(E * t[..., None]) - Q, 0.0)
@@ -557,6 +656,65 @@ def hetero_solve(prep: HeteroPrep, b, iters: int = 48, lam_hint=None,
     if return_lam:
         return theta, lam
     return theta
+
+
+def hetero_approx(prep: HeteroPrep, b):
+    """One fused pass of the prepared fill curve — no Newton iteration.
+
+    ``searchsorted`` picks the breakpoint segment and a log-secant
+    through the stored segment-end values places λ̂ — exact when the
+    segment's active set is one regular family, a few per cent off
+    otherwise.  The clipped allocation at λ̂ is rescaled onto the budget,
+    so the result is always feasible (Σθ̂ = b).
+
+    ``b`` is one budget per instance (shape ``prep.c.shape[:-1]`` or
+    less) or a trailing axis of G budgets per instance (``(..., G)``,
+    one more axis than that), which prices a whole μ-grid in two fused
+    (..., G, M) passes; the safe λ bounds are then taken once per
+    instance at its largest and smallest budget.  The localization probe
+    of per-job SmartFill's μ* minimizer, never an answer itself.
+    """
+    P, E, Q, act, c = prep.P, prep.E, prep.Q, prep.act, prep.c
+    M = c.shape[-1]
+    b = _scalar(b, c)
+    grid = b.ndim == c.ndim
+    bv = b if grid else b[..., None]
+    bv = bv.expand(*c.shape[:-1], bv.shape[-1])
+    b_safe = torch.clamp_min(bv, 1e-300)                      # (..., G)
+    lam_lo_s, lam_hi_s = _safe_lam_bounds(
+        prep, b_safe.amin(-1, keepdim=True), b_safe.amax(-1, keepdim=True))
+    lam_lo_s, lam_hi_s = lam_lo_s[..., None], lam_hi_s[..., None]
+
+    idx = torch.searchsorted(prep.vals.contiguous(), b_safe.contiguous(),
+                             side="left").clamp(1, M - 1)     # (..., G)
+    up = (idx - 1) % M
+    lo = torch.minimum(torch.maximum(prep.pos.gather(-1, idx), lam_lo_s),
+                       lam_hi_s)
+    hi = torch.minimum(torch.maximum(prep.pos.gather(-1, up), lam_lo_s),
+                       lam_hi_s)
+    hi = torch.maximum(hi, lo * (1 + 1e-12))
+    vlo = prep.vals.gather(-1, idx)     # β̃ at the segment's low-λ end (≥ b)
+    vhi = prep.vals.gather(-1, up)      # β̃ at the high-λ end (≤ b)
+    ok = (torch.isfinite(vlo) & torch.isfinite(vhi) & (vlo > 0) & (vhi > 0)
+          & (vlo > vhi))
+    l_vlo = torch.log(torch.clamp_min(vlo, 1e-300))
+    num = l_vlo - torch.log(b_safe)
+    den = l_vlo - torch.log(torch.clamp_min(vhi, 1e-300))
+    frac = torch.where(ok, num / torch.where(den > 0, den, 1.0), 0.5)
+    t = torch.log(lo) + torch.clamp(frac, 0.0, 1.0) * (torch.log(hi)
+                                                        - torch.log(lo))
+
+    bq = b_safe[..., None]
+    theta = torch.where(act[..., None, :],
+                        P[..., None, :] * torch.exp(E[..., None, :]
+                                                    * t[..., None])
+                        - Q[..., None, :], 0.0)               # (..., G, M)
+    theta = torch.minimum(torch.clamp_min(theta, 0.0), bq)
+    tot = theta.sum(-1, keepdim=True)
+    theta = torch.where(tot > 0, theta * (bq / tot), theta)
+    theta = torch.minimum(theta, bq)
+    theta = torch.where(bv[..., None] > 0, theta, 0.0)
+    return theta if grid else theta[..., 0, :]
 
 
 def solve_cap_hetero_sorted(sp: Speedup, b, c, active=None, iters: int = 48,
@@ -578,20 +736,38 @@ def solve_cap(sp: Speedup, b, c, active=None, iters: int = 96, device=None):
     return solve_cap_generic(sp, b, c, active, iters=iters, device=device)
 
 
+def auto_impl(device_type: str, dtype: torch.dtype, family: str) -> str:
+    """The solver ``impl="auto"`` picks for a batched CAP.
+
+    ``family`` is "regular" (one RegularSpeedup shared by the jobs),
+    "per_job" (per-job regular families), "stacked" (a StackedSpeedup
+    shared by the jobs) or "other".  Only a float32 CUDA input of a
+    regular family goes to the CUDA kernels, which compute in float32;
+    every other input keeps its dtype and takes what the JAX package's
+    auto gives it off the TPU: the closed form for "regular", the sorted
+    solver for "per_job", the λ-bisection otherwise.
+    """
+    if (device_type == "cuda" and dtype == torch.float32
+            and family != "other"):
+        return "cuda"
+    return {"regular": "closed", "per_job": "sorted"}.get(family, "bisect")
+
+
 def solve_cap_batched(sp: Speedup, b, c, active=None, iters: int = 64,
                       impl: str = "auto", device=None):
     """CAP over N instances at once: (N, k) c-vectors, scalar or (N,) b.
 
     The batched front door for controllers that water-fill many tenants
-    per tick.  ``impl="auto"``:
+    per tick.  ``impl="auto"`` follows ``auto_impl``:
 
-      * on a CUDA tensor, a shared RegularSpeedup runs the
-        ``generic_waterfill`` CUDA kernel and a per-job regular family
-        (job-indexed RegularSpeedup leaves or a StackedSpeedup) runs the
-        ``hetero_waterfill`` kernel, at every k;
-      * on the CPU, a shared RegularSpeedup takes the closed form and a
-        per-job regular family the sorted-bracket solver;
-      * any other speedup takes the λ-bisection.
+      * a float32 CUDA tensor with a shared RegularSpeedup runs the
+        ``generic_waterfill`` CUDA kernel, and with a per-job regular
+        family (job-indexed RegularSpeedup leaves or a StackedSpeedup)
+        the ``hetero_waterfill`` kernel, at every k;
+      * any other dtype or device (float64 on the card too) takes the
+        closed form for a shared RegularSpeedup, the sorted-bracket
+        solver for a per-job regular family and the λ-bisection
+        otherwise, and returns θ in c's dtype.
 
     ``impl`` ∈ {"auto", "closed", "sorted", "bisect", "cuda"} forces a
     path ("cuda" picks the hetero kernel when ``sp`` is per-job and runs
@@ -612,14 +788,9 @@ def solve_cap_batched(sp: Speedup, b, c, active=None, iters: int = 64,
     regular = isinstance(sp, RegularSpeedup) and not per_job
     stackable = isinstance(sp, (RegularSpeedup, StackedSpeedup))
     if impl == "auto":
-        if stackable and c.is_cuda:
-            impl = "cuda"
-        elif regular:
-            impl = "closed"
-        elif stackable and per_job:
-            impl = "sorted"
-        else:
-            impl = "bisect"
+        family = ("regular" if regular else "per_job" if stackable and per_job
+                  else "stacked" if stackable else "other")
+        impl = auto_impl(c.device.type, c.dtype, family)
     if impl == "cuda":
         if not stackable:
             raise ValueError("impl='cuda' needs a (possibly per-job) "

@@ -51,6 +51,7 @@ __all__ = [
     "saturating",
     "from_roofline",
     "stack_speedups",
+    "stack_speedup_rows",
     "broadcast_speedup",
     "collapse_homogeneous",
     "is_per_job",
@@ -433,6 +434,45 @@ def stack_speedups(sps, B: float | None = None) -> StackedSpeedup:
         sigma=torch.tensor([float(s.sigma) for s in sps], dtype=ref.dtype,
                            device=ref.device),
         B=float(B))
+
+
+# A valid (shifted-power-like) family for slots no real job occupies:
+# padded parameters must stay legal members so a masked solve cannot NaN.
+_NEUTRAL_PARAMS = (1.0, 1.0, -0.5, 1.0)         # (A, w, γ, σ)
+
+
+def stack_speedup_rows(rows, M: int, B: float, device=None) -> StackedSpeedup:
+    """(N, M)-leaved ``StackedSpeedup`` from per-instance member lists.
+
+    ``rows[n]`` lists instance n's per-job ``RegularSpeedup`` members in
+    row (completion) order; rows shorter than ``M`` edge-replicate their
+    last member into the padded slots, and empty rows hold neutral valid
+    family parameters.  Members are validated as in ``stack_speedups``.
+    The leaves are float64 on ``device`` (default: the members' device,
+    else CUDA).
+    """
+    N = len(rows)
+    pars = np.empty((4, N, M))
+    pars[0], pars[1], pars[2], pars[3] = (
+        p for p in np.asarray(_NEUTRAL_PARAMS))
+    for n, members in enumerate(rows):
+        if len(members) > M:
+            raise ValueError(f"row {n} has {len(members)} members for "
+                             f"{M} slots")
+        for r, s in enumerate(members):
+            if not isinstance(s, RegularSpeedup) or is_per_job(s):
+                # reuse stack_speedups' error text for the same contract
+                stack_speedups([s], B=B)
+            pars[0, n, r] = float(s.A)
+            pars[1, n, r] = float(s.w)
+            pars[2, n, r] = float(s.gamma)
+            pars[3, n, r] = float(s.sigma)
+        for r in range(len(members), M):
+            if members:                 # edge-replicate the last member
+                pars[:, n, r] = pars[:, n, len(members) - 1]
+    dev = resolve_device(device, *(s for members in rows for s in members))
+    A, w, gamma, sigma = (as_tensor(p, dev) for p in pars)
+    return StackedSpeedup(A=A, w=w, gamma=gamma, sigma=sigma, B=float(B))
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,13 @@
     stands in for the kernel;
   * "ref" runs the plain version wherever the tensor lies;
   * "sorted" (hetero op only) runs ``core.gwf.solve_cap_hetero_sorted``;
-  * "auto" launches the kernel on a CUDA tensor at every size and runs
-    the plain version on a CPU tensor.  (The TPU's size threshold is a
-    fact of that chip; a threshold for this card waits for a
+  * "auto" launches the kernel on a float32 CUDA tensor at every size
+    and runs the plain version on any other: a CPU tensor, or a CUDA
+    tensor of another dtype, which the plain version computes in its own
+    dtype (the kernels compute in float32, so a float64 call would come
+    back at float32 precision).  The rule is ``core.gwf.auto_impl``'s,
+    the one ``solve_cap_batched`` follows.  (The TPU's size threshold is
+    a fact of that chip; a threshold for this card waits for a
     measurement of its own.)
 """
 from __future__ import annotations
@@ -18,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from .._build import use_cuda_for
-from ...core.gwf import solve_cap_hetero_sorted
+from ...core.gwf import auto_impl, solve_cap_hetero_sorted
 from ...core.speedup import StackedSpeedup, unchecked
 from .kernel import generic_waterfill, gwf_waterfill, hetero_waterfill
 from .ref import generic_waterfill_ref, gwf_waterfill_ref, hetero_waterfill_ref
@@ -33,11 +37,19 @@ __all__ = [
 ]
 
 
+def _launches(x, impl, family):
+    """Does this call launch the kernel?  ``impl`` as in the module
+    docstring; "auto" asks ``auto_impl`` with the input's dtype."""
+    if impl == "auto":
+        return auto_impl(x.device.type, x.dtype, family) == "cuda"
+    return use_cuda_for(x, impl)
+
+
 def gwf_waterfill_op(u, h0, b, iters=64, impl="auto"):
     """Single-instance regular WFP; see the module docstring for ``impl``."""
     if impl == "sorted":
         raise ValueError("impl='sorted' applies to hetero_waterfill_op only")
-    if use_cuda_for(u, impl):
+    if _launches(u, impl, "regular"):
         return gwf_waterfill(u, h0, b, iters=iters)
     return gwf_waterfill_ref(u, h0, b)
 
@@ -46,7 +58,7 @@ def generic_waterfill_op(c, A, w, gamma, b, sigma=1, iters=64, impl="auto"):
     """Batched generic waterfill (N instances × K jobs)."""
     if impl == "sorted":
         raise ValueError("impl='sorted' applies to hetero_waterfill_op only")
-    if use_cuda_for(c, impl):
+    if _launches(c, impl, "regular"):
         return generic_waterfill(c, A, w, gamma, b, sigma=sigma, iters=iters)
     return generic_waterfill_ref(c, A, w, gamma, b, sigma=sigma, iters=iters)
 
@@ -57,7 +69,7 @@ def hetero_waterfill_op(c, A, w, gamma, sigma, b, iters=64, impl="auto"):
     solver over the instances instead of a bisection."""
     if impl == "sorted":
         return _hetero_sorted(c, A, w, gamma, sigma, b, iters=iters)
-    if use_cuda_for(c, impl):
+    if _launches(c, impl, "per_job"):
         return hetero_waterfill(c, A, w, gamma, sigma, b, iters=iters)
     return hetero_waterfill_ref(c, A, w, gamma, sigma, b, iters=iters)
 

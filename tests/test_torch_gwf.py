@@ -259,3 +259,208 @@ def test_batch_axes_and_instance_view():
                                   "gamma": axes_j.gamma}
     view = P.per_instance(spt, N)
     assert view.A.shape == (N, 1) and view.w.shape == ()
+
+
+def _mixed(seed, m):
+    """A σ = ±1 mixed-family StackedSpeedup of m jobs, in both packages."""
+    wl = sample_workloads(seed, K=1, M=m, B=B, family=ALL, per_job=True)
+    spj = jax.tree_util.tree_map(lambda l: jnp.asarray(l)[0], wl.sp)
+    return spj, port_speedup(spj)
+
+
+@pytest.mark.parametrize("seed", [20, 21])
+def test_breakpoint_store_is_the_one_shot_prepare(seed):
+    """The store built one job at a time gives hetero_prepare's curve,
+    and the JAX package's store."""
+    m = 9
+    spj, spt = _mixed(seed, m)
+    rng = np.random.default_rng(seed)
+    c = np.sort(rng.uniform(0.05, 1.0, m))[::-1].copy()
+    c[0] = 1.0
+    bp_t = P.hetero_breakpoints_init(m, torch.float64, "cpu")
+    bp_j = J.hetero_breakpoints_init(m, jnp.float64)
+    for k in range(m):
+        bp_t = P.hetero_breakpoints_insert(spt, t64(c), k, *bp_t)
+        bp_j = J.hetero_breakpoints_insert(spj, jnp.asarray(c), k, *bp_j)
+        act = np.arange(m) <= k
+        one = P.hetero_prepare(spt, t64(c), t64(act))
+        inc = P.hetero_prepare(spt, t64(c), t64(act), breakpoints=bp_t)
+        # curve values are sums of O(B) terms: a value that cancels to
+        # ~0 keeps rounding of that size
+        for field in ("pos", "vals"):
+            np.testing.assert_allclose(np_(getattr(inc, field)),
+                                       np_(getattr(one, field)), rtol=1e-12,
+                                       atol=1e-12 * B)
+        for a, b in zip(bp_t, bp_j):
+            np.testing.assert_allclose(np_(a), np.asarray(b), rtol=1e-12,
+                                       atol=1e-12 * B)
+    # a masked insert leaves the store as it was
+    lam, val = P.hetero_breakpoints_insert(spt, t64(c), 2, *bp_t, live=False)
+    assert torch.equal(lam, bp_t[0]) and torch.equal(val, bp_t[1])
+
+
+def test_breakpoint_store_batched():
+    """Batch-first: an (N, M) store with per-instance live masks."""
+    sp, C, A, bs = _per_job(22, N=4, k=8)
+    spt = P.per_instance(port_speedup(sp), 4)
+    Ct = t64(C)
+    live = t64(np.array([True, False, True, True]))
+    bp = P.hetero_breakpoints_init(8, torch.float64, "cpu", (4,))
+    for k in range(8):
+        bp = P.hetero_breakpoints_insert(spt, Ct, k, *bp, live=live)
+    for n in range(4):
+        spn = jax.tree_util.tree_map(lambda l: jnp.asarray(l)[n], sp)
+        bj = J.hetero_breakpoints_init(8, jnp.float64)
+        if n != 1:
+            for k in range(8):
+                bj = J.hetero_breakpoints_insert(spn, jnp.asarray(C[n]), k,
+                                                 *bj)
+        for a, b in zip(bp, bj):
+            np.testing.assert_allclose(np_(a[n]), np.asarray(b), rtol=1e-12,
+                                       atol=1e-12 * B)
+
+
+@pytest.mark.parametrize("unroll", [1, 2, 4, 6])
+def test_hetero_solve_unrolled_matches_jax(unroll):
+    spj, spt = _mixed(23, 10)
+    rng = np.random.default_rng(24)
+    c = np.sort(rng.uniform(0.05, 1.0, 10))[::-1].copy()
+    act = np.arange(10) < 8
+    prep_j = J.hetero_prepare(spj, jnp.asarray(c), jnp.asarray(act))
+    prep_t = P.hetero_prepare(spt, t64(c), t64(act))
+    for b in (0.0, 0.05, 1.3, 6.0, 9.9):
+        _, lam_cold = J.hetero_solve(prep_j, b, return_lam=True)
+        for hint in (None, 0.0, float(lam_cold) * 1.01, 1e9):
+            th_j, lam_j = J.hetero_solve(prep_j, b, lam_hint=hint,
+                                         return_lam=True, unroll=unroll)
+            th_t, lam_t = P.hetero_solve(prep_t, b, lam_hint=hint,
+                                         return_lam=True, unroll=unroll)
+            np.testing.assert_allclose(np_(th_t), np.asarray(th_j),
+                                       atol=tol(b))
+            assert float(lam_t) == pytest.approx(float(lam_j), rel=1e-9)
+
+
+def test_hetero_approx_matches_jax():
+    spj, spt = _mixed(25, 12)
+    rng = np.random.default_rng(26)
+    c = np.sort(rng.uniform(0.05, 1.0, 12))[::-1].copy()
+    act = np.arange(12) < 11
+    prep_j = J.hetero_prepare(spj, jnp.asarray(c), jnp.asarray(act))
+    prep_t = P.hetero_prepare(spt, t64(c), t64(act))
+    grid = np.concatenate([[0.0], np.geomspace(1e-6, B, 15)])
+    ref = np.asarray(J.hetero_approx(prep_j, jnp.asarray(grid)))
+    out = np_(P.hetero_approx(prep_t, t64(grid)))
+    np.testing.assert_allclose(out, ref, atol=tol(B))
+    np.testing.assert_allclose(out.sum(-1), grid, rtol=1e-12)
+    for b in (0.4, 7.0):
+        np.testing.assert_allclose(np_(P.hetero_approx(prep_t, b)),
+                                   np.asarray(J.hetero_approx(prep_j, b)),
+                                   atol=tol(b))
+    # batch-first: one grid per instance
+    two = P.hetero_prepare(P.per_instance(
+        P.map_leaves(spt, lambda l: l.expand(2, 12)), 2),
+        t64(np.stack([c, c])), t64(np.stack([act, act])))
+    np.testing.assert_allclose(
+        np_(P.hetero_approx(two, t64(np.stack([grid, grid])))[1]), ref,
+        atol=tol(B))
+
+
+def _rand_member(rng):
+    f = rng.integers(0, 5)
+    a = rng.uniform(0.5, 2.0)
+    p = rng.uniform(0.3, 0.9)
+    z = rng.uniform(0.5, 6.0)
+    if f == 0:
+        return power(a, p, B)
+    if f == 1:
+        return shifted_power(a, z, p, B)
+    if f == 2:
+        return log_speedup(a, rng.uniform(0.3, 2.0), B)
+    if f == 3:
+        return neg_power(a, z, -rng.uniform(0.5, 2.0), B)
+    return saturating(a, rng.uniform(1.2 * B, 3.0 * B),
+                      rng.uniform(1.2, 2.5), B)
+
+
+def test_sorted_cap_matches_bisection():
+    """The sorted solver against the port's λ-bisection, ≤ 1e-10·B, on
+    the reference's 16 seeded σ = ±1 mixed instances with masked jobs
+    (``tests/core/test_hetero_fast.py:82-124``)."""
+    from repro.core import stack_speedups
+    rng = np.random.default_rng(0)
+    worst = 0.0
+    for _ in range(16):
+        m = int(rng.integers(3, 9))
+        st = port_speedup(stack_speedups([_rand_member(rng)
+                                          for _ in range(m)]))
+        c = rng.uniform(0.05, 1.0, m)
+        active = rng.uniform(size=m) < 0.8
+        if not active.any():
+            active[0] = True
+        b = float(rng.uniform(0.2, 1.0) * B)
+        th = P.solve_cap_hetero_sorted(st, b, t64(c), t64(active))
+        th0 = P.solve_cap_hetero(st, b, t64(c), t64(active), iters=96)
+        worst = max(worst, float((th - th0).abs().max()))
+        assert float(torch.where(t64(active), 0.0, th).abs().max()) == 0.0
+        assert abs(float(th.sum()) - b) < 1e-9 * B
+    assert worst < 1e-10 * B, worst
+
+
+def test_prepare_once_prices_many_budgets():
+    from repro.core import stack_speedups
+    rng = np.random.default_rng(1)
+    st = port_speedup(stack_speedups([_rand_member(rng) for _ in range(7)]))
+    c = t64(rng.uniform(0.05, 1.0, 7))
+    active = t64(np.ones(7, bool))
+    prep = P.hetero_prepare(st, c, active)
+    for b in np.linspace(0.05 * B, B, 40):
+        th = P.hetero_solve(prep, float(b))
+        th0 = P.solve_cap_hetero(st, float(b), c, active, iters=96)
+        assert float((th - th0).abs().max()) < 1e-10 * B
+
+
+class _Cuda:
+    """Stands in for a CUDA tensor where only the device and dtype are
+    read (this machine has no card)."""
+
+    is_cuda = True
+    device = torch.device("cuda")
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_auto_impl_rule(device, dtype):
+    """impl="auto": only a float32 CUDA input of a regular family goes to
+    the float32 kernels; every other input takes the reference's solver
+    in its own dtype."""
+    from repro_torch.kernels.gwf_waterfill import ops
+    kernel = device == "cuda" and dtype == torch.float32
+    want = {"regular": "closed", "per_job": "sorted", "stacked": "bisect",
+            "other": "bisect"}
+    for family, plain in want.items():
+        got = P.auto_impl(device, dtype, family)
+        assert got == ("cuda" if kernel and family != "other" else plain)
+    x = _Cuda(dtype) if device == "cuda" else torch.zeros(3, dtype=dtype)
+    for family in ("regular", "per_job"):
+        assert ops._launches(x, "auto", family) == kernel
+        assert ops._launches(x, "cuda", family) == (device == "cuda")
+        assert not ops._launches(x, "ref", family)
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops._launches(x, "pallas", "regular")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_auto_keeps_the_input_dtype_on_the_cpu(dtype):
+    C, A, bs = _batch(27, N=3, k=9)
+    spt = port_speedup(SPS["shifted"])
+    out = P.solve_cap_batched(spt, t64(bs).to(dtype), t64(C).to(dtype),
+                              t64(A))
+    assert out.dtype == dtype
+    sp, C, A, bs = _per_job(28, N=3, k=9)
+    out = P.solve_cap_batched(port_speedup(sp), t64(bs).to(dtype),
+                              t64(C).to(dtype), t64(A))
+    assert out.dtype == dtype
