@@ -74,14 +74,34 @@ Phases (each one is a check; any failure exits non-zero):
      wall time, device kernels a call and busy share from the profiler;
      the exchange search (windows 1 and 2) on ten mixed members, card
      against CPU; ``smartfill_warm`` seeded by its own first run against
-     a cold plan; no K1–K5 launch in the phase.
+     a cold plan; no K1–K5 launch in the phase;
+ 12. the scenario engine (``engine_*`` lines), float64 unless said,
+     each run of ``simulate_ensemble`` held against the port's own CPU
+     run of the same call (J and T to 1e-6, the same n_events): (a)
+     ``examples/policy_faceoff.py`` at its size (the five-policy zoo, K
+     = 128 workloads, M = 8, ln(1+θ)), its table printed, SmartFill's
+     mean gap 0 and every baseline's above 0; (b) the zoo at K = 1024 ×
+     M = 32 under s = √θ, plain (SmartFill ≤ heSRPT·(1 + 1e-9) on every
+     workload), with arrivals and with a fault trace per workload, with
+     wall time, events/s, instances/s and, for the plain and faulted
+     runs, device kernels and busy share; (c) the per-job five-family
+     fleet (K = 256, M = 16) under the pinned heteroSF with its cached
+     plan (simulated J equal to the plan's on realized orders) and WMR,
+     then a budget step that must invalidate the cached table (the
+     host oracle on the moved workloads, the finished ones bit for
+     bit); (d) GWF-static and WMR in float32, whose CAP runs K1 and K2
+     at every event, J held to the float64 run within ``F32_LIMIT``,
+     which the kernels' bisection cut to ``FAULT_ITERS`` steps must
+     exceed.  Rehearse on the CPU with ``engine_phase(torch, np,
+     torch.device("cpu"))``.
 
 Launch counters are reset before phases 3–4 drive the planning path,
-before phase 7 drives the serving path and before phase 11, and read
-right after each;
+before phase 7 drives the serving path, before phase 11 and before
+each float32 run of phase 12, and read right after each;
 the comparisons and timings come later and do not count.  Prints one
 JSON line per measurement, the kernel summary line ``{"kernels": [...]}``
-(five kernels, each with its device ms), the card line, and last
+(five kernels, each with its device ms; K1 and K2 also with their
+launches inside the engine, ``engine_launches``), the card line, and last
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -189,6 +209,40 @@ def timed(torch, fn, runs=25):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def traced_kernel(torch, op, name, calls=10, pad=256, tries=3):
+    """Device records of ``calls`` calls of ``op`` in one profiler trace:
+    (durations in ns of the kernels named ``name``, of the other device
+    records).  After a large trace the profiler drops the device records
+    of whole runs of launches at a trace's start and end (in this
+    script's H100 runs four to six of ten launches as a rule, all ten
+    once; the host's launch records stay), so ``pad`` spin
+    kernels on each side take the loss and are not counted, and a trace
+    that still kept no ``name`` kernel is taken again, up to ``tries``
+    traces in all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                op()
+            torch.cuda.synchronize()
+            for _ in range(pad):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        on_dev = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA
+                  and "spin_kernel" not in e.name()]
+        mine = [e.duration_ns() for e in on_dev if name in e.name()]
+        if mine:
+            break
+    others = [e.duration_ns() for e in on_dev if name not in e.name()]
+    return mine, others
 
 
 def bound(nbytes, nops, peak_ops=FP32_OPS):
@@ -1121,7 +1175,6 @@ def serve_times(torch, cap, launches, errs):
     """Phase 10: K5 and K4 at the path's shapes: kernel and plain ms,
     the kernel's device ms, the bound, K5's library yardstick."""
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import ops as fo
     from repro_torch.kernels.linear_scan import ops as so
 
@@ -1160,22 +1213,10 @@ def serve_times(torch, cap, launches, errs):
     for name, (src, tpu, op, plain_runs, (b_ms, by), lib_ms) in calls.items():
         ms_k = timed(torch, lambda: op("cuda"))
         ms_p = timed(torch, lambda: op("ref"), runs=plain_runs)
-        # the profiler keeps only some launches of a repeated kernel, and
-        # once kept none of ten: up to three traces of ten launches
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    op("cuda")
-                torch.cuda.synchronize()
-            mine = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and f"{name}_kernel" in e.key]
-            n = sum(e.count for e in mine)
-            if n > 0:
-                break
+        mine, _ = traced_kernel(torch, lambda: op("cuda"), f"{name}_kernel")
+        n = len(mine)
         check(n > 0, f"the profiler saw no {name} kernel on the device")
-        dev_ms = sum(e.device_time_total for e in mine) / 1e3 / n
+        dev_ms = sum(mine) / 1e6 / n
         rec = {"name": name, "route": "cuda", "source": src,
                "replaces": tpu, "launches": launches[name],
                "max_abs_err": errs[name], "ms": ms_k, "plain_ms": ms_p,
@@ -1236,10 +1277,13 @@ def exchange_instance(torch, np, dev):
 
 
 def device_profile(torch, run):
-    """(wall s, device busy s, device kernels) of one ``run()`` traced by
-    the profiler's CUDA activity alone.  The device events are summed
-    straight from the trace: building the profiler's per-op tables for
-    a call of ~10⁶ kernels takes minutes."""
+    """(wall s, device busy s, device records, kernel launches) of one
+    ``run()`` traced by the profiler's CUDA activity alone.  The device
+    events are summed straight from the trace: building the profiler's
+    per-op tables for a call of ~10⁶ kernels takes minutes.  The host's
+    launch records are all kept, the device's not always (see
+    ``traced_kernel``), so busy time is a lower bound where the two
+    counts differ."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     t_all = time.perf_counter()
@@ -1251,10 +1295,12 @@ def device_profile(torch, run):
     events = prof.profiler.kineto_results.events()
     on_dev = [e for e in events if e.device_type() == DeviceType.CUDA]
     busy = sum(e.duration_ns() for e in on_dev) / 1e9
+    n_launch = sum(e.device_type() == DeviceType.CPU
+                   and "LaunchKernel" in e.name() for e in events)
     emit({"phase": "profile_cost", "trace_stop_s": t1 - t0 - wall,
           "events": len(events), "read_s": time.perf_counter() - t1,
           "total_s": time.perf_counter() - t_all})
-    return wall, busy, len(on_dev)
+    return wall, busy, len(on_dev), n_launch
 
 
 def hetero_phase(torch, np, dev):
@@ -1325,13 +1371,13 @@ def hetero_phase(torch, np, dev):
     check(fleet["largest_vs_single"] <= 1e-6,
           f"fleet: largest instance vs single {fleet['largest_vs_single']}")
     if on_card:
-        wall, busy, n_dev = device_profile(torch,
-                                           lambda: (fleet_on(wl), sync()))
+        wall, busy, n_dev, n_launch = device_profile(
+            torch, lambda: (fleet_on(wl), sync()))
         check(busy > 0, "the fleet's profile saw no device work")
         emit({"phase": "hetero_fleet_profile", "wall_s": wall,
               "device_busy_s": busy, "busy_share": busy / wall,
               "busy_share_of_unprofiled_wall": busy / fleet["wall_s"],
-              "device_kernels": n_dev})
+              "device_kernels": n_dev, "kernel_launches": n_launch})
 
     # the exchange search, window 1 and 2, card against the CPU (the
     # heuristic order's plan, the yardstick, from the CPU)
@@ -1379,6 +1425,346 @@ def hetero_phase(torch, np, dev):
     launches = all_launches()
     check(not any(launches.values()),
           f"a kernel was launched in the per-job phase: {launches}")
+    return launches
+
+
+# ---- 12. the scenario engine ------------------------------------------------
+# Every run of phase 12 goes through simulate_ensemble on the card and is
+# held against the port's own run of the same call on the CPU: J and T
+# to the reference's RTOL (tests/core/test_simulator.py) and the same
+# n_events for every (policy, workload).  (a) is examples/policy_faceoff.py
+# at its own size (K = 128, M = 8, ln(1+θ)); (b) the five-policy zoo at
+# fleet size under the shared s = √θ, plain, with arrivals and with the
+# fault mix of the reference's robust_faulted_ensemble row; (c) the §7
+# path (pinned heteroSF with its cached plan, and WMR) on a per-job
+# five-family fleet, then a budget step that must invalidate the cached
+# table; (d) GWF-static and WMR in float32, where impl="auto" sends their
+# CAP to K1 and K2 at every event, held to the float64 runs with a limit
+# set between the sound reading and a planted fault: the same run with
+# the kernels' bisection cut to FAULT_ITERS steps.
+ENGINE_RTOL = 1e-6
+FACEOFF_K, FACEOFF_M, FACEOFF_SEED = 128, 8, 0
+FLEET_K, FLEET_M, FLEET_SEED, FLEET_FAULT_SEED = 1024, 32, 21, 22
+# the CPU's run of (b) takes the first FLEET_CPU_K workloads (the whole
+# fleet's took ~40 s of the card machine's host; workloads are
+# independent, so the card's first rows must give the same numbers)
+FLEET_CPU_K = 256
+HSIM_K, HSIM_M, HSIM_SEED = 256, 16, 8
+MOVE_LANES = 8            # workloads of (c) that see the budget step
+F32_LIMIT = {"K1": 1e-4, "K2": 1e-4}   # max |J32 − J64| / J64
+FAULT_ITERS = 8
+
+
+def ensemble_vs_cpu(torch, res, res_c):
+    """Card against CPU: largest relative ΔJ and ΔT (in units of
+    1 + |T|, the reference's atol = rtol), and whether n_events,
+    finished and exhausted agree exactly.  The CPU run may hold the
+    first workloads only."""
+    k = res_c.J.shape[1]
+    Jg, Tg = res.J[:, :k].cpu(), res.T[:, :k].cpu()
+    return {"J_rel": float(((Jg - res_c.J).abs() / res_c.J).max()),
+            "T": float(((Tg - res_c.T).abs() / (1 + res_c.T.abs())).max()),
+            "n_events_equal": bool(torch.equal(res.n_events[:, :k].cpu(),
+                                               res_c.n_events)),
+            "finished_equal": bool(torch.equal(res.finished[:, :k].cpu(),
+                                               res_c.finished)),
+            "all_finished": bool(res.finished.all()),
+            "none_exhausted": not bool(res.exhausted.any())}
+
+
+def check_vs_cpu(tag, r):
+    check(r["J_rel"] <= ENGINE_RTOL and r["T"] <= ENGINE_RTOL
+          and r["n_events_equal"] and r["finished_equal"]
+          and r["all_finished"] and r["none_exhausted"],
+          f"{tag}: card vs CPU {r}")
+
+
+def faceoff_table(np, J, names):
+    """examples/policy_faceoff.py's table: mean and median J, mean gap to
+    SmartFill (row 0) and the share of workloads that tie it."""
+    lines = [f"{'policy':<12} {'mean J':>10} {'median J':>10} "
+             f"{'gap vs SF':>10} {'ties SF':>8}"]
+    gaps = {}
+    for i, name in enumerate(names):
+        gap = 100.0 * (J[i] - J[0]) / J[0]
+        ties = np.mean(J[i] <= J[0] * (1 + 1e-9))
+        gaps[name] = float(gap.mean())
+        lines.append(f"{name:<12} {J[i].mean():>10.4f} "
+                     f"{np.median(J[i]):>10.4f} {gap.mean():>9.2f}% "
+                     f"{100 * ties:>7.0f}%")
+    return lines, gaps
+
+
+def engine_phase(torch, np, dev):
+    """Phase 12: the scenario engine on ``dev`` against the same calls on
+    the CPU (on a CPU ``dev``, a rehearsal: no profile, and step d's
+    float32 CAP runs the kernels' plain versions).  Returns the K1 and K2
+    launches of step d."""
+    import dataclasses
+
+    from repro_torch.core import (FAMILIES, FaultTrace, budget_trace,
+                                  fit_power, log_speedup, power,
+                                  sample_fault_traces,
+                                  sample_workloads, shifted_power,
+                                  simulate_ensemble,
+                                  simulate_policy_reference,
+                                  smartfill_hetero_batched)
+    from repro_torch.core import gwf
+    from repro_torch.core.speedup import map_leaves
+    from repro_torch.kernels.gwf_waterfill import kernel as wk
+    from repro_torch.sched import (GWFStaticPolicy, HeteroSmartFillPolicy,
+                                   WeightedMarginalRatePolicy, default_zoo)
+    from repro_torch.sched import policies as pol_mod
+
+    cpu = torch.device("cpu")
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def timed_run(run):
+        t0 = time.perf_counter()
+        out = run()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def rates(res, wall):
+        ev = int(res.n_events.sum())
+        P, K = res.J.shape
+        return {"wall_s": wall, "events": ev, "events_per_s": ev / wall,
+                "instances_per_s": P * K / wall,
+                "steps": int(res.n_events.max())}
+
+    # ---- a. examples/policy_faceoff.py at its own size --------------------
+    a_fit, p_fit = fit_power(lambda t: np.log1p(t), B)
+    wl = sample_workloads(seed=FACEOFF_SEED, K=FACEOFF_K, M=FACEOFF_M, B=B,
+                          m_range=(3, FACEOFF_M))
+
+    def faceoff(d):
+        sp = log_speedup(1.0, 1.0, B, device=d)
+        return simulate_ensemble(sp, default_zoo(sp, p_fit=p_fit), wl.X,
+                                 wl.W, B=B, device=d)
+
+    res, wall = timed_run(lambda: faceoff(dev))
+    t0 = time.perf_counter()
+    res_c = faceoff(cpu)
+    r = {"K": FACEOFF_K, "M": FACEOFF_M, "speedup": "ln(1+θ)",
+         "fit": [a_fit, p_fit], **rates(res, wall),
+         "cpu_wall_s": time.perf_counter() - t0,
+         **ensemble_vs_cpu(torch, res, res_c)}
+    check(res.J.device.type == dev.type and res.J.dtype == torch.float64,
+          "faceoff ran off the device or out of float64")
+    check_vs_cpu("faceoff", r)
+    lines, gaps = faceoff_table(np, res.J.cpu().numpy(), res.policy_names)
+    print(f"s(θ) = ln(1+θ)  B={B}  K={FACEOFF_K} workloads, "
+          f"M≤{FACEOFF_M} jobs (heSRPT fit: {a_fit:.2f}·θ^{p_fit:.2f})",
+          flush=True)
+    for line in lines:
+        print(line, flush=True)
+    r["mean_gap_pct"] = gaps
+    emit({"phase": "engine_faceoff", **r})
+    check(gaps["SmartFill"] == 0.0
+          and all(g > 0.0 for name, g in gaps.items() if name != "SmartFill"),
+          f"faceoff: SmartFill's gap must be 0 and every baseline's > 0: "
+          f"{gaps}")
+
+    # ---- b. the engine at fleet size --------------------------------------
+    kw = dict(K=FLEET_K, M=FLEET_M, B=B, m_range=(16, FLEET_M))
+    fleet = sample_workloads(seed=FLEET_SEED, **kw)
+    fleet_a = sample_workloads(seed=FLEET_SEED, arrival_rate=1.0, **kw)
+    trace = sample_fault_traces(FLEET_FAULT_SEED, FLEET_K, FLEET_M, B=B,
+                                horizon=6.0, preempt_rate=0.5, fail_rate=0.3,
+                                straggle_rate=0.3)
+    k = FLEET_CPU_K
+    trace_c = FaultTrace(trace.times[:k], trace.kinds[:k], trace.jobs[:k],
+                         trace.values[:k])
+    # name: (workloads, the card's extra arguments, the CPU's)
+    runs = {"plain": (fleet, {}, {}),
+            "arrivals": (fleet_a, {"arrival": fleet_a.arrival},
+                         {"arrival": fleet_a.arrival[:k]}),
+            "faults": (fleet, {"faults": trace}, {"faults": trace_c})}
+    fleet_res = {}
+    for name, (w_, extra, extra_c) in runs.items():
+        def run(d, w_=w_, extra=extra, k=FLEET_K):
+            sp = power(1.0, 0.5, B, device=d)
+            return simulate_ensemble(sp, default_zoo(sp, p_fit=0.5),
+                                     w_.X[:k], w_.W[:k], device=d, **extra)
+
+        res, wall = timed_run(lambda: run(dev))
+        t0 = time.perf_counter()
+        res_c = run(cpu, extra=extra_c, k=FLEET_CPU_K)
+        r = {"run": name, "K": FLEET_K, "M": FLEET_M, "P": len(res),
+             "speedup": "power(1, 0.5)", **rates(res, wall),
+             "cpu_wall_s": time.perf_counter() - t0,
+             "cpu_workloads": FLEET_CPU_K,
+             **ensemble_vs_cpu(torch, res, res_c)}
+        if name == "faults":
+            r["fault_events"] = int(np.isfinite(trace.times).sum())
+        check_vs_cpu(f"fleet {name}", r)
+        if name == "plain":
+            # heSRPT is optimal for a pure power at the true p: SmartFill
+            # ties it (tests/core/test_ensemble.py's check)
+            Jsf, Jhe = res.J[0].cpu(), res.J[1].cpu()
+            r["sf_vs_hesrpt_max_abs_gap"] = float(((Jsf - Jhe) / Jhe)
+                                                  .abs().max())
+            check(bool((Jsf <= Jhe * (1 + 1e-9)).all()),
+                  f"fleet: SmartFill above heSRPT·(1 + 1e-9): {r}")
+        if on_card and name in ("plain", "faults"):
+            wall_p, busy, n_dev, n_launch = device_profile(
+                torch, lambda run=run: (run(dev), sync()))
+            check(busy > 0, f"fleet {name}: the profile saw no device work")
+            r.update(profiled_wall_s=wall_p, device_busy_s=busy,
+                     busy_share=busy / wall_p,
+                     busy_share_of_unprofiled_wall=busy / wall,
+                     device_kernels=n_dev, kernel_launches=n_launch)
+        fleet_res[name] = res
+        emit({"phase": "engine_fleet", **r})
+
+    # ---- c. §7 through the engine -----------------------------------------
+    kw = dict(family=FAMILIES, per_job=True, m_range=(8, HSIM_M), B=B)
+    hw = sample_workloads(HSIM_SEED, K=HSIM_K, M=HSIM_M, device=dev, **kw)
+    hw_c = sample_workloads(HSIM_SEED, K=HSIM_K, M=HSIM_M, device=cpu, **kw)
+
+    (pols, plan_s) = timed_run(lambda: (
+        HeteroSmartFillPolicy.pinned(hw.sp, hw.X, hw.W, B=B,
+                                     cache_plan=True),
+        WeightedMarginalRatePolicy(hw.sp, B=B)))
+    res, wall = timed_run(lambda: simulate_ensemble(hw.sp, pols, hw.X, hw.W,
+                                                    device=dev))
+    t0 = time.perf_counter()
+    pols_c = (HeteroSmartFillPolicy.pinned(hw_c.sp, hw_c.X, hw_c.W, B=B,
+                                           cache_plan=True),
+              WeightedMarginalRatePolicy(hw_c.sp, B=B))
+    res_c = simulate_ensemble(hw_c.sp, pols_c, hw_c.X, hw_c.W, device=cpu)
+    _, sched_c = smartfill_hetero_batched(hw_c.sp, hw_c.X, hw_c.W, B=B)
+    Jp, Jlin = sched_c.J, sched_c.J_linear
+    realized = ((Jp - Jlin).abs() / Jp) <= 1e-9
+    sim_vs_plan = (res.J[0].cpu() - Jp).abs() / Jp
+    r = {"K": HSIM_K, "M": HSIM_M, "families": list(FAMILIES),
+         "plan_wall_s": plan_s, **rates(res, wall),
+         "cpu_wall_s": time.perf_counter() - t0,
+         **ensemble_vs_cpu(torch, res, res_c),
+         "orders_equal": bool(torch.equal(pols[0].rank.cpu(),
+                                          pols_c[0].rank)),
+         "realized": int(realized.sum()),
+         "sim_vs_plan_realized": float(sim_vs_plan[realized].max()),
+         "sim_vs_plan_unrealized": float(
+             torch.where(realized, 0.0, sim_vs_plan).max()),
+         "wmr_over_sf_mean": float((res.J[1] / res.J[0]).mean())}
+    check_vs_cpu("hetero", r)
+    check(r["orders_equal"], "hetero: the card's pinned orders differ")
+    # Prop. 7 carried into §7: where the recursion realizes the pinned
+    # order (J == J_linear), the cached table executes the plan; where
+    # it does not, the table's allocations go to another active set
+    check(r["realized"] > 0 and r["sim_vs_plan_realized"] <= ENGINE_RTOL,
+          f"hetero: simulated J vs the plan's on realized orders {r}")
+    emit({"phase": "engine_hetero", **r})
+
+    # a budget step that invalidates the cached table: on MOVE_LANES
+    # workloads, B drops to B/2 once every one of them is down to its
+    # last job (after the latest second-to-last completion, halfway to
+    # the next completion, so that no completion coincides with it on
+    # one device and not on the other), so the workloads still running
+    # re-solve their last phase (one batched per-job solve an event, the
+    # costly step on the card) and the others finished on their tables
+    def first(pol):
+        return dataclasses.replace(
+            pol, sp=map_leaves(pol.sp, lambda l: l[:MOVE_LANES]),
+            rank=pol.rank[:MOVE_LANES], theta=pol.theta[:MOVE_LANES])
+
+    ends = res.T[0, :MOVE_LANES].cpu().sort(1, descending=True).values
+    span, last_but_one = ends[:, 0], ends[:, 1].max()
+    t_move = float((last_but_one + span[span > last_but_one].min()) / 2)
+    step = budget_trace([t_move], [B / 2])
+    Xm, Wm = hw.X[:MOVE_LANES], hw.W[:MOVE_LANES]
+    pm, pm_c = first(pols[0]), first(pols_c[0])
+    moved, wall = timed_run(lambda: simulate_ensemble(
+        pm.sp, (pm,), Xm, Wm, faults=step, device=dev))
+    moved_c = simulate_ensemble(pm_c.sp, (pm_c,), Xm, Wm, faults=step,
+                                device=cpu)
+    late = span > t_move
+    Jm, J0 = moved.J[0].cpu(), res.J[0, :MOVE_LANES].cpu()
+    r = {"lanes": MOVE_LANES, "t_move": t_move, "B_after": B / 2,
+         "lanes_running_at_move": int(late.sum()), "wall_s": wall,
+         **ensemble_vs_cpu(torch, moved, moved_c),
+         "finished_lanes_bitwise": bool(torch.equal(Jm[~late], J0[~late])),
+         "running_lanes_min_rise": float((Jm[late] / J0[late] - 1).min())}
+    # the host oracle (numpy loop, the policy per event on the CPU) on
+    # the moved workloads
+    oracle = []
+    for k in torch.nonzero(late)[:, 0].tolist()[:2]:
+        pk = dataclasses.replace(
+            pm_c, sp=map_leaves(pm_c.sp, lambda l: l[k]), rank=pm_c.rank[k],
+            theta=pm_c.theta[k])
+        ref = simulate_policy_reference(pk.sp, hw.X[k], hw.W[k], pk, B=B,
+                                        faults=step)
+        oracle.append(abs(float(Jm[k]) - ref.J) / ref.J)
+    r["vs_host_oracle"] = max(oracle)
+    check_vs_cpu("cached plan under a budget step", r)
+    check(r["lanes_running_at_move"] >= 1 and r["finished_lanes_bitwise"]
+          and r["running_lanes_min_rise"] > 1e-6
+          and r["vs_host_oracle"] <= ENGINE_RTOL,
+          f"cached plan under a budget step: {r}")
+    emit({"phase": "engine_cached_plan_budget_step", **r})
+
+    # ---- d. K1 and K2 inside the engine, float32 --------------------------
+    orig_auto = gwf.auto_impl
+
+    def auto_cpu(device_type, dtype, family):
+        # the CPU rehearsal: float32 takes the kernels' plain versions
+        if dtype == torch.float32 and family != "other":
+            return "cuda"
+        return orig_auto(device_type, dtype, family)
+
+    orig_cap = pol_mod.solve_cap_batched
+
+    def cut_short(*a, **k):
+        return orig_cap(*a, **{**k, "iters": FAULT_ITERS})
+
+    launches = {}
+    readings = {}
+    # K1 under phase 3's shifted power: with a pure power θ ∝ λ^(1/γ), and
+    # K1's rescale onto b undoes any error in λ, so a cut-short bisection
+    # would not show
+    sp_k1 = shifted_power(1.0, 4.0, 0.5, B, device=dev)
+    for kname, counter, w_, pol_of in (
+            ("K1", "generic_waterfill", fleet,
+             lambda: GWFStaticPolicy(sp_k1, B=B)),
+            ("K2", "hetero_waterfill", hw,
+             lambda: WeightedMarginalRatePolicy(hw.sp, B=B))):
+        sp = pol_of().sp
+        ref_J = simulate_ensemble(sp, (pol_of(),), w_.X, w_.W,
+                                  device=dev).J[0]
+        X32 = torch.tensor(w_.X, dtype=torch.float32, device=dev)
+        W32 = torch.tensor(w_.W, dtype=torch.float32, device=dev)
+        out = {}
+        with mock.patch.object(gwf, "auto_impl",
+                               orig_auto if on_card else auto_cpu):
+            for what in ("sound", "fault"):
+                with mock.patch.object(pol_mod, "solve_cap_batched",
+                                       orig_cap if what == "sound"
+                                       else cut_short):
+                    wk.reset_launches()
+                    r32, wall = timed_run(lambda: simulate_ensemble(
+                        sp, (pol_of(),), X32, W32, device=dev))
+                    n = wk.LAUNCHES[counter]
+                check(r32.J.dtype == torch.float32
+                      and bool(r32.finished.all()),
+                      f"{kname} float32 run: unfinished or not float32")
+                out[what] = {
+                    "J_rel_vs_f64": float(((r32.J[0].double() - ref_J).abs()
+                                           / ref_J).max().cpu()),
+                    "launches": n, "steps": int(r32.n_events.max()),
+                    "wall_s": wall}
+        launches[counter] = out["sound"]["launches"]
+        readings[kname] = out
+        if on_card:
+            check(out["sound"]["launches"] >= out["sound"]["steps"] >= 1,
+                  f"{kname} not launched at every event of the engine: {out}")
+        check(out["sound"]["J_rel_vs_f64"] <= F32_LIMIT[kname]
+              < out["fault"]["J_rel_vs_f64"],
+              f"{kname} in the engine: the sound reading must be within "
+              f"{F32_LIMIT[kname]} and the cut-short fault beyond: {out}")
+    emit({"phase": "engine_float32_kernels", "limits": F32_LIMIT,
+          "fault_iters": FAULT_ITERS, "readings": readings})
     return launches
 
 
@@ -1689,22 +2075,14 @@ def main():
     # per-call figures.
     split = {}
     for name, (_, op, *_) in calls.items():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                op("cuda")
-            torch.cuda.synchronize()
-        on_dev = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        mine = [e for e in on_dev if f"{name}_kernel" in e.key]
-        n = sum(e.count for e in mine)
+        mine, others = traced_kernel(torch, lambda: op("cuda"),
+                                     f"{name}_kernel")
+        n = len(mine)
         check(n > 0, f"the profiler saw no {name} kernel on the device")
-        t_mine = sum(e.device_time_total for e in mine) / 1e3
-        t_all = sum(e.device_time_total for e in on_dev) / 1e3
-        split[name] = {"traced_launches": n, "kernel_device_ms": t_mine / n,
-                       "other_device_ms": (t_all - t_mine) / n,
-                       "device_kernels_per_call":
-                           sum(e.count for e in on_dev) / n}
+        split[name] = {"traced_launches": n,
+                       "kernel_device_ms": sum(mine) / 1e6 / n,
+                       "other_device_ms": sum(others) / 1e6 / n,
+                       "device_kernels_per_call": (n + len(others)) / n}
     for rec in kernels:
         sp = split[rec["name"]]
         sp["op_over_kernel_ms"] = rec["ms"] / sp["kernel_device_ms"]
@@ -1729,6 +2107,15 @@ def main():
     launches11 = hetero_phase(torch, np, dev)
     emit({"phase": "hetero_planning", "launches": launches11,
           "wall_s": time.perf_counter() - t0})
+
+    # ---- 12. the scenario engine, float64 and float32 ----------------------
+    t0 = time.perf_counter()
+    launches12 = engine_phase(torch, np, dev)
+    emit({"phase": "engine", "launches": launches12,
+          "wall_s": time.perf_counter() - t0})
+    for rec in kernels:
+        if rec["name"] in launches12:
+            rec["engine_launches"] = launches12[rec["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

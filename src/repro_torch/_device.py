@@ -52,13 +52,17 @@ def as_tensor(x, device, dtype=None) -> torch.Tensor:
     return torch.tensor(arr, dtype=dtype, device=device)
 
 
-def stops_early(frozen: torch.Tensor) -> bool:
+def stops_early(frozen: torch.Tensor, sync: bool = False) -> bool:
     """May a fixed-count loop stop now that ``frozen`` rows stopped moving?
 
     Loops over a carry that every row freezes (a ``done`` mask, or a
     bisection that reached its fixed point) give the same result whether
     they run out their count or stop once all rows are frozen.  On the
     CPU the check is free, so loops stop; on the card reading the flag
-    would sync the host to the device, so loops run out their count.
+    syncs the host to the device, so loops run out their count unless
+    ``sync`` says a step is worth more than a sync (a scenario-engine
+    event: a policy call of hundreds to thousands of kernels).
     """
-    return frozen.device.type == "cpu" and bool(frozen.all())
+    if frozen.device.type != "cpu" and not sync:
+        return False
+    return bool(frozen.all())

@@ -32,8 +32,8 @@ import torch
 from .._device import as_tensor, resolve_device
 from .smartfill import (SmartFillSchedule, _fast_ok, _host, _on, _solo_order,
                         _solve, _validate_instance)
-from .speedup import (Speedup, collapse_homogeneous, host_call, leaves,
-                      map_leaves, per_instance)
+from .speedup import (Speedup, collapse_homogeneous, host_call, map_leaves,
+                      per_instance)
 
 __all__ = [
     "BatchedSmartFillSchedule",
@@ -60,13 +60,27 @@ def batch_axes(sp, K: int) -> dict:
             for name in sp.LEAVES}
 
 
+def _leaf_shapes(obj):
+    """Shapes of the numeric leaves of a speedup or of an object (a
+    policy) whose ``LEAVES`` name speedups, tensors, arrays or scalars."""
+    for name in obj.LEAVES:
+        v = getattr(obj, name)
+        if v is None:
+            continue
+        if hasattr(v, "LEAVES"):
+            yield from _leaf_shapes(v)
+        else:
+            yield tuple(v.shape) if hasattr(v, "shape") else np.shape(v)
+
+
 def check_axes_unambiguous(sp, K: int, M: int, what: str) -> None:
     """With K == M a 1-D (K,) leaf could equally be per-job data; refuse
-    to guess (a wrong guess silently corrupts every instance)."""
+    to guess (a wrong guess silently corrupts every instance).  ``sp``
+    is a speedup or a policy (its speedup's leaves included)."""
     if K != M:
         return
-    for leaf in leaves(sp):
-        if leaf.ndim == 1 and leaf.shape[0] == K:
+    for shape in _leaf_shapes(sp):
+        if len(shape) == 1 and shape[0] == K:
             raise ValueError(
                 f"{what} has a 1-D leaf of length {K} but K == M — "
                 "per-instance (K,) leaves cannot be told apart from "

@@ -119,6 +119,7 @@ _PROBE = """
 import sys
 sys.path[:0] = [{src!r}, {root!r}]
 import repro_torch, repro_torch.core, repro_torch.convert
+import repro_torch.sched.policies
 import repro_torch.kernels.gwf_waterfill.ops
 import repro_torch.kernels.flash_attention.ops
 import repro_torch.kernels.linear_scan.ops

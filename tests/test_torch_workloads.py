@@ -1,14 +1,21 @@
-"""Port vs JAX: the seeded workload sampler, bit for bit.
+"""Port vs JAX: the seeded workload samplers, bit for bit.
 
-``sample_workloads`` draws everything with numpy from one seed, so the
-port's copy must give the JAX package's arrays exactly: sizes, weights,
-arrival times, live counts and every speedup leaf.
+``sample_workloads`` and ``sample_arrival_stream`` draw everything with
+numpy from one seed, so the port's copies must give the JAX package's
+arrays exactly: sizes, weights, arrival times, live counts, every
+speedup leaf, deadlines and budget steps.  The arrival-log loaders must
+read the same logs into the same streams (the recorded sample in
+``benchmarks/traces``, which they only read, and a JSON copy).
 """
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 import repro.core as J
+import repro.core.workloads as J_wl
 import repro_torch.core as P
 from torch_port_util import np_
 
@@ -70,3 +77,82 @@ def test_stack_speedup_rows_matches_jax():
                               np.asarray(getattr(ref, name)))
     with pytest.raises(ValueError, match="slots"):
         P.stack_speedup_rows([port_members], 2, B)
+
+
+STREAM_CASES = {
+    "defaults": dict(),
+    "short_random": dict(horizon=5000.0, rate=0.05, weights="random"),
+    "uniform_flat": dict(horizon=2000.0, rate=0.1, diurnal=0.0,
+                         weights="uniform", size_range=(1.0, 3.0)),
+    "deadlines_budgets": dict(horizon=4000.0, rate=0.15, B=8.0,
+                              n_budget_events=4, deadline_slack=60.0,
+                              solo_rate=2.5, period=1000.0),
+    "budget_frac": dict(horizon=3000.0, rate=0.02, n_budget_events=9,
+                        budget_frac=(0.1, 0.2)),
+}
+STREAM_KEYS = ("t", "x", "w", "deadline", "budget_times", "budget_values")
+
+
+def _same_stream(out, ref):
+    assert type(out).__name__ == "ArrivalStream"
+    for key in STREAM_KEYS:
+        a, r = getattr(out, key), getattr(ref, key)
+        assert a.dtype == r.dtype and np.array_equal(a, r), key
+    assert out.horizon == ref.horizon and len(out) == len(ref)
+
+
+@pytest.mark.parametrize("case", list(STREAM_CASES))
+def test_sample_arrival_stream_bitwise(case):
+    kw = STREAM_CASES[case]
+    _same_stream(P.sample_arrival_stream(42, **kw),
+                 J.sample_arrival_stream(42, **kw))
+
+
+def test_arrival_stream_errors():
+    for kw, msg in ((dict(horizon=0.0), "horizon"),
+                    (dict(diurnal=1.5), "diurnal"),
+                    (dict(weights="cubic"), "weights")):
+        with pytest.raises(ValueError, match=msg):
+            P.sample_arrival_stream(0, **kw)
+    for args, kw, msg in (
+            (([0.0, 1.0], [1.0]), {}, "same length"),
+            (([0.0, np.inf], [1.0, 1.0]), {}, "finite"),
+            (([0.0], [0.0]), {}, "positive"),
+            (([0.0], [1.0], [-1.0]), {}, "positive"),
+            (([0.0], [1.0], [1.0, 2.0]), {}, "match times"),
+            (([0.0], [1.0]), dict(budget_times=[1.0]), "must match"),
+            (([0.0, 5.0], [1.0, 1.0]), dict(horizon=5.0), "strictly before")):
+        with pytest.raises(ValueError, match=msg):
+            P.arrival_stream_from_log(*args, **kw)
+        with pytest.raises(ValueError, match=msg):
+            J_wl.arrival_stream_from_log(*args, **kw)
+
+
+LOG = Path(__file__).resolve().parents[1] / "benchmarks" / "traces" / \
+    "arrivals_sample.csv"
+
+
+def test_load_arrival_log_csv_and_json(tmp_path):
+    ref = J_wl.load_arrival_log(LOG)
+    out = P.load_arrival_log(LOG)
+    _same_stream(out, ref)
+    assert out.budget_times.size == 4 and len(out) > 100
+    blob = {"t": ref.t[::-1].tolist(), "x": ref.x[::-1].tolist(),
+            "deadline": [1e9] * len(ref), "horizon": 2000.0,
+            "budget_times": [300.0, 100.0], "budget_values": [4.0, 6.0]}
+    path = tmp_path / "log.json"
+    path.write_text(json.dumps(blob))
+    _same_stream(P.load_arrival_log(path), J_wl.load_arrival_log(path))
+    # the sampler's replay entry point is the log constructor
+    assert P.sample_arrival_stream.from_log is P.arrival_stream_from_log
+    _same_stream(P.sample_arrival_stream.from_log([3.0, 1.0, 2.0],
+                                                  [1.0, 2.0, 4.0]),
+                 J_wl.arrival_stream_from_log([3.0, 1.0, 2.0], [1.0, 2.0, 4.0]))
+    bad = tmp_path / "bad.csv"
+    bad.write_text("time,size\n1,2\n")
+    with pytest.raises(ValueError, match="'t' and 'x'"):
+        P.load_arrival_log(bad)
+    empty = tmp_path / "empty.csv"
+    empty.write_text("# only a comment\n")
+    with pytest.raises(ValueError, match="no header"):
+        P.load_arrival_log(empty)

@@ -33,3 +33,15 @@ def np_(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def assert_sim_match(out, ref, rtol=1e-6, B=10.0):
+    """Two SimResults agree: J, T, ``n_events`` and every event's time and
+    allocations (``tests/core/test_simulator.py::_assert_match``)."""
+    assert np.isfinite(ref.J)
+    assert abs(out.J - ref.J) / max(ref.J, 1e-12) < rtol
+    np.testing.assert_allclose(out.T, ref.T, rtol=rtol, atol=rtol)
+    assert out.n_events == ref.n_events
+    for (to, tho), (tr, thr) in zip(out.events, ref.events):
+        assert abs(to - tr) <= rtol * max(1.0, tr)
+        np.testing.assert_allclose(np_(tho), np_(thr), atol=rtol * B)
