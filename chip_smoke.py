@@ -93,11 +93,24 @@ Phases (each one is a check; any failure exits non-zero):
      at every event, J held to the float64 run within ``F32_LIMIT``,
      which the kernels' bisection cut to ``FAULT_ITERS`` steps must
      exceed.  Rehearse on the CPU with ``engine_phase(torch, np,
+     torch.device("cpu"))``;
+ 13. class-aggregated planning in float64 (``classes_*`` lines): (a)
+     one million jobs as 8 classes through ``plan_classes`` (Σθ = B, J
+     = J_linear, J against the JAX package's and the port's CPU J, the
+     numpy oracle not below it; wall time, jobs/s, one solve's device
+     kernels and busy share); (b) ``plan_classes`` against
+     ``smartfill_hetero`` at one job per class, bit for bit; (c) (a)'s
+     plan drained by the pinned, cached ``ClassSmartFillPolicy``
+     through ``simulate_fluid_classes``, card against CPU; (d) 64 class
+     instances through ``plan_classes_batched``, card against CPU; (e)
+     ``examples/hetero_fleet.py``: the ten configs' roofline speedups
+     on one 256-GPU pod, card against CPU, WMR not below the plan; no
+     K1–K5 launch.  Rehearse on the CPU with ``classes_phase(torch, np,
      torch.device("cpu"))``.
 
 Launch counters are reset before phases 3–4 drive the planning path,
-before phase 7 drives the serving path, before phase 11 and before
-each float32 run of phase 12, and read right after each;
+before phase 7 drives the serving path, before phases 11 and 13 and
+before each float32 run of phase 12, and read right after each;
 the comparisons and timings come later and do not count.  Prints one
 JSON line per measurement, the kernel summary line ``{"kernels": [...]}``
 (five kernels, each with its device ms; K1 and K2 also with their
@@ -1768,6 +1781,242 @@ def engine_phase(torch, np, dev):
     return launches
 
 
+# ---- 13. class-aggregated planning ------------------------------------------
+# examples/million_jobs.py and examples/hetero_fleet.py on the card, in
+# float64.  (a) one million jobs as classes through plan_classes; (b) the
+# anchor at one job per class, plan_classes against smartfill_hetero
+# with the class knobs, bit for bit; (c) (a)'s plan drained by the
+# pinned, cached ClassSmartFillPolicy through simulate_fluid_classes,
+# against the port's CPU run of the same drain; (d) 64 class instances
+# through plan_classes_batched against the port's CPU run; (e) the ten
+# configs' roofline speedups on one 256-GPU pod.
+#
+# (a) is cut from the example's C = 32 classes of 31,250 jobs to C = 8
+# of 125,000 (the same million jobs): the per-job planner issues its
+# small kernels from the host, a `_solve` at M = 32 with the class knobs
+# takes ~27 s on the card (`tools/class_solve_time.py`) and plan_classes
+# makes 41 of them at C = 32 (its exchange search; `--count` of the same
+# tool), more than the 1200 s the whole script may take; at C = 8
+# it makes 10.  J of (a) on the CPU, from
+#   PYTHONPATH=src python tools/class_reference.py 1 8 125000
+# (the JAX package's plan_classes compiled, its recursion op by op at
+# that order, and the port's plan_classes; all three agree to 1.2e-16).
+CLASS_SEED, CLASS_C, CLASS_PER = 1, 8, 125_000
+CLASS_KNOBS = dict(coarse=64, descent_iters=96, cap_iters=64,
+                   exchange_passes=2, exchange_window=1, stol_rel=1e-10)
+J_CLASS_REF = 517115540232.1484
+J_CLASS_PORT_CPU = 517115540232.14844
+ANCHOR_SEED, ANCHOR_C = 5, 8
+BATCH_SEED, BATCH_K, BATCH_C, BATCH_COUNTS = 7, 64, 16, (0, 50_000)
+# (d)'s aggregates are stiff (up to 50,000 jobs a class, 58 of 64
+# heuristic orders unrealized): μ* sits where F is flat and moves with
+# the rounding, c and with it J_linear follow, and on unrealized orders
+# J moves linearly.  The reference's compiled and op-by-op runs of this
+# batch differ by up to 1.0e-4 in J_linear and 5.6e-3 in J on
+# unrealized orders, 5.3e-8 on realized ones
+# (tools/class_reference.py batch 7 64 16 50000).  The card is held to
+# the port's CPU run a hundred times inside that, and to 1e-9 on J
+# where the order is realized (J == J_linear).
+BATCH_LIMITS = {"J_realized": 1e-9, "J_linear": 1e-6, "J_unrealized": 1e-4}
+POD_GPUS, POD_TOKENS = 256.0, 256 * 4096
+
+
+def classes_phase(torch, np, dev):
+    """Phase 13: class-aggregated planning on ``dev``, held against the
+    same calls on the CPU (on a CPU ``dev``, a rehearsal: no profile).
+    Returns the phase's kernel launches, all of which must be 0."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.core import (aggregate_classes, plan_classes,
+                                  plan_classes_batched,
+                                  plan_classes_reference,
+                                  sample_class_workloads,
+                                  simulate_fluid_classes,
+                                  simulate_policy_device, smartfill_hetero,
+                                  stack_speedups)
+    from repro_torch.sched import (ClassSmartFillPolicy,
+                                   WeightedMarginalRatePolicy)
+    from repro_torch.sched.speedup_models import job_speedup
+
+    cpu = torch.device("cpu")
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    reset_all_launches()
+
+    # (a) one million jobs as CLASS_C classes
+    C = CLASS_C
+    wl = sample_class_workloads(CLASS_SEED, K=1, C=C, B=B,
+                                count_range=(CLASS_PER, CLASS_PER),
+                                device=dev)
+    state = wl.state(0)
+    t0 = time.perf_counter()
+    plan = plan_classes(state)
+    sync()
+    wall = time.perf_counter() - t0
+    check(plan.sched.theta.device.type == dev.type
+          and plan.sched.theta.dtype == torch.float64,
+          "the class plan ran off the device or out of float64")
+    t1 = time.perf_counter()
+    orc = plan_classes_reference(state, order=plan.order)
+    r = {"C": C, "jobs": state.jobs, "wall_s": wall,
+         "jobs_per_s": state.jobs / wall, "J": plan.J,
+         "J_linear": plan.J_linear, "order": plan.order.tolist(),
+         "budget_miss": abs(float(plan.theta.sum()) - B) / B,
+         "J_vs_J_linear": abs(plan.J - plan.J_linear) / plan.J,
+         "vs_reference": abs(plan.J - J_CLASS_REF) / J_CLASS_REF,
+         "vs_port_cpu": abs(plan.J - J_CLASS_PORT_CPU) / J_CLASS_PORT_CPU,
+         "oracle_J": orc.J, "oracle_minus_J": (orc.J - plan.J) / plan.J,
+         "oracle_wall_s": time.perf_counter() - t1}
+    emit({"phase": "classes_million", **r})
+    check(state.jobs == 1_000_000, f"(a) plans {state.jobs} jobs")
+    check(r["budget_miss"] <= 1e-9, f"class plan: Σθ ≠ B {r['budget_miss']}")
+    check(r["J_vs_J_linear"] <= 1e-9,
+          f"class plan: J vs J_linear {r['J_vs_J_linear']}")
+    check(r["vs_reference"] <= 1e-9,
+          f"class plan: J vs the JAX package's {r['vs_reference']}")
+    check(r["vs_port_cpu"] <= 1e-9,
+          f"class plan: J vs the port's CPU run {r['vs_port_cpu']}")
+    check(orc.J >= plan.J * (1 - 1e-8),
+          f"class plan: the numpy oracle beats the plan by "
+          f"{-r['oracle_minus_J']}")
+    if on_card:
+        # one solve of the plan's aggregates (the plan makes 10 such, one
+        # a step of its exchange search): the trace of the whole plan,
+        # ~5 M device records, costs minutes to stop and read
+        sp_agg, X, W = aggregate_classes(state)
+        kw = {**CLASS_KNOBS, "exchange_passes": 0}
+        w_p, busy, n_dev, n_launch = device_profile(
+            torch, lambda: (smartfill_hetero(sp_agg, X, W, B=B, **kw),
+                            sync()))
+        check(busy > 0, "the class solve's profile saw no device work")
+        emit({"phase": "classes_solve_profile", "wall_s": w_p,
+              "device_busy_s": busy, "busy_share": busy / w_p,
+              "device_kernels": n_dev, "kernel_launches": n_launch})
+
+    # (b) the anchor: one job per class is the per-job plan, bit for bit
+    wl1 = sample_class_workloads(ANCHOR_SEED, K=1, C=ANCHOR_C, B=B,
+                                 count_range=(1, 1), device=dev)
+    s1 = wl1.state(0)
+    t0 = time.perf_counter()
+    cls = plan_classes(s1)
+    per = smartfill_hetero(s1.sp, s1.sizes, s1.weights, B=B, **CLASS_KNOBS)
+    sync()
+    r = {"C": ANCHOR_C, "wall_s": time.perf_counter() - t0, "J": cls.J,
+         "per_job_J": per.J, "order": cls.order.tolist()}
+    emit({"phase": "classes_anchor", **r})
+    check(cls.J == per.J and cls.J_linear == per.J_linear
+          and np.array_equal(cls.order, per.order)
+          and np.array_equal(cls.T[cls.order], per.T.cpu().numpy())
+          and torch.equal(cls.sched.theta, per.theta),
+          f"anchor: the class plan is not the per-job plan bit for bit {r}")
+
+    # (c) the fluid drain of (a)'s plan, card against CPU
+    wl_c = sample_class_workloads(CLASS_SEED, K=1, C=C, B=B,
+                                  count_range=(CLASS_PER, CLASS_PER),
+                                  device=cpu)
+    drains = {}
+    for d, st in ((dev, state), (cpu, wl_c.state(0))):
+        pol = ClassSmartFillPolicy._from_plan(st, plan, cache_plan=True)
+        t0 = time.perf_counter()
+        drains[d.type] = simulate_fluid_classes(st, pol)
+        sync()
+        drains[d.type + "_wall_s"] = time.perf_counter() - t0
+    res, res_c = drains[dev.type], drains["cpu"]
+    r = {"events": res.n_events, "finished": res.finished,
+         "J_jobs": res.J_jobs, "J_fluid": res.J_fluid,
+         "J_fluid_over_J_jobs": res.J_fluid / res.J_jobs,
+         "J_jobs_vs_plan": abs(res.J_jobs - plan.J) / plan.J,
+         "T_vs_cpu": float(np.max(np.abs(res.T - res_c.T) / res_c.T)),
+         "J_fluid_vs_cpu": abs(res.J_fluid - res_c.J_fluid) / res_c.J_fluid,
+         "wall_s": drains[dev.type + "_wall_s"]}
+    emit({"phase": "classes_fluid", **r})
+    check(res.finished and res.n_events == C,
+          f"fluid drain: finished {res.finished}, {res.n_events} events "
+          f"(expected {C})")
+    check(r["J_jobs_vs_plan"] <= 1e-9, f"fluid drain vs the plan {r}")
+    check(res.J_fluid <= res.J_jobs * (1 + 1e-12),
+          f"fluid drain: J_fluid above J_jobs {r}")
+    check(r["T_vs_cpu"] <= 1e-9 and r["J_fluid_vs_cpu"] <= 1e-9
+          and res.n_events == res_c.n_events,
+          f"fluid drain: card vs CPU {r}")
+
+    # (d) a batch of class instances, card against CPU
+    batches = [sample_class_workloads(BATCH_SEED, K=BATCH_K, C=BATCH_C, B=B,
+                                      count_range=BATCH_COUNTS, device=d)
+               for d in (dev, cpu)]
+    t0 = time.perf_counter()
+    orders, sched = plan_classes_batched(
+        batches[0].counts, batches[0].sizes, batches[0].weights,
+        batches[0].sp, B=B)
+    sync()
+    wall = time.perf_counter() - t0
+    orders_c, sched_c = plan_classes_batched(
+        batches[1].counts, batches[1].sizes, batches[1].weights,
+        batches[1].sp, B=B)
+    Jg, Jc = sched.J.cpu(), sched_c.J
+    Jlin, Jlin_c = sched.J_linear.cpu(), sched_c.J_linear
+    realized = ((Jc - Jlin_c).abs() / Jc) <= 1e-9
+    rel = (Jg - Jc).abs() / Jc
+    jobs = float(batches[0].jobs.sum())
+    r = {"K": BATCH_K, "C": BATCH_C, "jobs": jobs, "wall_s": wall,
+         "jobs_per_s": jobs / wall, "realized": int(realized.sum()),
+         "J_realized": float(torch.where(realized, rel, 0.0).max()),
+         "J_unrealized": float(torch.where(realized, 0.0, rel).max()),
+         "J_linear": float(((Jlin - Jlin_c).abs() / Jlin_c).max()),
+         "J_below_J_linear": float((Jlin * (1 - 1e-9) - Jg).clamp_min(0)
+                                   .max()),
+         "limits": BATCH_LIMITS}
+    emit({"phase": "classes_batched", **r})
+    check(np.array_equal(orders, orders_c),
+          "class batch: the card's orders differ from the CPU run's")
+    check(all(r[k] <= lim for k, lim in BATCH_LIMITS.items()),
+          f"class batch: card vs CPU {r}")
+    check(r["J_below_J_linear"] == 0.0,
+          "class batch: J below J_linear·(1 − 1e-9)")
+
+    # (e) examples/hetero_fleet.py: ten configs on one 256-GPU pod
+    names = sorted(list_archs())
+
+    def pod(d):
+        members = []
+        for arch in names:
+            cfg = get_config(arch)
+            members.append(job_speedup(
+                step_flops=6.0 * cfg.active_param_count() * POD_TOKENS,
+                grad_bytes=2.0 * cfg.param_count(),
+                tokens_per_step=POD_TOKENS, B=POD_GPUS, device=d))
+        sp = stack_speedups(members, B=POD_GPUS)
+        x = np.random.default_rng(0).uniform(2, 15, len(names)) * 1e9
+        rate = sp.s(torch.full((len(names),), POD_GPUS, dtype=torch.float64,
+                               device=d)).cpu().numpy()
+        return sp, x, rate / x
+
+    sp, x, w = pod(dev)
+    t0 = time.perf_counter()
+    fleet = smartfill_hetero(sp, x, w, B=POD_GPUS, exchange_passes=2)
+    sync()
+    wall = time.perf_counter() - t0
+    sp_c, _, _ = pod(cpu)
+    fleet_c = smartfill_hetero(sp_c, x, w, B=POD_GPUS, exchange_passes=2)
+    wmr = simulate_policy_device(
+        sp, x, w, WeightedMarginalRatePolicy(sp, B=POD_GPUS), B=POD_GPUS)
+    r = {"jobs": len(names), "wall_s": wall, "J": fleet.J,
+         "J_linear": fleet.J_linear,
+         "order": [names[i] for i in fleet.order],
+         "J_vs_J_linear": abs(fleet.J - fleet.J_linear) / fleet.J,
+         "card_vs_cpu": abs(fleet.J - fleet_c.J) / fleet_c.J,
+         "wmr_J": wmr.J, "wmr_over_plan": wmr.J / fleet.J - 1.0}
+    emit({"phase": "classes_hetero_fleet", **r})
+    check(r["J_vs_J_linear"] <= 1e-9, f"hetero fleet: J vs J_linear {r}")
+    check(np.array_equal(fleet.order, fleet_c.order)
+          and r["card_vs_cpu"] <= 1e-9, f"hetero fleet: card vs CPU {r}")
+    check(wmr.J >= fleet.J * (1 - 1e-12),
+          f"hetero fleet: WMR below the plan {r}")
+    launches = all_launches()
+    check(not any(launches.values()),
+          f"a kernel was launched in the class phase: {launches}")
+    return launches
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -2116,6 +2365,12 @@ def main():
     for rec in kernels:
         if rec["name"] in launches12:
             rec["engine_launches"] = launches12[rec["name"]]
+
+    # ---- 13. class-aggregated planning, float64 -----------------------------
+    t0 = time.perf_counter()
+    launches13 = classes_phase(torch, np, dev)
+    emit({"phase": "classes", "launches": launches13,
+          "wall_s": time.perf_counter() - t0})
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

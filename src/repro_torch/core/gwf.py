@@ -523,7 +523,9 @@ def hetero_solve(prep: HeteroPrep, b, iters: int = 48, lam_hint=None,
     Newton iteration in t = log λ (Illinois false position and then the
     midpoint as fallbacks) converges from a log-secant start, or from
     ``lam_hint``, and each row stops once its step is a few ulp or its
-    budget residual is within ``rtol``·b.
+    budget residual is within ``rtol``·b, or once Newton proposes a step
+    of a few ulp at a residual under 1e-3·b (the JAX package lacks this
+    exit and can leave such a solve unconverged).
 
     ``unroll`` > 0 runs exactly that many steps instead, on every row
     (no exit), and trusts the stored segment-end values for the false
@@ -602,7 +604,18 @@ def hetero_solve(prep: HeteroPrep, b, iters: int = 48, lam_hint=None,
         beta = torch.where(on, th, 0.0).sum(-1)
         phi = beta - b_safe
         dphi = torch.where(on, u * E, 0.0).sum(-1)       # dβ̃/dt < 0
-        done = torch.abs(phi) <= rtol_b
+        # Newton on log β̃(t), exact for a one-family segment
+        tn = t - torch.log(torch.clamp_min(beta, 1e-300) / b_safe) * beta / dphi
+        # a Newton step below the step tolerance at a residual already
+        # small against b is convergence too: where β̃ is a small
+        # difference of large terms (a saturating job with w ≫ b) its
+        # rounding exceeds rtol·b, so the residual exit never fires, and
+        # the proposal t itself is a bracket end that the strict tests
+        # below reject: the fallback would fling t back into the segment
+        # (at b ≤ 0 the clamped log makes every step 0, hence the
+        # residual's guard)
+        done = (torch.abs(phi) <= rtol_b) | (
+            (torch.abs(tn - t) <= tol) & (torch.abs(phi) <= 1e-3 * b_safe))
         up = phi > 0                                      # λ* above t
         tlo2 = torch.where(up, t, tlo)
         flo2 = torch.where(up, phi, flo)
@@ -613,8 +626,6 @@ def hetero_solve(prep: HeteroPrep, b, iters: int = 48, lam_hint=None,
             # twice running
             fhi2 = torch.where(up & prev_up, 0.5 * fhi2, fhi2)
             flo2 = torch.where(~(up | prev_up), 0.5 * flo2, flo2)
-        # Newton on log β̃(t), exact for a one-family segment
-        tn = t - torch.log(torch.clamp_min(beta, 1e-300) / b_safe) * beta / dphi
         den = flo2 - fhi2
         den_ok = den > 0
         tf = tlo2 + (flo2 / torch.where(den_ok, den, 1.0)) * (thi2 - tlo2)

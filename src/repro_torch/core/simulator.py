@@ -26,6 +26,10 @@ Two executors share these semantics:
     A numpy event loop, the differential-test oracle for the engine,
     with the same arrival and fault semantics.
 
+``simulate_fluid_classes`` executes a policy over class aggregates
+(``core/classes.py``) in the many-jobs limit: class work drains
+continuously and an event is a class running dry.
+
 ``simulate_ensemble`` evaluates P policies × K workloads: a Python loop
 over the policies, each one event loop over the shared (K, M) state.
 Speedup and policy parameters may be batched per workload: a leaf with
@@ -64,6 +68,7 @@ import torch
 
 from .._device import as_tensor, resolve_device, stops_early
 from .batch import check_axes_unambiguous
+from .classes import class_speedup
 from .speedup import host_call, map_leaves, per_instance
 
 _log = logging.getLogger(__name__)
@@ -82,6 +87,7 @@ __all__ = [
     "simulate_policy_reference",
     "simulate_ensemble",
     "simulate_fluid_classes",
+    "FluidClassResult",
     "schedule_policy",
     "smartfill_sim_policy",
 ]
@@ -657,11 +663,118 @@ def simulate_ensemble(sp, policies, X, W, arrival=None, B=None,
                           exhausted=exhausted, policy_names=names)
 
 
-def simulate_fluid_classes(*args, **kwargs):
-    """The fluid class-aggregate executor (``core/classes.py``)."""
-    raise NotImplementedError(
-        "simulate_fluid_classes needs core/classes.py, which comes with "
-        "slice C (paper §7 classes) of the PyTorch port")
+# ---------------------------------------------------------------------------
+# Fluid class-aggregate executor (many-jobs limit, core/classes.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FluidClassResult:
+    """Outcome of the fluid class executor (on the host).
+
+    T[c] is the exhaustion time of class c (0 for empty classes);
+    J_jobs = Σ_c n⁰_c w_c T_c is the objective with every job of a class
+    finishing at its exhaustion, the quantity ``plan_classes``
+    optimizes; J_fluid = ∫ Σ_c w_c n_c(t) dt with the continuously
+    draining count n_c(t) = R_c(t)/x_c (≤ J_jobs: mass that drains early
+    stops accruing weight).  Both are inf for an unfinished run.
+    ``events`` is the (t, Θ) trace of aggregate allocations per
+    inter-event interval.
+    """
+
+    T: np.ndarray
+    J_fluid: float
+    J_jobs: float
+    finished: bool
+    events: list
+    n_events: int
+
+
+def _fluid_core(sp_agg, policy, R0, wx_ratio, W_agg, rtol, n_events):
+    """Fluid event loop over the (C,) class aggregates.
+
+    Aggregate work R_c drains at S_c(Θ_c), the family frozen at the
+    initial counts; allocations are constant between events, so the
+    next event is the earliest exhaustion among runnable classes.  Over
+    one interval the weighted-count integral is closed form (n_c is
+    affine in t): ∫ w_c n_c dt = (w_c/x_c)(R_c·dt − S_c(Θ_c)·dt²/2).
+    The loop stops once a step neither advanced time nor completed a
+    class (one host sync a step on the card): every later step of the
+    ``n_events`` count would repeat it as a no-op.
+    """
+    real = R0 > 0
+    eps = torch.finfo(R0.dtype).eps
+    tol = max(rtol, 8.0 * eps) * max(1.0, float(R0.max()))
+    t = torch.zeros((), dtype=R0.dtype, device=R0.device)
+    R = torch.where(real, R0, 0.0)
+    T = torch.zeros_like(R0)
+    Jf = torch.zeros_like(t)
+    rec = []
+    for _ in range(n_events):
+        active = real & (R > 0)
+        theta = torch.where(active, policy(R, W_agg, active), 0.0)
+        rates = torch.where(active, sp_agg.s(theta), 0.0)
+        runnable = active & (rates > 0)
+        dt_c = torch.where(runnable,
+                           R / torch.where(runnable, rates, 1.0),
+                           torch.inf).amin()
+        live = torch.isfinite(dt_c)
+        dt = torch.where(live, dt_c, 0.0)
+        t_new = t + dt
+        dJ = torch.where(active, wx_ratio * (R * dt - rates * dt * dt / 2.0),
+                         0.0).sum()
+        R2 = torch.where(active, torch.clamp_min(R - rates * dt, 0.0), R)
+        done_now = active & (R2 <= tol)
+        T = torch.where(done_now, t_new, T)
+        R = torch.where(done_now, 0.0, R2)
+        rec.append((t, theta, live & active.any()))
+        t, Jf = t_new, Jf + dJ
+        if stops_early(~live & ~done_now.any(), sync=True):
+            break
+    finished = bool((~real | (R <= 0)).all())
+    return T, Jf, finished, rec
+
+
+def simulate_fluid_classes(state, policy, rtol: float = 1e-12,
+                           max_events: int | None = None,
+                           trace: bool = True,
+                           device=None) -> FluidClassResult:
+    """Run a policy over class aggregates in the fluid limit.
+
+    ``state`` is a ``core.classes.ClassState``; ``policy`` a
+    ``sched/policies.py`` allocator called with the *aggregate*
+    remaining work and the aggregate weights n_c·w_c, e.g.
+    ``ClassSmartFillPolicy.from_classes(state)``.  Every event exhausts
+    at least one class, so the default budget of 2C + 8 events is ample.
+    Zero-count classes are inert (T = 0, never allocated).  Runs on
+    ``device``, else on the device of the state's speedup, in float64.
+    """
+    counts, x, w = (_host(v) for v in (state.counts, state.sizes,
+                                       state.weights))
+    C = counts.shape[0]
+    if C == 0:
+        return FluidClassResult(T=np.zeros(0), J_fluid=0.0, J_jobs=0.0,
+                                finished=True, events=[], n_events=0)
+    dev = resolve_device(device, state.sp)
+    sp_agg = class_speedup(map_leaves(state.sp, lambda l: l.to(dev)),
+                           counts)
+    live = counts > 0
+    R0 = as_tensor(np.where(live, counts * x, 0.0), dev)
+    W_agg = as_tensor(np.where(live, counts * w, 0.0), dev)
+    # the x = 0 padding slots have R0 = 0: their ratio is never used
+    wx = as_tensor(np.where(live, w / np.where(x > 0, x, 1.0), 0.0), dev)
+    n_events = int(max_events or (2 * C + 8))
+    T, Jf, finished, rec = _fluid_core(
+        sp_agg, _bound(policy, dev, R0.dtype), R0, wx, W_agg, rtol,
+        n_events)
+    T = _host(T)
+    valid = [bool(v) for _, _, v in rec]
+    events = [(float(t_), _host(th)) for (t_, th, _), v in zip(rec, valid)
+              if v] if trace else []
+    inf = float("inf")
+    return FluidClassResult(
+        T=T, J_fluid=float(Jf) if finished else inf,
+        J_jobs=float(np.sum(counts * w * T)) if finished else inf,
+        finished=finished, events=events, n_events=int(sum(valid)))
 
 
 # ---------------------------------------------------------------------------

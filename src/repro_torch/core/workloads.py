@@ -18,9 +18,11 @@ parameters — shaped for ``smartfill_batched`` and
     joins the mix a ``StackedSpeedup`` carries σ per draw.
 
 ``sample_fault_traces`` draws seeded fault schedules (``FaultTrace``)
-for the fault-aware engine, and ``sample_arrival_stream`` /
+for the fault-aware engine, ``sample_arrival_stream`` /
 ``arrival_stream_from_log`` / ``load_arrival_log`` give the open-arrival
-traces of the streaming control plane (``ArrivalStream``).
+traces of the streaming control plane (``ArrivalStream``), and
+``sample_class_workloads`` draws class-aggregated instances
+(``ClassWorkloadBatch``, ``core/classes.py``).
 
 One integer seed drives ``np.random.default_rng``, and the draws are
 made in the same order as the JAX package's samplers, so both packages
@@ -34,11 +36,12 @@ import dataclasses
 import numpy as np
 
 from .._device import as_tensor, resolve_device
-from .speedup import RegularSpeedup, StackedSpeedup
+from .speedup import RegularSpeedup, StackedSpeedup, map_leaves
 
-__all__ = ["WorkloadBatch", "ArrivalStream", "sample_workloads",
-           "sample_fault_traces", "sample_arrival_stream",
-           "arrival_stream_from_log", "load_arrival_log", "FAMILIES"]
+__all__ = ["WorkloadBatch", "ArrivalStream", "ClassWorkloadBatch",
+           "sample_workloads", "sample_fault_traces", "sample_arrival_stream",
+           "arrival_stream_from_log", "load_arrival_log",
+           "sample_class_workloads", "FAMILIES"]
 
 FAMILIES = ("power", "shifted", "log", "neg_power", "saturating")
 
@@ -521,3 +524,92 @@ def load_arrival_log(path) -> ArrivalStream:
 # replay entry point advertised on the sampler: recorded logs go
 # through sample_arrival_stream.from_log, sweeps through the sampler
 sample_arrival_stream.from_log = arrival_stream_from_log
+
+
+# ---------------------------------------------------------------------------
+# Class-structured ensembles (core/classes.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ClassWorkloadBatch:
+    """K class-aggregated instances: per-class counts, sizes, weights.
+
+    Zero-count classes are legitimate (and sampled by default): the
+    planners treat them as inert padding.  ``sp`` leaves are (K, C),
+    every class of every instance drawing its own family.
+    """
+
+    counts: np.ndarray       # (K, C) job counts: integral floats, 0 allowed
+    sizes: np.ndarray        # (K, C) per-job remaining size within the class
+    weights: np.ndarray      # (K, C) per-job weight within the class
+    B: float
+    sp: RegularSpeedup | StackedSpeedup     # (K, C) leaves
+
+    def __len__(self) -> int:
+        return int(self.counts.shape[0])
+
+    @property
+    def jobs(self) -> np.ndarray:
+        """(K,) total job count per instance."""
+        return self.counts.sum(axis=1)
+
+    def state(self, k: int):
+        """``ClassState`` of instance ``k`` (the single-instance APIs)."""
+        from .classes import ClassState
+
+        return ClassState(counts=self.counts[k], sizes=self.sizes[k],
+                          weights=self.weights[k],
+                          sp=map_leaves(self.sp, lambda l: l[k]), B=self.B)
+
+
+def sample_class_workloads(
+    seed: int,
+    K: int,
+    C: int,
+    *,
+    B: float = 10.0,
+    family=FAMILIES,
+    count_range: tuple = (0, 50),
+    size_range: tuple = (0.5, 20.0),
+    weights: str = "random",
+    device=None,
+) -> ClassWorkloadBatch:
+    """Draw K class-structured instances from one seed.
+
+    Args:
+      seed, K, C: rng seed, instance count, classes per instance.
+      B: server bandwidth recorded on the batch (and on ``sp``).
+      family: name(s) from ``FAMILIES`` to mix uniformly per class
+        (default all five, so σ=−1 saturating rows mix with σ=+1).
+      count_range: (lo, hi) inclusive per-class job counts; lo = 0
+        samples empty classes.  An instance drawn all empty gets one job
+        in one class.
+      size_range: uniform per-job size support within a class.
+      weights: 'random' → independent U(0.1, 5) per class; 'slowdown' →
+        w = 1/x.
+      device: where ``sp``'s leaves go (default CUDA).
+
+    Returns a ClassWorkloadBatch (numpy arrays; ``sp`` on ``device``):
+    its arrays feed ``plan_classes_batched``, ``.state(k)`` the
+    single-instance planner and the fluid executor.
+    """
+    rng = np.random.default_rng(seed)
+    lo, hi = count_range
+    if not (0 <= lo <= hi):
+        raise ValueError("count_range must satisfy 0 ≤ lo ≤ hi")
+    counts = rng.integers(lo, hi + 1, (K, C)).astype(np.float64)
+    for k in range(K):                       # keep every instance non-empty
+        if not (counts[k] > 0).any():
+            counts[k, rng.integers(0, C)] = 1.0
+    sizes = rng.uniform(*size_range, (K, C))
+    if weights == "slowdown":
+        W = 1.0 / sizes
+    elif weights == "random":
+        W = rng.uniform(0.1, 5.0, (K, C))
+    else:
+        raise ValueError("weights must be 'slowdown' or 'random'")
+    A, w, gamma, sigma = (arr.reshape(K, C) for arr in
+                          _sample_family_params(rng, K * C, family, B))
+    sp = _family_speedup(A, w, gamma, sigma, B, resolve_device(device))
+    return ClassWorkloadBatch(counts=counts, sizes=sizes, weights=W,
+                              B=float(B), sp=sp)

@@ -1,5 +1,6 @@
 """Scheduling policies for the scenario engine (``core/simulator.py``)."""
 from .policies import (  # noqa: F401
+    ClassSmartFillPolicy,
     EquiPolicy,
     GWFStaticPolicy,
     HeSRPTPolicy,

@@ -44,6 +44,9 @@ Heterogeneous fleets (paper §7) add two members:
     as a named baseline: equalize (w_i/rem_i)·s_i'(θ_i) over the active
     jobs by water-filling with static constants c_i ∝ rem_i/w_i.
 
+``ClassSmartFillPolicy`` is heteroSF over class aggregates
+(``core/classes.py``), the policy of ``simulate_fluid_classes``.
+
 SmartFill and heteroSF call the batch-first SmartFill core once per
 event for all K workloads.  GWF-static and WMR call the batched CAP
 front door ``solve_cap_batched(impl="auto")`` where the reference takes
@@ -62,6 +65,7 @@ import numpy as np
 import torch
 
 from .._device import as_tensor, resolve_device
+from ..core.classes import aggregate_classes, plan_classes
 from ..core.gwf import solve_cap_batched
 from ..core.simulator import lane_budget
 from ..core.smartfill import _host, _is_pure_power, _solve
@@ -72,6 +76,7 @@ __all__ = [
     "Policy",
     "SmartFillPolicy",
     "HeteroSmartFillPolicy",
+    "ClassSmartFillPolicy",
     "HeSRPTPolicy",
     "EquiPolicy",
     "SRPT1Policy",
@@ -452,6 +457,62 @@ class HeteroSmartFillPolicy(Policy):
                     theta = torch.where(off[:, None, None], resolve(b),
                                         theta)
         return _scatter(rem, order, _column(theta, m), active)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassSmartFillPolicy(HeteroSmartFillPolicy):
+    """Re-planning SmartFill over *class aggregates* (``core/classes.py``).
+
+    The state is aggregate: rem_c is the remaining class work R_c
+    (initially n_c·x_c), w_c the aggregate weight n_c·w_c, under the
+    aggregated speedup S_c(Θ) = n_c·s_c(Θ/n_c), which stays in the
+    regular family (``class_speedup``), so the §7 per-job machinery
+    applies with C rows instead of M.  Only construction differs from
+    ``HeteroSmartFillPolicy``: ``from_classes`` applies the aggregation
+    transform on the host and, by default, pins the class completion
+    order of the one-shot ``plan_classes`` plan, so running it through
+    ``simulate_fluid_classes`` executes the plan (Prop. 7 over
+    aggregates).  ``pin=False`` keeps the per-event re-ranking ablation.
+    Zero-count classes carry R = 0 and are never active.
+    """
+
+    name = "classSF"
+
+    @classmethod
+    def from_classes(cls, state, B: float | None = None, pin: bool = True,
+                     cache_plan: bool = False, **kwargs):
+        """Build from a ``ClassState``.
+
+        ``pin=True`` ranks the classes by the one-shot plan's completion
+        order (empty classes rank last: they are never active);
+        ``cache_plan=True`` also stores the plan's allocation table for
+        a lookup an event instead of a re-solve.  The plan runs on the
+        device of the state's speedup.
+        """
+        B = float(state.B if B is None else B)
+        plan = plan_classes(state, B=B) if (pin or cache_plan) else None
+        return cls._from_plan(state, plan, B, cache_plan, **kwargs)
+
+    @classmethod
+    def _from_plan(cls, state, plan, B: float | None = None,
+                   cache_plan: bool = False, **kwargs):
+        """``from_classes`` on a plan already made for ``state`` at
+        ``B`` (None: the re-ranking policy)."""
+        B = float(state.B if B is None else B)
+        sp_agg, _, _ = aggregate_classes(state)
+        dev = sp_agg.device
+        rank = theta = None
+        if plan is not None:
+            C = state.C
+            r = np.full(C, C, dtype=np.float64)
+            r[np.asarray(plan.order)] = np.arange(plan.order.size)
+            rank = as_tensor(r, dev)
+            if cache_plan:
+                kl = plan.order.size
+                theta = torch.zeros((C, C), dtype=torch.float64, device=dev)
+                if kl:
+                    theta[:kl, :kl] = plan.sched.theta.to(dev)
+        return cls(sp=sp_agg, B=B, rank=rank, theta=theta, **kwargs)
 
 
 @dataclasses.dataclass(frozen=True)

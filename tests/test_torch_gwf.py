@@ -464,3 +464,40 @@ def test_auto_keeps_the_input_dtype_on_the_cpu(dtype):
     out = P.solve_cap_batched(port_speedup(sp), t64(bs).to(dtype),
                               t64(C).to(dtype), t64(A))
     assert out.dtype == dtype
+
+
+def test_hetero_solve_stops_at_a_stalled_newton_step():
+    """The final CAP of iteration 9 of ``test_class_aggregate_instance_
+    matches_jax`` (test_torch_hetero.py): nine class aggregates, two of
+    them on, a saturating one (w ≈ 8.9e5, σ = −1) and a pure power, at
+    b ≈ 3.2.  θ = w − (λc/A)^{1/γ} is a small difference of large terms,
+    so β̃'s rounding (~1e-10) stays above rtol·b and the residual exit
+    never fires.  From the hint λ*, Newton proposes t itself, a bracket
+    end; before that counted as convergence, the fallback threw t back
+    into the segment and four unrolled steps ended with θ 0.37 off."""
+    spt = P.StackedSpeedup(
+        A=t64([93301203691919.38, 49.05185673668851, 69.52644221947408,
+               34681.67489104077, 659823070871.4393, 39839.60284960922,
+               57448.75515468638, 0.004267808403972414, 54.662009313295066,
+               1.0]),
+        w=t64([119404.07327948163, 85611.53036368244, 182976.0385430852,
+               16503.974061047298, 46769.820133450856, 19832.78002101618,
+               16107.458031963142, 886668.5681724861, 0.0, 1.0]),
+        gamma=t64([-2.985291976430154, -0.38630289764574166,
+                   -0.40116636704965125, -1.0, -2.5550605055058826, -1.0,
+                   -1.0, 0.6139108987827788, -0.4261416274710663, -0.5]),
+        sigma=t64([1.0] * 7 + [-1.0, 1.0, 1.0]), B=B)
+    c = t64([1.0, 9.368749216126702, 8.270325087896163, 32.263881274943955,
+             11.839965139726974, 30.809193585817187, 54.667976610835055,
+             293.14114967732746, 701.7692986741222, 1.0])
+    act = torch.arange(10) < 9
+    b = 3.210184868385727
+    prep = P.hetero_prepare(spt, c, act)
+    th_a, lam_a = P.hetero_solve(prep, b, iters=200, return_lam=True)
+    assert np.count_nonzero(np_(th_a)) == 2
+    for hint in (0.06524137591188639, float(lam_a)):
+        for unroll in (2, 4, 6):
+            th = P.hetero_solve(prep, b, lam_hint=hint, unroll=unroll)
+            np.testing.assert_allclose(np_(th), np_(th_a), atol=1e-9 * b)
+            res = P.cap_residual(spt, b, c, th, active=act)
+            assert float(res["ratio"]) < 1e-9, (hint, unroll, res)

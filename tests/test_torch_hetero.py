@@ -282,3 +282,44 @@ def test_leaf_count_is_checked():
     st, x, w = _instances()[0]
     with pytest.raises(ValueError, match="entries for"):
         P.smartfill_hetero(port_speedup(st), t64(x[:-1]), t64(w[:-1]), B=B)
+
+
+# the knobs plan_classes hands smartfill_hetero (tests/core/test_classes.py)
+CLASS_KNOBS = dict(coarse=64, descent_iters=96, cap_iters=64,
+                   exchange_passes=2, exchange_window=1, stol_rel=1e-10)
+
+
+def test_class_aggregate_instance_matches_jax():
+    """Twelve class aggregates (31,250 jobs each, all five families):
+    A·n^{−γ} and w·n make aggregates whose saturating rows have w near
+    9e5 against a budget of 10, where the per-job CAP's residual never
+    reaches rtol·b.  Before the solver stopped at a stalled Newton step,
+    the final CAP of iteration 9 fell back into the segment and its
+    column broke the CDR conditions, which carried into c and put J
+    5.9e-5 above the JAX package's.  The same order, J and J_linear to
+    1e-9; μ* to 1e-7 through iteration 8.  From iteration 9 on F is flat
+    at its minimum (4e-10 relative over a 7e-5 move of μ*), and the JAX
+    package compiled and run op by op already place μ* 7.3e-5 apart
+    there, so those iterations are held by F's minimum, a_k, to 1e-9.
+    The final CAP column of every iteration meets the CDR conditions.
+    """
+    wl = J.sample_class_workloads(2, K=1, C=12, B=B,
+                                  count_range=(31250, 31250))
+    st = wl.state(0)
+    spj = J.class_speedup(st.sp, st.counts)
+    X, W = st.counts * st.sizes, st.counts * st.weights
+    ref = J.smartfill_hetero(spj, X, W, B=B, **CLASS_KNOBS)
+    spt = port_speedup(spj)
+    out = P.smartfill_hetero(spt, t64(X), t64(W), B=B, **CLASS_KNOBS)
+    assert np.array_equal(out.order, ref.order)
+    assert out.J == pytest.approx(ref.J, rel=EXACT)
+    assert out.J_linear == pytest.approx(ref.J_linear, rel=EXACT)
+    mu, mu_ref = np.diag(np_(out.theta)), np.diag(np.asarray(ref.theta))
+    np.testing.assert_allclose(mu[:9], mu_ref[:9], rtol=1e-7)
+    np.testing.assert_allclose(np_(out.a), np.asarray(ref.a), rtol=EXACT)
+    perm = torch.as_tensor(out.order)
+    sp_o = map_leaves(spt, lambda l: l[perm])
+    for k in range(1, len(X)):
+        res = P.cap_residual(map_leaves(sp_o, lambda l: l[:k]), B - mu[k],
+                             out.c[:k], out.theta[:k, k])
+        assert float(res["ratio"]) < 1e-9, (k, res)

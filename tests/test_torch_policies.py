@@ -322,3 +322,49 @@ def test_batched_cached_plan_resolves_only_moved_workloads(cached):
                                  tr.values[0]))
     assert abs(float(moved.J[0, 0]) - ref.J) / ref.J < 1e-6
     assert int(moved.n_events[0, 0]) == ref.n_events
+
+
+def test_class_policy_from_classes_matches_jax():
+    """``ClassSmartFillPolicy.from_classes``: the aggregate speedup, the
+    pinned rank (empty classes ranked C) and the cached table equal to
+    the JAX package's (the table to the pinned plan's 1e-6·B: μ* sits at
+    a flat minimum); ``pin=False`` keeps the re-ranking policy; a policy
+    built from a plan already made is the same policy."""
+    rng = np.random.default_rng(3)
+    C = 5
+    spj = J.stack_speedups([J.log_speedup(1.0, 1.0, B),
+                            J.saturating(1.2, 18.0, 1.6, B),
+                            J.shifted_power(0.9, 2.0, 0.5, B),
+                            J.power(1.1, 0.7, B),
+                            J.neg_power(1.0, 2.5, -1.3, B)])
+    counts = np.array([12.0, 0.0, 40.0, 3.0, 25.0])
+    kw = dict(counts=counts, sizes=rng.uniform(0.5, 20.0, C),
+              weights=rng.uniform(0.1, 5.0, C), B=B)
+    sj = J.ClassState(sp=spj, **kw)
+    st = P.ClassState(sp=port_speedup(spj), **kw)
+    for pin, cache in ((True, True), (True, False), (False, False)):
+        ref = JP.ClassSmartFillPolicy.from_classes(sj, pin=pin,
+                                                   cache_plan=cache)
+        out = PP.ClassSmartFillPolicy.from_classes(st, pin=pin,
+                                                   cache_plan=cache)
+        assert out.name == ref.name == "classSF"
+        for name in ("A", "w", "gamma"):
+            np.testing.assert_allclose(np_(getattr(out.sp, name)),
+                                       np.asarray(getattr(ref.sp, name)),
+                                       rtol=1e-15)
+        if ref.rank is None:
+            assert out.rank is None and out.theta is None
+            continue
+        assert np.array_equal(np_(out.rank), np.asarray(ref.rank))
+        assert float(out.rank[1]) == C          # the empty class
+        if cache:
+            np.testing.assert_allclose(np_(out.theta), np.asarray(ref.theta),
+                                       atol=1e-6 * B, rtol=0)
+            assert np.all(np_(out.theta)[4:, :] == 0.0)
+        else:
+            assert out.theta is None
+    plan = P.plan_classes(st)
+    again = PP.ClassSmartFillPolicy._from_plan(st, plan, cache_plan=True)
+    built = PP.ClassSmartFillPolicy.from_classes(st, cache_plan=True)
+    assert torch.equal(again.rank, built.rank)
+    assert torch.equal(again.theta, built.theta)

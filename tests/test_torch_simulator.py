@@ -248,8 +248,9 @@ def test_schedule_and_smartfill_sim_policies():
 
 def test_float32_run_and_class_executor():
     """A float32 workload runs in float32 (completions register through
-    the ulp-floored tolerance); the fluid class executor waits for
-    slice C."""
+    the ulp-floored tolerance); the fluid class executor drains a small
+    class state as the JAX package's does (the cached plan taken from
+    JAX's policy, so the executors alone are compared)."""
     spj, spt = _pair("log")
     x, w = _instance(8)
     out = P.simulate_policy_device(
@@ -259,8 +260,10 @@ def test_float32_run_and_class_executor():
                                       B=B)
     assert abs(out.J - ref.J) / ref.J < 1e-5
     assert out.events[0][1].dtype == np.float64
-    with pytest.raises(NotImplementedError, match="slice C"):
-        P.simulate_fluid_classes(None, None)
+    sj, st = _class_pair(np.random.default_rng(2), C=3)
+    pol_j, pol_p = _class_policies(sj, st)
+    _assert_fluid_match(P.simulate_fluid_classes(st, pol_p),
+                        J.simulate_fluid_classes(sj, pol_j))
 
 
 @pytest.mark.parametrize("case", ["plain", "arrivals", "faults"])
@@ -286,3 +289,164 @@ def test_early_stop_gives_the_full_count_result(case, monkeypatch):
     full = P.simulate_ensemble(spt, pols, wl.X, wl.W, **kw)
     for name in ("J", "T", "n_events", "finished", "exhausted"):
         assert torch.equal(getattr(early, name), getattr(full, name)), name
+
+
+# ---------------------------------------------------------------------------
+# The fluid class executor (core/classes.py states)
+# ---------------------------------------------------------------------------
+
+def _rand_member(rng):
+    f = rng.integers(0, 5)
+    a = rng.uniform(0.5, 2.0)
+    p = rng.uniform(0.3, 0.9)
+    z = rng.uniform(0.5, 6.0)
+    if f == 0:
+        return J.power(a, p, B)
+    if f == 1:
+        return J.shifted_power(a, z, p, B)
+    if f == 2:
+        return J.log_speedup(a, rng.uniform(0.3, 2.0), B)
+    if f == 3:
+        return J.neg_power(a, z, -rng.uniform(0.5, 2.0), B)
+    return J.saturating(a, rng.uniform(1.2 * B, 3.0 * B),
+                        rng.uniform(1.2, 2.5), B)
+
+
+def _class_pair(rng, C, count_range=(0, 50), extra=0.0):
+    """``tests/core/test_classes.py::_rand_state`` for both packages;
+    ``extra`` is added to every count (fractional, fluid counts)."""
+    sp = J.stack_speedups([_rand_member(rng) for _ in range(C)])
+    lo, hi = count_range
+    counts = rng.integers(lo, hi + 1, C).astype(np.float64)
+    if not (counts > 0).any():
+        counts[rng.integers(0, C)] = 1.0
+    counts = counts + extra
+    sizes = rng.uniform(0.5, 20.0, C)
+    weights = rng.uniform(0.1, 5.0, C)
+    return (J.ClassState(counts=counts, sizes=sizes, weights=weights, sp=sp,
+                         B=B),
+            P.ClassState(counts=counts, sizes=sizes, weights=weights,
+                         sp=port_speedup(sp), B=B))
+
+
+def _class_policies(sj, st):
+    """JAX's pinned, cached class policy and the port's with JAX's rank
+    and table: the plans of the two packages agree on Θ only to ~1e-7
+    (μ* at a flat minimum), the executors must agree to 1e-9."""
+    pol_j = JP.ClassSmartFillPolicy.from_classes(sj, pin=True,
+                                                 cache_plan=True)
+    pol_p = PP.ClassSmartFillPolicy(
+        sp=P.class_speedup(st.sp, st.counts), B=B,
+        rank=torch.tensor(np.array(pol_j.rank)),
+        theta=torch.tensor(np.array(pol_j.theta)))
+    return pol_j, pol_p
+
+
+def _assert_fluid_match(out, ref, rtol=1e-9):
+    assert out.finished and ref.finished
+    np.testing.assert_allclose(out.T, ref.T, rtol=rtol, atol=0)
+    for key in ("J_fluid", "J_jobs"):
+        assert abs(getattr(out, key) - getattr(ref, key)) <= rtol * abs(
+            getattr(ref, key)), key
+    assert out.n_events == ref.n_events == len(out.events)
+    for (to, tho), (tr, thr) in zip(out.events, ref.events):
+        assert abs(to - tr) <= rtol * max(1.0, tr)
+        np.testing.assert_allclose(tho, np.asarray(thr), atol=1e-12 * B)
+
+
+@pytest.mark.parametrize("seed,extra", [(0, 0.0), (5, 0.0), (9, 0.5)])
+def test_fluid_classes_match_jax(seed, extra):
+    """T, J_fluid and J_jobs to 1e-9, the same n_events and event times,
+    integral and fractional counts."""
+    sj, st = _class_pair(np.random.default_rng(seed), C=5, extra=extra)
+    pol_j, pol_p = _class_policies(sj, st)
+    _assert_fluid_match(P.simulate_fluid_classes(st, pol_p),
+                        J.simulate_fluid_classes(sj, pol_j))
+
+
+def test_fluid_pinned_drain_reproduces_the_plan():
+    """The port's pinned, cached policy executes the port's plan: T and
+    J to 1e-9, J_fluid ≤ J_jobs, within the 2C + 8 event budget."""
+    for seed in (0, 5, 9):
+        _, st = _class_pair(np.random.default_rng(seed), C=5)
+        plan = P.plan_classes(st)
+        pol = PP.ClassSmartFillPolicy.from_classes(st, pin=True,
+                                                   cache_plan=True)
+        res = P.simulate_fluid_classes(st, pol)
+        assert res.finished and res.n_events <= 2 * st.C + 8
+        live = st.counts > 0
+        np.testing.assert_allclose(res.T[live], plan.T[live], rtol=1e-9)
+        assert np.all(res.T[~live] == 0.0)
+        assert abs(res.J_jobs - plan.J) <= 1e-9 * plan.J
+        assert res.J_fluid <= res.J_jobs * (1 + 1e-12)
+
+
+def test_fluid_rerank_ablation_never_better():
+    """pin=False re-ranks the classes at every event: never better than
+    the pinned plan, and strictly worse somewhere."""
+    strictly_worse = 0
+    for seed in (1, 4, 7, 12):
+        _, st = _class_pair(np.random.default_rng(seed), C=5)
+        pinned = P.simulate_fluid_classes(
+            st, PP.ClassSmartFillPolicy.from_classes(st, pin=True,
+                                                     cache_plan=True))
+        rerank = P.simulate_fluid_classes(
+            st, PP.ClassSmartFillPolicy.from_classes(st, pin=False))
+        assert pinned.finished and rerank.finished
+        assert rerank.J_jobs >= pinned.J_jobs * (1 - 1e-9)
+        if rerank.J_jobs > pinned.J_jobs * (1 + 1e-6):
+            strictly_worse += 1
+    assert strictly_worse >= 1
+
+
+def test_fluid_cdr_ratio_constant_along_the_trajectory():
+    """Cor. 2.1 over aggregates: S_i'(Θ_i)/S_j'(Θ_j) is one constant over
+    the events where both classes run (spread below 1e-6)."""
+    checked = 0
+    for seed in (1, 3, 5, 8):
+        _, st = _class_pair(np.random.default_rng(seed), C=5,
+                            count_range=(1, 30))
+        res = P.simulate_fluid_classes(
+            st, PP.ClassSmartFillPolicy.from_classes(st, pin=True,
+                                                     cache_plan=True))
+        assert res.finished
+        sp_agg = P.class_speedup(st.sp, st.counts)
+        ratios = {}
+        for _, th in res.events:
+            pos = np.flatnonzero(th > 1e-7 * B)
+            ds = sp_agg.ds(torch.as_tensor(th)).numpy()
+            for a in pos:
+                for b in pos[pos > a]:
+                    ratios.setdefault((a, b), []).append(ds[a] / ds[b])
+        spreads = [(max(r) - min(r)) / max(r) for r in ratios.values()
+                   if len(r) >= 2]
+        if spreads:
+            checked += 1
+            assert max(spreads) < 1e-6, (seed, spreads)
+    assert checked >= 2
+
+
+def test_fluid_event_budget_early_stop_and_empty_states(monkeypatch):
+    """Stopping once a step neither advanced time nor completed a class
+    gives what running out the 2C + 8 count gives; a cut budget leaves
+    the run unfinished with J = inf; empty classes stay inert; a C = 0
+    state is a no-op."""
+    import repro_torch.core.simulator as P_sim
+
+    _, st = _class_pair(np.random.default_rng(4), C=5, count_range=(0, 3))
+    pol = PP.ClassSmartFillPolicy.from_classes(st, pin=True, cache_plan=True)
+    early = P.simulate_fluid_classes(st, pol)
+    cut = P.simulate_fluid_classes(st, pol, max_events=1)
+    assert not cut.finished and cut.J_jobs == cut.J_fluid == float("inf")
+    monkeypatch.setattr(P_sim, "stops_early", lambda *a, **k: False)
+    full = P.simulate_fluid_classes(st, pol)
+    assert np.array_equal(early.T, full.T)
+    assert (early.J_fluid, early.J_jobs, early.n_events, early.finished) == (
+        full.J_fluid, full.J_jobs, full.n_events, full.finished)
+    assert all(np.array_equal(a[1], b[1]) and a[0] == b[0]
+               for a, b in zip(early.events, full.events))
+    assert np.all(early.T[st.counts == 0] == 0.0)
+    none = P.ClassState(counts=np.zeros(0), sizes=np.zeros(0),
+                        weights=np.zeros(0), sp=st.sp, B=B)
+    res = P.simulate_fluid_classes(none, pol)
+    assert res.finished and res.n_events == 0 and res.J_jobs == 0.0

@@ -156,3 +156,47 @@ def test_load_arrival_log_csv_and_json(tmp_path):
     empty.write_text("# only a comment\n")
     with pytest.raises(ValueError, match="no header"):
         P.load_arrival_log(empty)
+
+
+CLASS_CASES = {
+    "random_weights": dict(),
+    "slowdown_weights": dict(weights="slowdown"),
+    "family_subset": dict(family=("power", "log", "neg_power"),
+                          count_range=(1, 9)),
+    "all_empty_rerolled": dict(count_range=(0, 0)),
+}
+
+
+@pytest.mark.parametrize("case", list(CLASS_CASES))
+def test_sample_class_workloads_bitwise(case):
+    """Counts, sizes, weights and the (K, C) family leaves equal to the
+    reference's bit for bit; ``.state(k)`` gives instance k's state."""
+    kw = CLASS_CASES[case]
+    ref = J.sample_class_workloads(11, K=7, C=5, B=B, **kw)
+    out = P.sample_class_workloads(11, K=7, C=5, B=B, device="cpu", **kw)
+    for key in ("counts", "sizes", "weights"):
+        assert np.array_equal(getattr(out, key), getattr(ref, key)), key
+    assert out.B == ref.B and len(out) == len(ref) == 7
+    assert np.array_equal(out.jobs, ref.jobs)
+    assert type(out.sp).__name__ == type(ref.sp).__name__
+    for name in ("A", "w", "gamma", "sigma"):
+        leaf = getattr(out.sp, name)
+        ref_leaf = np.asarray(getattr(ref.sp, name))
+        got = np_(leaf) if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+        assert np.array_equal(got, ref_leaf), name
+    for k in (0, 6):
+        st, st_ref = out.state(k), ref.state(k)
+        assert isinstance(st, P.ClassState) and st.C == 5
+        assert np.array_equal(st.counts, st_ref.counts)
+        assert np.array_equal(np_(st.sp.A), np.asarray(st_ref.sp.A))
+        assert st.B == B
+
+
+def test_sample_class_workloads_errors():
+    with pytest.raises(ValueError, match="count_range"):
+        P.sample_class_workloads(0, K=2, C=3, count_range=(3, 1),
+                                 device="cpu")
+    with pytest.raises(ValueError, match="weights"):
+        P.sample_class_workloads(0, K=2, C=3, weights="equal", device="cpu")
+    with pytest.raises(ValueError, match="unknown speedup family"):
+        P.sample_class_workloads(0, K=2, C=3, family="cubic", device="cpu")
