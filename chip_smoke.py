@@ -71,7 +71,8 @@ Phases (each one is a check; any failure exits non-zero):
      256, M = 32, 2..32 live jobs) through ``smartfill_hetero_batched``,
      held to the port's CPU run (same orders, J to 1e-9), to J_linear,
      and at its largest instance to ``smartfill_hetero`` (1e-6), with
-     wall time, device kernels a call and busy share from the profiler;
+     its wall time (its profile, a reading of ~90 s, is gone: phase
+     13(a)'s one-solve profile reads the same recursion's busy share);
      the exchange search (windows 1 and 2) on ten mixed members, card
      against CPU; ``smartfill_warm`` seeded by its own first run against
      a cold plan; no K1–K5 launch in the phase;
@@ -106,10 +107,37 @@ Phases (each one is a check; any failure exits non-zero):
      ``examples/hetero_fleet.py``: the ten configs' roofline speedups
      on one 256-GPU pod, card against CPU, WMR not below the plan; no
      K1–K5 launch.  Rehearse on the CPU with ``classes_phase(torch, np,
-     torch.device("cpu"))``.
+     torch.device("cpu"))``;
+ 14. the robustness layer, fleet planning at D = 1 and admission
+     control in float64 (``robust_*``, ``fleet_*``, ``admission_*``
+     lines): (a) the ladder SmartFill → GWF-static → EQUI on 12(b)'s
+     plain fleet, J, T and n_events bit for bit equal to SmartFill
+     alone, with wall, device kernels, busy share and kernels an event
+     of both; ``degradation_report`` on four face-off instances, card
+     and CPU, every event on rung 0; (b) the ladder with its primary
+     sabotaged (NaN, overspend, negative while more than four jobs are
+     active) over the face-off's 128 workloads, card against CPU (J, T
+     1e-6, the same n_events), the same rung counts, rung 1 used in
+     every mode; (c) ``certify_plan`` on phase 5's quickstart schedule
+     and phase 11's largest per-job plan, and two planted faults (a
+     column × 1.01 fails on the budget, two jobs swapped on the KKT
+     rows); (d) ``examples/fleet_sweep.py`` on a one-card mesh:
+     ``plan_sharded`` (K = 1000 in chunks of 192),
+     ``simulate_ensemble_sharded`` (K = 256 in chunks of 60, with
+     arrivals and with a fault trace per workload, under √θ) and
+     ``plan_classes_sharded`` (K = 8, chunks of 3), each bit for bit
+     equal to its unsharded call on the card and held to the CPU; (e)
+     ``examples/batched_planning.py`` §3's admission control, card
+     against CPU (ΔJ 1e-9, the same admitted indices), the simulate
+     estimator (1e-6, bit for bit with and without a fleet mesh), a
+     deep queue (32 running, 255 candidates: 256 instances of 33 jobs),
+     mixed-model scoring over the ten configs' speedups, and the
+     watchdog in virtual time; no K1–K5 launch.  Rehearse on the CPU
+     with ``robust_phase(torch, np, torch.device("cpu"))`` (~160 s);
+     ``tools/phase14_count.py`` counts its device operations.
 
 Launch counters are reset before phases 3–4 drive the planning path,
-before phase 7 drives the serving path, before phases 11 and 13 and
+before phase 7 drives the serving path, before phases 11, 13 and 14 and
 before each float32 run of phase 12, and read right after each;
 the comparisons and timings come later and do not count.  Prints one
 JSON line per measurement, the kernel summary line ``{"kernels": [...]}``
@@ -1318,8 +1346,9 @@ def device_profile(torch, run):
 
 def hetero_phase(torch, np, dev):
     """Phase 11: the per-job planning path on ``dev``, held against the
-    same calls on the CPU (on a CPU ``dev``, a rehearsal: no profile).
-    Returns the launch counts of the phase, all of which must be 0."""
+    same calls on the CPU.  Returns the launch counts of the phase, all
+    of which must be 0, and the fleet's (workloads, orders, schedule)
+    for phase 14's certificates."""
     from repro_torch.core import (FAMILIES, sample_workloads,
                                   smartfill_hetero, smartfill_hetero_batched,
                                   smartfill_warm)
@@ -1383,14 +1412,6 @@ def hetero_phase(torch, np, dev):
           "fleet: J below J_linear·(1 − 1e-9)")
     check(fleet["largest_vs_single"] <= 1e-6,
           f"fleet: largest instance vs single {fleet['largest_vs_single']}")
-    if on_card:
-        wall, busy, n_dev, n_launch = device_profile(
-            torch, lambda: (fleet_on(wl), sync()))
-        check(busy > 0, "the fleet's profile saw no device work")
-        emit({"phase": "hetero_fleet_profile", "wall_s": wall,
-              "device_busy_s": busy, "busy_share": busy / wall,
-              "busy_share_of_unprofiled_wall": busy / fleet["wall_s"],
-              "device_kernels": n_dev, "kernel_launches": n_launch})
 
     # the exchange search, window 1 and 2, card against the CPU (the
     # heuristic order's plan, the yardstick, from the CPU)
@@ -1438,7 +1459,7 @@ def hetero_phase(torch, np, dev):
     launches = all_launches()
     check(not any(launches.values()),
           f"a kernel was launched in the per-job phase: {launches}")
-    return launches
+    return launches, (wl, orders, sched)
 
 
 # ---- 12. the scenario engine ------------------------------------------------
@@ -2017,6 +2038,497 @@ def classes_phase(torch, np, dev):
     return launches
 
 
+# ---- 14. the robustness layer, fleet planning at D = 1, admission -----------
+# Float64 throughout, so no K1–K5 launch.  (a) the certified ladder
+# (SmartFill → GWF-static → EQUI) on phase 12(b)'s plain fleet, bit for
+# bit equal to SmartFill alone, with its cost an event beside SmartFill's;
+# then degradation_report on four face-off instances of ≥ 6 live jobs,
+# card and CPU, all events on rung 0; (b) the same ladder with its
+# primary sabotaged (NaN, overspend, negative while more than four jobs
+# are active) over the face-off's 128 workloads, card against CPU, and
+# the rung counts of the four instances, which must show rung 1; (c)
+# certify_plan on phase 5's quickstart schedule and on the largest plan
+# of phase 11's per-job fleet, and two planted faults that must fail on
+# the field they break; (d) examples/fleet_sweep.py on a one-card mesh:
+# plan_sharded (1000 instances in chunks of 192), simulate_ensemble_sharded
+# (256 workloads in chunks of 60, with arrivals and with a fault trace
+# each, under √θ: see (d)) and
+# plan_classes_sharded (8 class instances in chunks of 3), each held bit
+# for bit to its unsharded call on the card and to the port's CPU run;
+# (e) examples/batched_planning.py §3's admission control on the card
+# against the CPU, the simulate estimator with and without a fleet mesh,
+# a deep queue (32 running, 255 candidates: 256 instances of 33 jobs in
+# one batched solve), mixed-model scoring over the ten configs' speedups,
+# and the watchdog in virtual time.
+ROBUST_RTOL = 1e-6        # card vs CPU, the engine's (phase 12)
+ADMIT_RTOL = 1e-9         # admission ΔJ, card vs CPU
+SWEEP_K, SWEEP_M, SWEEP_CHUNK = 1000, 16, 192
+ENS_K, ENS_M, ENS_CHUNK, ENS_SEED, ENS_FAULT_SEED = 256, 8, 60, 1, 2
+CLS_SEED, CLS_K, CLS_C, CLS_CHUNK = 7, 8, 8, 3
+QUEUE_R, QUEUE_C, QUEUE_SEED = 32, 255, 14
+SABOTAGE_MIN_ACTIVE = 4
+REPORT_N, REPORT_MIN_LIVE = 4, 6
+
+
+def timed_call(sync, run):
+    """(run(), wall s) of one call on the device, synchronised."""
+    t0 = time.perf_counter()
+    out = run()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+class VirtualClock:
+    """The watchdog's sleep and clock in virtual time."""
+
+    def __init__(self):
+        self.t = 0.0
+        self.sleeps = []
+
+    def sleep(self, s):
+        self.sleeps.append(s)
+        self.t += s
+
+    def clock(self):
+        return self.t
+
+
+def admission_example_candidates(np):
+    """examples/batched_planning.py §3's six candidates: its generator
+    (seed 0) after §1's fleet and §2's eight cluster fleets."""
+    rng = np.random.default_rng(0)
+    for m in rng.integers(2, 17, 256):
+        rng.uniform(0.5, 20.0, m)
+    for _ in range(8):
+        rng.uniform(50.0, 500.0, int(rng.integers(2, 7)))
+    return rng.uniform(0.5, 15.0, 6)
+
+
+def same_bits(torch, a, b, fields):
+    """Fields of two results that differ in any bit, with the largest
+    relative difference of each (empty when every field is equal)."""
+    out = {}
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f).to(getattr(a, f).device)
+        if not torch.equal(x, y):
+            d = (x.double() - y.double()).abs()
+            out[f] = float((d / y.double().abs().clamp_min(1e-300))
+                           .nan_to_num(0.0).max())
+    return out
+
+
+def robust_phase(torch, np, dev, quickstart=None, hetero_fleet=None):
+    """Phase 14 on ``dev``, held against the same calls on the CPU (on a
+    CPU ``dev``, a rehearsal: no profile, a one-device CPU mesh).
+    ``quickstart`` is phase 5's schedule and ``hetero_fleet`` phase 11's
+    (workloads, orders, schedule); without them the phase plans both
+    itself.  Returns the phase's kernel launches, all of which must be
+    0."""
+    import dataclasses
+
+    from repro_torch.core import (log_speedup, power, sample_class_workloads,
+                                  sample_fault_traces, sample_workloads,
+                                  simulate_ensemble, smartfill,
+                                  smartfill_batched, smartfill_hetero_batched,
+                                  plan_classes_batched, stack_speedups)
+    from repro_torch.core.speedup import map_leaves
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.distributed import (fleet_mesh, plan_classes_sharded,
+                                         plan_sharded,
+                                         simulate_ensemble_sharded)
+    from repro_torch.distributed.fleet import _chunk_layout
+    from repro_torch.robust import (DegradingPolicy, SaboteurPolicy,
+                                    Watchdog, certify_plan,
+                                    degradation_report)
+    from repro_torch.sched import EquiPolicy, HeSRPTPolicy, SmartFillPolicy
+    from repro_torch.sched.speedup_models import job_speedup
+    from repro_torch.serve import admission as adm
+
+    cpu = torch.device("cpu")
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    reset_all_launches()
+
+    def timed_run(run):
+        return timed_call(sync, run)
+
+    # ---- a. the ladder, healthy, at fleet size ----------------------------
+    fleet = sample_workloads(seed=FLEET_SEED, K=FLEET_K, M=FLEET_M, B=B,
+                             m_range=(16, FLEET_M))
+    sp_pow = power(1.0, 0.5, B, device=dev)
+    pols = {"SmartFill": SmartFillPolicy(sp_pow, B=B),
+            "ladder": DegradingPolicy.ladder(sp_pow, B=B)}
+    res, r = {}, {}
+    for name, pol in pols.items():
+        def run(pol=pol):
+            return simulate_ensemble(sp_pow, (pol,), fleet.X, fleet.W,
+                                     device=dev)
+        res[name], wall = timed_run(run)
+        steps = int(res[name].n_events.max())
+        r[name] = {"wall_s": wall, "steps": steps,
+                   "events": int(res[name].n_events.sum())}
+        if on_card:
+            wall_p, busy, n_dev, n_launch = device_profile(
+                torch, lambda run=run: (run(), sync()))
+            check(busy > 0, f"ladder {name}: the profile saw no device work")
+            r[name].update(profiled_wall_s=wall_p, device_busy_s=busy,
+                           busy_share=busy / wall_p,
+                           device_kernels=n_dev, kernel_launches=n_launch,
+                           kernels_per_step=n_dev / steps)
+    diff = same_bits(torch, res["ladder"], res["SmartFill"],
+                     ("J", "T", "n_events"))
+    r.update(K=FLEET_K, M=FLEET_M, speedup="power(1, 0.5)",
+             ladder_over_smartfill_wall=(r["ladder"]["wall_s"]
+                                         / r["SmartFill"]["wall_s"]),
+             bit_for_bit=not diff, differs=diff,
+             all_finished=bool(res["ladder"].finished.all()))
+    emit({"phase": "robust_ladder_healthy", **r})
+    check(not diff and r["all_finished"],
+          f"the healthy ladder is not SmartFill bit for bit: {diff}")
+
+    # the face-off instances (ln(1+θ)); four with ≥ REPORT_MIN_LIVE jobs
+    fo = sample_workloads(seed=FACEOFF_SEED, K=FACEOFF_K, M=FACEOFF_M, B=B,
+                          m_range=(3, FACEOFF_M))
+    picks = [int(k) for k in np.flatnonzero(fo.m >= REPORT_MIN_LIVE)
+             [:REPORT_N]]
+
+    def reports(lad_of, d):
+        sp = log_speedup(1.0, 1.0, B, device=d)
+        lad = lad_of(sp)
+        return [degradation_report(sp, fo.X[k], fo.W[k], lad, B=B)
+                for k in picks]
+
+    def healthy(sp):
+        return DegradingPolicy.ladder(sp, B=B)
+
+    (reps, wall) = timed_run(lambda: reports(healthy, dev))
+    reps_c = reports(healthy, cpu)
+    r = {"instances": picks, "live_jobs": [int(fo.m[k]) for k in picks],
+         "wall_s": wall,
+         "rung_counts": [rep["rung_counts"] for rep in reps],
+         "rung_counts_cpu": [rep["rung_counts"] for rep in reps_c],
+         "n_events": [rep["n_events"] for rep in reps]}
+    emit({"phase": "robust_report_healthy", **r})
+    check(all(rep["rung_counts"] == {0: rep["n_events"]}
+              for rep in reps + reps_c),
+          f"healthy degradation reports left rung 0: {r}")
+
+    # ---- b. the ladder under a sabotaged primary --------------------------
+    for mode in SaboteurPolicy.MODES:
+        def sabotaged(sp, mode=mode):
+            primary = SaboteurPolicy(SmartFillPolicy(sp, B=B), mode=mode,
+                                     min_active=SABOTAGE_MIN_ACTIVE)
+            return DegradingPolicy.ladder(sp, B=B, primary=primary)
+
+        def run(d, sabotaged=sabotaged):
+            sp = log_speedup(1.0, 1.0, B, device=d)
+            return simulate_ensemble(sp, (sabotaged(sp),), fo.X, fo.W,
+                                     device=d)
+
+        out, wall = timed_run(lambda: run(dev))
+        t0 = time.perf_counter()
+        out_c = run(cpu)
+        cpu_s = time.perf_counter() - t0
+        reps, rwall = timed_run(lambda: reports(sabotaged, dev))
+        reps_c = reports(sabotaged, cpu)
+        r = {"mode": mode, "min_active": SABOTAGE_MIN_ACTIVE,
+             "K": FACEOFF_K, "M": FACEOFF_M, "wall_s": wall,
+             "cpu_wall_s": cpu_s, **ensemble_vs_cpu(torch, out, out_c),
+             "report_wall_s": rwall,
+             "rung_counts": [rep["rung_counts"] for rep in reps],
+             "rung_counts_cpu": [rep["rung_counts"] for rep in reps_c]}
+        emit({"phase": "robust_sabotaged", **r})
+        check_vs_cpu(f"sabotaged ({mode})", r)
+        check(r["rung_counts"] == r["rung_counts_cpu"]
+              and all(c.get(1, 0) > 0 for c in r["rung_counts"]),
+              f"sabotaged ({mode}): rung counts card vs CPU, or no event "
+              f"on rung 1: {r}")
+
+    # ---- c. plan certificates ---------------------------------------------
+    sp_log = log_speedup(1.0, 1.0, B, device=dev)
+    if quickstart is None:
+        x8 = np.arange(8, 0, -1.0) * 2.0
+        quickstart = smartfill(sp_log, x8, 1.0 / x8, B=B)
+    if hetero_fleet is None:
+        from repro_torch.core import FAMILIES
+        wl = sample_workloads(HETERO_SEED, K=HETERO_N, M=HETERO_M,
+                              family=FAMILIES, per_job=True,
+                              m_range=(2, HETERO_M), B=B, device=dev)
+        n0 = int(np.argmax(wl.m))
+        one = map_leaves(wl.sp, lambda l: l[n0:n0 + 1])
+        orders, sched = smartfill_hetero_batched(
+            one, wl.X[n0:n0 + 1], wl.W[n0:n0 + 1], B=B,
+            active=wl.active[n0:n0 + 1])
+        row = 0
+    else:
+        wl, orders, sched = hetero_fleet
+        n0 = row = int(np.argmax(wl.m))
+    m0 = int(wl.m[n0])
+    o = torch.as_tensor(np.asarray(orders[row][:m0]), device=dev)
+    sp_rank = map_leaves(wl.sp, lambda l: l[n0][o])
+    inst = sched.instance(row)
+    per_job = dataclasses.replace(inst, theta=inst.theta[:m0, :m0],
+                                  c=inst.c[:m0], a=inst.a[:m0])
+    realized = abs(per_job.J - per_job.J_linear) / per_job.J <= 1e-9
+
+    def reading(cert, tol):
+        return {"ok": cert.ok, "finite": cert.finite, "budget": cert.budget,
+                "kkt": cert.kkt, "j_gap": cert.j_gap, "tol": tol}
+
+    tol = 1e-6
+    certs = {}
+    t0 = time.perf_counter()
+    certs["quickstart"] = reading(certify_plan(sp_log, quickstart, B=B,
+                                               tol=tol), tol)
+    certs["per_job_largest"] = reading(certify_plan(
+        sp_rank, per_job, B=B, tol=tol, check_j_gap=realized), tol)
+    certs["per_job_largest"].update(M=m0, realized=bool(realized))
+    th = quickstart.theta.clone()
+    th[:, 3] = th[:, 3] * 1.01
+    certs["fault_column_x1.01"] = reading(certify_plan(
+        sp_log, dataclasses.replace(quickstart, theta=th), B=B, tol=tol),
+        tol)
+    th = quickstart.theta.clone()
+    top = torch.argsort(th[:, -1], descending=True)[:2]   # two served jobs
+    th[top, -1] = th[top.flip(0), -1]
+    certs["fault_swap_two_jobs"] = reading(certify_plan(
+        sp_log, dataclasses.replace(quickstart, theta=th), B=B, tol=tol),
+        tol)
+    emit({"phase": "robust_certificates", "wall_s":
+          time.perf_counter() - t0, **certs})
+    check(certs["quickstart"]["ok"] and certs["per_job_largest"]["ok"],
+          f"a sound plan failed its certificate: {certs}")
+    bad = certs["fault_column_x1.01"]
+    check(not bad["ok"] and bad["budget"] > tol,
+          f"the scaled column must fail on the budget: {bad}")
+    bad = certs["fault_swap_two_jobs"]
+    check(not bad["ok"] and bad["budget"] <= tol
+          and max(bad["kkt"].values()) > tol,
+          f"the swapped allocations must fail on the KKT rows alone: {bad}")
+
+    # ---- d. fleet planning on a one-card mesh -----------------------------
+    mesh = fleet_mesh() if on_card else fleet_mesh(device="cpu")
+    check(mesh.size == 1, f"the fleet mesh is not one device: {mesh}")
+    sweep = sample_workloads(0, K=SWEEP_K, M=SWEEP_M, B=B, m_range=(4, 16))
+    fields = ("theta", "c", "a", "durations", "T", "J", "J_linear")
+    total, chunks, _ = _chunk_layout(SWEEP_K, 1, SWEEP_CHUNK)
+    sh, wall = timed_run(lambda: plan_sharded(
+        sp_log, sweep.X, sweep.W, B=B, mesh=mesh, chunk_size=SWEEP_CHUNK))
+    ref, ref_wall = timed_run(lambda: smartfill_batched(
+        sp_log, sweep.X, sweep.W, B=B))
+    sp_c = log_speedup(1.0, 1.0, B, device=cpu)
+    ref_c = smartfill_batched(sp_c, sweep.X, sweep.W, B=B)
+    diff = same_bits(torch, sh, ref, fields)
+    r = {"call": "plan_sharded", "K": SWEEP_K, "M": SWEEP_M,
+         "chunk_size": SWEEP_CHUNK, "chunks": chunks,
+         "padded": total - SWEEP_K, "wall_s": wall,
+         "unsharded_wall_s": ref_wall, "bit_for_bit": not diff,
+         "differs": diff,
+         "J_vs_cpu": float(((sh.J.cpu() - ref_c.J).abs()
+                            / ref_c.J.clamp_min(1e-300)).max()),
+         "rows_finite": bool(torch.isfinite(sh.theta).all())}
+    emit({"phase": "fleet_plan_sharded", **r})
+    check(not diff, f"plan_sharded vs smartfill_batched on the card: {r}")
+    check(r["J_vs_cpu"] <= 1e-9, f"plan_sharded vs the CPU: {r}")
+
+    ens = sample_workloads(ENS_SEED, K=ENS_K, M=ENS_M, B=B, m_range=(2, 8),
+                           arrival_rate=0.5)
+    traces = sample_fault_traces(ENS_FAULT_SEED, ENS_K, ENS_M, B=B,
+                                 horizon=4.0, preempt_rate=0.3,
+                                 fail_rate=0.2, straggle_rate=0.2)
+    total, chunks, _ = _chunk_layout(ENS_K, 1, ENS_CHUNK)
+    for name, extra in (("arrivals", {"arrival": ens.arrival}),
+                        ("faults", {"faults": traces})):
+        def zoo(d):
+            # √θ, not the example's ln(1+θ): SmartFill's generic-μ*
+            # re-plan costs ~0.45 s an event on the card, its closed-form
+            # μ* (a pure power) ~0.06 s; six event loops a run (five
+            # chunks and the unsharded call) made these two calls 95 s
+            sp = power(1.0, 0.5, B, device=d)
+            return sp, (SmartFillPolicy(sp, B=B), HeSRPTPolicy(0.5, B),
+                        EquiPolicy(B))
+
+        sp_d, zoo_d = zoo(dev)
+        sh, wall = timed_run(lambda: simulate_ensemble_sharded(
+            sp_d, zoo_d, ens.X, ens.W, B=B, mesh=mesh,
+            chunk_size=ENS_CHUNK, **extra))
+        ref, ref_wall = timed_run(lambda: simulate_ensemble(
+            sp_d, zoo_d, ens.X, ens.W, B=B, device=dev, **extra))
+        sp_cc, zoo_c = zoo(cpu)
+        ref_c = simulate_ensemble(sp_cc, zoo_c, ens.X, ens.W, B=B,
+                                  device=cpu, **extra)
+        diff = same_bits(torch, sh, ref,
+                         ("J", "T", "finished", "n_events", "exhausted"))
+        r = {"call": "simulate_ensemble_sharded", "run": name, "K": ENS_K,
+             "M": ENS_M, "P": 3, "speedup": "power(1, 0.5)",
+             "chunk_size": ENS_CHUNK, "chunks": chunks,
+             "padded": total - ENS_K, "wall_s": wall,
+             "unsharded_wall_s": ref_wall, "bit_for_bit": not diff,
+             "differs": diff, **ensemble_vs_cpu(torch, sh, ref_c)}
+        emit({"phase": "fleet_ensemble_sharded", **r})
+        check(not diff, f"simulate_ensemble_sharded ({name}) vs "
+              f"simulate_ensemble on the card: {r}")
+        check_vs_cpu(f"simulate_ensemble_sharded ({name})", r)
+
+    def classes(d):
+        return sample_class_workloads(CLS_SEED, K=CLS_K, C=CLS_C, B=B,
+                                      count_range=(0, 50_000), device=d)
+
+    cw = classes(dev)
+    total, chunks, _ = _chunk_layout(CLS_K, 1, CLS_CHUNK)
+    (o_sh, sh), wall = timed_run(lambda: plan_classes_sharded(
+        cw.counts, cw.sizes, cw.weights, cw.sp, B=B, mesh=mesh,
+        chunk_size=CLS_CHUNK))
+    (o_ref, ref), ref_wall = timed_run(lambda: plan_classes_batched(
+        cw.counts, cw.sizes, cw.weights, cw.sp, B=B))
+    cwc = classes(cpu)
+    o_c, ref_c = plan_classes_batched(cwc.counts, cwc.sizes, cwc.weights,
+                                      cwc.sp, B=B)
+    diff = same_bits(torch, sh, ref, fields)
+    r = {"call": "plan_classes_sharded", "K": CLS_K, "C": CLS_C,
+         "chunk_size": CLS_CHUNK, "chunks": chunks, "padded": total - CLS_K,
+         "wall_s": wall, "unsharded_wall_s": ref_wall,
+         "orders_equal": bool(np.array_equal(o_sh, o_ref)),
+         "orders_equal_cpu": bool(np.array_equal(o_sh, o_c)),
+         "bit_for_bit": not diff, "differs": diff,
+         "J_vs_cpu": float(((sh.J.cpu() - ref_c.J).abs()
+                            / ref_c.J.clamp_min(1e-300)).max())}
+    emit({"phase": "fleet_classes_sharded", **r})
+    check(r["orders_equal"] and not diff,
+          f"plan_classes_sharded vs plan_classes_batched on the card: {r}")
+
+    # ---- e. admission control ---------------------------------------------
+    running = np.array([9.0, 6.0, 3.0])
+    cands = admission_example_candidates(np)
+    args = (running, 1.0 / running, cands, 1.0 / cands)
+    ac = adm.AdmissionController(sp_log, B)
+    ac_c = adm.AdmissionController(sp_c, B)
+    dec, wall = timed_run(lambda: ac.evaluate(*args))
+    dec_c = ac_c.evaluate(*args)
+    best = ac.admit_best(*args, k=2)
+    best_c = ac_c.admit_best(*args, k=2)
+    rel = float(np.max(np.abs(dec.marginal_cost - dec_c.marginal_cost)
+                       / np.abs(dec_c.marginal_cost)))
+    r = {"running": running.tolist(), "candidates": cands.tolist(),
+         "wall_s": wall, "baseline_J": dec.baseline_J,
+         "marginal_cost": dec.marginal_cost.tolist(),
+         "admit_best_2": best.tolist(), "admit_best_2_cpu": best_c.tolist(),
+         "dJ_vs_cpu": rel, "limit": ADMIT_RTOL}
+    emit({"phase": "admission_example", **r})
+    check(rel <= ADMIT_RTOL and np.array_equal(best, best_c)
+          and np.array_equal(dec.admit, dec_c.admit),
+          f"admission card vs CPU: {r}")
+
+    ac_s = adm.AdmissionController(sp_log, B, estimator="simulate")
+    sim, wall = timed_run(lambda: ac_s.evaluate(*args))
+    with fleet_mesh() if on_card else fleet_mesh(device="cpu"):
+        sim_mesh, mesh_wall = timed_run(lambda: ac_s.evaluate(*args))
+    r = {"wall_s": wall, "mesh_wall_s": mesh_wall,
+         "simulate_vs_plan": float(np.max(
+             np.abs(sim.marginal_cost - dec.marginal_cost)
+             / np.abs(dec.marginal_cost))),
+         "mesh_bit_for_bit": bool(np.array_equal(sim.marginal_cost,
+                                                 sim_mesh.marginal_cost)
+                                  and sim.baseline_J == sim_mesh.baseline_J),
+         "limit": ROBUST_RTOL}
+    emit({"phase": "admission_simulate", **r})
+    check(r["simulate_vs_plan"] <= ROBUST_RTOL and r["mesh_bit_for_bit"],
+          f"admission simulate estimator: {r}")
+
+    rng = np.random.default_rng(QUEUE_SEED)
+    q_run = rng.uniform(0.5, 20.0, QUEUE_R)
+    q_cand = rng.uniform(0.5, 20.0, QUEUE_C)
+    q_args = (q_run, 1.0 / q_run, q_cand, 1.0 / q_cand)
+    qd, wall = timed_run(lambda: ac.evaluate(*q_args))
+    t0 = time.perf_counter()
+    qd_c = ac_c.evaluate(*q_args)
+    r = {"running": QUEUE_R, "candidates": QUEUE_C,
+         "instances": QUEUE_C + 1, "M": QUEUE_R + 1, "wall_s": wall,
+         "cpu_wall_s": time.perf_counter() - t0,
+         "dJ_vs_cpu": float(np.max(np.abs(qd.marginal_cost
+                                          - qd_c.marginal_cost)
+                                   / np.abs(qd_c.marginal_cost))),
+         "admitted_equal": bool(np.array_equal(qd.admit, qd_c.admit)),
+         "limit": ADMIT_RTOL}
+    emit({"phase": "admission_deep_queue", **r})
+    check(r["dJ_vs_cpu"] <= ADMIT_RTOL and r["admitted_equal"],
+          f"deep admission queue card vs CPU: {r}")
+
+    names = sorted(list_archs())
+
+    def models(d):
+        return [job_speedup(
+            step_flops=6.0 * get_config(a).active_param_count() * POD_TOKENS,
+            grad_bytes=2.0 * get_config(a).param_count(),
+            tokens_per_step=POD_TOKENS, B=POD_GPUS, device=d) for a in names]
+
+    def mixed(d):
+        sps = models(d)
+        x = np.random.default_rng(0).uniform(2, 15, len(names)) * 1e9
+        rate = stack_speedups(sps, B=POD_GPUS).s(torch.full(
+            (len(names),), POD_GPUS, dtype=torch.float64,
+            device=d)).cpu().numpy()
+        w = rate / x
+        ctl = adm.AdmissionController(sps[0], B=POD_GPUS)
+        return ctl.evaluate(x[:4], w[:4], x[4:], w[4:],
+                            running_speedups=sps[:4],
+                            cand_speedups=sps[4:])
+
+    md, wall = timed_run(lambda: mixed(dev))
+    md_c = mixed(cpu)
+    r = {"running": names[:4], "candidates": names[4:], "wall_s": wall,
+         "marginal_cost": md.marginal_cost.tolist(),
+         "dJ_vs_cpu": float(np.max(np.abs(md.marginal_cost
+                                          - md_c.marginal_cost)
+                                   / np.abs(md_c.marginal_cost))),
+         "limit": ADMIT_RTOL}
+    emit({"phase": "admission_mixed_models", **r})
+    check(r["dJ_vs_cpu"] <= ADMIT_RTOL
+          and bool(np.isfinite(md.marginal_cost).all()),
+          f"mixed-model admission card vs CPU: {r}")
+
+    # the watchdog: a score that raises twice, then one that returns NaN
+    real = adm.smartfill_batched
+    calls = {"n": 0}
+
+    def flaky(*a, **k):
+        calls["n"] += 1
+        if calls["n"] <= 2:
+            raise RuntimeError("injected fault")
+        return real(*a, **k)
+
+    def poisoned(*a, **k):
+        out = real(*a, **k)
+        return dataclasses.replace(out, J=torch.full_like(out.J, torch.nan))
+
+    r = {}
+    for name, score in (("raises_twice", flaky), ("returns_nan", poisoned)):
+        vc = VirtualClock()
+        wd = Watchdog(retries=3, backoff_s=0.05, jitter=0.1, seed=0,
+                      sleep=vc.sleep, clock=vc.clock)
+        with mock.patch.object(adm, "smartfill_batched", score):
+            d = adm.AdmissionController(sp_log, B, watchdog=wd).evaluate(
+                *args)
+        r[name] = {"status": d.status, "admit": d.admit.tolist(),
+                   "stats": wd.stats, "sleeps": vc.sleeps,
+                   "undisturbed": bool(np.array_equal(d.marginal_cost,
+                                                      dec.marginal_cost))}
+    emit({"phase": "admission_watchdog", **r})
+    check(r["raises_twice"]["status"] == "ok"
+          and r["raises_twice"]["undisturbed"]
+          and r["raises_twice"]["stats"]["failures"] == 2,
+          f"watchdog: a score that raised twice {r['raises_twice']}")
+    nan = r["returns_nan"]
+    check(nan["status"].startswith("degraded:") and not any(nan["admit"])
+          and nan["stats"]["rejections"] == 4,
+          f"watchdog: a score that returns NaN {nan}")
+
+    launches = all_launches()
+    check(not any(launches.values()),
+          f"a kernel was launched in the robustness phase: {launches}")
+    return launches
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -2353,7 +2865,7 @@ def main():
 
     # ---- 11. per-job SmartFill (§7), float64, counted -----------------------
     t0 = time.perf_counter()
-    launches11 = hetero_phase(torch, np, dev)
+    launches11, hetero_fleet = hetero_phase(torch, np, dev)
     emit({"phase": "hetero_planning", "launches": launches11,
           "wall_s": time.perf_counter() - t0})
 
@@ -2370,6 +2882,13 @@ def main():
     t0 = time.perf_counter()
     launches13 = classes_phase(torch, np, dev)
     emit({"phase": "classes", "launches": launches13,
+          "wall_s": time.perf_counter() - t0})
+
+    # ---- 14. robustness, fleet planning at D = 1, admission, float64 -------
+    t0 = time.perf_counter()
+    launches14 = robust_phase(torch, np, dev, quickstart=sched,
+                              hetero_fleet=hetero_fleet)
+    emit({"phase": "robust", "launches": launches14,
           "wall_s": time.perf_counter() - t0})
 
     print(json.dumps({"kernels": kernels}), flush=True)

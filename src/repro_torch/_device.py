@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "as_tensor", "stops_early"]
+__all__ = ["resolve_device", "as_tensor", "stops_early", "vpow"]
 
 
 def resolve_device(device=None, *inputs) -> torch.device:
@@ -66,3 +66,37 @@ def stops_early(frozen: torch.Tensor, sync: bool = False) -> bool:
     if frozen.device.type != "cpu" and not sync:
         return False
     return bool(frozen.all())
+
+
+# The CPU's elementwise loops run vector lanes over whole blocks of
+# contiguous elements and a scalar loop over the rest; for pow the two
+# round differently (last bits), so an element's result would depend on
+# where it sits in the tensor — on the batch it was solved in.  Operands
+# with a stride of two elements never take the vector lanes: every
+# element then goes through the scalar pow.
+
+
+def _spaced(t):
+    """``t``'s values in a view whose last stride is two elements."""
+    buf = torch.empty(t.shape + (2,), dtype=t.dtype, device=t.device)
+    buf[..., 0] = t
+    return buf[..., 0]
+
+
+def vpow(base, exponent):
+    """``base ** exponent``, elementwise, with each element's bits
+    independent of its position in the tensor (and so of the batch).
+
+    On CUDA (one thread an element) this is the plain operator; on the
+    CPU every element takes the scalar pow (see the note above).  The
+    result has the plain operator's dtype.
+    """
+    like = base if isinstance(base, torch.Tensor) else exponent
+    if like.device.type != "cpu":
+        return base ** exponent
+    if not isinstance(exponent, torch.Tensor):
+        return _spaced(base) ** exponent
+    dt = torch.result_type(base, exponent)
+    base = torch.as_tensor(base, dtype=dt)
+    base, exponent = torch.broadcast_tensors(base, exponent.to(dt))
+    return _spaced(base) ** _spaced(exponent)

@@ -62,15 +62,17 @@ def batch_axes(sp, K: int) -> dict:
 
 def _leaf_shapes(obj):
     """Shapes of the numeric leaves of a speedup or of an object (a
-    policy) whose ``LEAVES`` name speedups, tensors, arrays or scalars."""
+    policy) whose ``LEAVES`` name speedups, tensors, arrays, scalars,
+    nested policies or tuples of them (a ladder's rungs)."""
     for name in obj.LEAVES:
         v = getattr(obj, name)
-        if v is None:
-            continue
-        if hasattr(v, "LEAVES"):
-            yield from _leaf_shapes(v)
-        else:
-            yield tuple(v.shape) if hasattr(v, "shape") else np.shape(v)
+        for x in (v if isinstance(v, tuple) else (v,)):
+            if x is None:
+                continue
+            if hasattr(x, "LEAVES"):
+                yield from _leaf_shapes(x)
+            else:
+                yield tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
 
 
 def check_axes_unambiguous(sp, K: int, M: int, what: str) -> None:

@@ -42,7 +42,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .._device import as_tensor, resolve_device
+from .._device import as_tensor, resolve_device, vpow
 from .smartfill import (HeteroSmartFillSchedule, _host, _on,
                         _permute_speedup, smartfill_hetero)
 from .speedup import (RegularSpeedup, Speedup, StackedSpeedup, is_per_job,
@@ -179,7 +179,7 @@ def class_speedup(sp: Speedup, counts) -> Speedup:
     counts = as_tensor(counts, sp.device, torch.float64)
     n = torch.where(counts > 0, counts, 1.0)
     gamma = torch.broadcast_to(sp.gamma.to(n.dtype), n.shape)
-    A = sp.A.to(n.dtype) * n ** (-gamma)
+    A = sp.A.to(n.dtype) * vpow(n, -gamma)
     w = sp.w.to(n.dtype) * n
     if isinstance(sp, RegularSpeedup):
         return RegularSpeedup(A=A, w=w, gamma=gamma, sigma=sp.sigma, B=sp.B)

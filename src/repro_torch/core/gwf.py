@@ -47,7 +47,7 @@ import typing
 
 import torch
 
-from .._device import as_tensor, resolve_device, stops_early
+from .._device import as_tensor, resolve_device, stops_early, vpow
 from .speedup import (RegularSpeedup, Speedup, StackedSpeedup, inner_per_job,
                       is_per_job, leaves, map_leaves, per_instance)
 
@@ -391,16 +391,17 @@ def _hetero_coeffs(A, w, gamma, sigma, c, act):
     """(P, E, Q) of the uncapped curve plus λ_act per job (0 inactive)."""
     c_safe = torch.where(act, c, 1.0)
     E = 1.0 / gamma
-    P = sigma * (c_safe / A) ** E
+    P = sigma * vpow(c_safe / A, E)
     Q = sigma * w
-    ds0 = torch.where(w > 0, A * torch.clamp_min(w, 1e-300) ** gamma, _INF)
+    ds0 = torch.where(w > 0, A * vpow(torch.clamp_min(w, 1e-300), gamma),
+                      _INF)
     lam_act = torch.where(act, ds0 / c_safe, 0.0)
     return P, E, Q, lam_act
 
 
 def _beta_tilde(P, E, Q, act, lam):
     """Uncapped fill curve β̃(λ) = Σ_act max(P λ^E − Q, 0); lam (...)."""
-    term = P * lam[..., None] ** E - Q
+    term = P * vpow(lam[..., None], E) - Q
     return torch.where(act, torch.clamp_min(term, 0.0), 0.0).sum(-1)
 
 
@@ -439,13 +440,13 @@ def hetero_breakpoints_insert(sp: Speedup, c, k: int, bp_lam, bp_val,
 
     c_k = torch.clamp_min(c[..., k], 1e-300)
     E_k, A_k, w_k, s_k = E[..., k], A[..., k], w[..., k], sigma[..., k]
-    P_k = s_k * (c_k / A_k) ** E_k
+    P_k = s_k * vpow(c_k / A_k, E_k)
     Q_k = s_k * w_k
-    ds0_k = torch.where(w_k > 0, A_k * torch.clamp_min(w_k, 1e-300)
-                        ** gamma[..., k], _INF)
+    ds0_k = torch.where(w_k > 0, A_k * vpow(torch.clamp_min(w_k, 1e-300),
+                                            gamma[..., k]), _INF)
     lam_k = ds0_k / c_k
 
-    g = torch.clamp_min(P_k[..., None] * bp_lam ** E_k[..., None]
+    g = torch.clamp_min(P_k[..., None] * vpow(bp_lam, E_k[..., None])
                         - Q_k[..., None], 0.0)
     val_k = _beta_tilde(P, E, Q, prev, lam_k)
     here = idx == k
@@ -460,7 +461,7 @@ def _hetero_prepare(sp, c, active, breakpoints=None):
     A, w, gamma, sigma = _hetero_leaves(sp, c)
     P, E, Q, lam_act = _hetero_coeffs(A, w, gamma, sigma, c, active)
     if breakpoints is None:
-        term = (P[..., None, :] * lam_act[..., :, None] ** E[..., None, :]
+        term = (P[..., None, :] * vpow(lam_act[..., :, None], E[..., None, :])
                 - Q[..., None, :])                      # (..., λ, job)
         curve = torch.where(active[..., None, :], torch.clamp_min(term, 0.0),
                             0.0).sum(-1)
@@ -496,13 +497,14 @@ def _safe_lam_bounds(prep, b_lo, b_hi):
     act, c = prep.act, prep.c
     M = c.shape[-1]
     c_safe = torch.where(act, c, 1.0)
-    ds_b = prep.A * torch.clamp_min(prep.w + prep.sigma * b_hi,
-                                    1e-300) ** prep.gamma
+    ds_b = prep.A * vpow(torch.clamp_min(prep.w + prep.sigma * b_hi,
+                                         1e-300), prep.gamma)
     eps = b_lo / (8.0 * M)
     ds0 = torch.where(prep.w > 0,
-                      prep.A * torch.clamp_min(prep.w, 1e-300) ** prep.gamma,
+                      prep.A * vpow(torch.clamp_min(prep.w, 1e-300),
+                                    prep.gamma),
                       _INF)
-    ds_top = torch.where(prep.w > 0, ds0, prep.A * eps ** prep.gamma)
+    ds_top = torch.where(prep.w > 0, ds0, prep.A * vpow(eps, prep.gamma))
     lam_lo_s = torch.where(act, ds_b / c_safe, _INF).amin(-1)
     lam_hi_s = torch.where(act, ds_top / c_safe, -_INF).amax(-1) * (1 + 1e-9)
     good = (torch.isfinite(lam_lo_s) & (lam_lo_s > 0)

@@ -63,7 +63,7 @@ import itertools
 import numpy as np
 import torch
 
-from .._device import as_tensor, resolve_device, stops_early
+from .._device import as_tensor, resolve_device, stops_early, vpow
 from .gwf import (HeteroPrep, _hetero_prepare, hetero_approx,
                   hetero_breakpoints_init, hetero_breakpoints_insert,
                   hetero_solve, solve_cap, solve_cap_generic,
@@ -154,7 +154,7 @@ def _linspace(start, stop, num):
 
 def _geomspace(start, stop, num):
     """Per-row geomspace for positive bounds, as 10^linspace(log10)."""
-    return 10.0 ** _linspace(torch.log10(start), torch.log10(stop), num)
+    return vpow(10.0, _linspace(torch.log10(start), torch.log10(stop), num))
 
 
 # Below this many jobs the per-job μ-localization grid is priced with
@@ -421,7 +421,7 @@ def _minimize_f(F, B, coarse, descent_iters):
 
 
 def _minimize_f_hinted(F_grid, F_chain, F_desc, B, coarse, descent_iters,
-                       hint0, stol_rel=3e-7, window=5):
+                       hint0, stol_rel=3e-7, window=5, live=None):
     """``_minimize_f`` for the sorted per-job CAP, per instance.
 
     The localization grid is priced by ``F_grid``; a ``window``-point
@@ -434,8 +434,11 @@ def _minimize_f_hinted(F_grid, F_chain, F_desc, B, coarse, descent_iters,
     than ``stol_rel``·span (at most ``descent_iters`` steps).  A
     non-contracting or concave parabola falls back to the golden step
     into the larger sub-interval.  Each row stops at its own exit and
-    keeps its state from then on.  Returns ``(μ*, F(μ*), λ_last)``
-    per instance; the caller seeds the final CAP solve with ``λ_last``.
+    keeps its state from then on; rows where ``live`` is False (an
+    iteration past their job count, a padded instance) count as stopped
+    from the start: the caller discards their μ.  Returns ``(μ*, F(μ*),
+    λ_last)`` per instance; the caller seeds the final CAP solve with
+    ``λ_last``.
     """
     dtype = B.dtype
     lo = _mu_floor(B, dtype)
@@ -475,7 +478,7 @@ def _minimize_f_hinted(F_grid, F_chain, F_desc, B, coarse, descent_iters,
     span0 = xb - xa
     tol = min(4e-9, stol_rel) * span0
     stol = stol_rel * span0
-    done = torch.zeros_like(ok)
+    done = torch.zeros_like(ok) if live is None else ~live
     for _ in range(descent_iters):
         run = (xb - xa > tol) & ~done
         if stops_early(~run):
@@ -621,7 +624,7 @@ def _solve(sp, x, w, B, m, coarse, descent_iters, cap_iters, fast,
                      else lam0[:, k])
             mu, _, lam_mz = _minimize_f_hinted(
                 *probes[:3], B, coarse_eff, descent_iters, hint0,
-                stol_rel=stol_eff, window=window)
+                stol_rel=stol_eff, window=window, live=live)
             th_rest, lam_k = probes[3](mu, lam_mz)
         else:
             F, cap = _make_f(ln, c, a, k, W, B, warm, cap_iters)
@@ -630,8 +633,8 @@ def _solve(sp, x, w, B, m, coarse, descent_iters, cap_iters, fast,
                 # clamped to the minimizer's domain: a zero-weight live
                 # job gives μ = 0
                 mexp = -1.0 / ln.job(k).gamma
-                Wk = Wc[:, k] ** mexp
-                Wk1 = Wc[:, k - 1] ** mexp
+                Wk = vpow(Wc[:, k], mexp)
+                Wk1 = vpow(Wc[:, k - 1], mexp)
                 mu = B * (Wk - Wk1) / torch.clamp_min(Wk, 1e-300)
                 mu = torch.minimum(torch.maximum(mu, _mu_floor(B, dt)), B)
             else:

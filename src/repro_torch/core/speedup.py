@@ -37,7 +37,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .._device import as_tensor, resolve_device, stops_early
+from .._device import as_tensor, resolve_device, stops_early, vpow
 
 __all__ = [
     "Speedup",
@@ -116,7 +116,7 @@ class Speedup:
 
 def _regular_ds(A, w, gamma, sigma, theta):
     """s'(θ) = A (w + σθ)^γ, elementwise in every parameter."""
-    return A * (w + sigma * theta) ** gamma
+    return A * vpow(w + sigma * theta, gamma)
 
 
 def _regular_s(A, w, gamma, sigma, theta):
@@ -133,13 +133,14 @@ def _regular_s(A, w, gamma, sigma, theta):
     log_branch = (A / sigma) * (torch.log(base) - torch.log(w_safe))
     is_log = torch.abs(g1) < 1e-12
     safe_g1 = torch.where(is_log, torch.ones_like(g1), g1)
-    pow_branch = (A / (sigma * safe_g1)) * (base ** safe_g1 - w ** safe_g1)
+    pow_branch = (A / (sigma * safe_g1)) * (vpow(base, safe_g1)
+                                            - vpow(w, safe_g1))
     return torch.where(is_log, log_branch, pow_branch)
 
 
 def _regular_ds_inv(A, w, gamma, sigma, y):
     """Inverse of ``_regular_ds``: θ = σ((y/A)^{1/γ} − w), elementwise."""
-    return sigma * ((y / A) ** (1.0 / gamma) - w)
+    return sigma * (vpow(y / A, 1.0 / gamma) - w)
 
 
 def _validate_log_family(w, gamma) -> None:
@@ -186,14 +187,15 @@ class RegularSpeedup(Speedup):
         if self.sigma == +1:
             # γ<0: s'(0) = A·w^γ = +inf when w == 0.
             return torch.where(
-                self.w > 0, self.A * torch.clamp_min(self.w, 1e-300)
-                ** self.gamma, torch.full_like(self.A, torch.inf))
-        return self.A * self.w ** self.gamma
+                self.w > 0, self.A * vpow(torch.clamp_min(self.w, 1e-300),
+                                          self.gamma),
+                torch.full_like(self.A, torch.inf))
+        return self.A * vpow(self.w, self.gamma)
 
     # GWF rectangle-bottle geometry (paper §4.3/4.5.1)
     def bottle_width(self, c):
         """u_i = c_i^{1/γ}."""
-        return c ** (1.0 / self.gamma)
+        return vpow(c, 1.0 / self.gamma)
 
     def bottle_bottom(self, c):
         """h_i = σ·w / u_i."""
@@ -237,8 +239,9 @@ class StackedSpeedup(Speedup):
         # σ=+1, γ<0, w=0 (pure power): s'(0) = +∞; the σ=−1 saturating
         # family always has w = z ≥ B > 0, so the finite branch covers it.
         return torch.where(
-            self.w > 0, self.A * torch.clamp_min(self.w, 1e-300)
-            ** self.gamma, torch.full_like(self.A, torch.inf))
+            self.w > 0, self.A * vpow(torch.clamp_min(self.w, 1e-300),
+                                      self.gamma),
+            torch.full_like(self.A, torch.inf))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -113,12 +113,16 @@ def rglru_apply(m: RGLRU, x, cfg):
 def rglru_prefill(m: RGLRU, x, cfg, cache_dtype=torch.bfloat16):
     """``rglru_apply`` and the decode state after S tokens, from one scan:
     h_S is the scan's last step (f32) and the conv window holds the last
-    conv−1 *pre-conv* inputs, in ``cache_dtype``."""
+    conv−1 *pre-conv* inputs, in ``cache_dtype``.  A prompt shorter than
+    the window leaves zero rows in front of it: the zeros the cache-free
+    forward's causal conv sees before the first token."""
     h, z, xb = _scan(m, x)
     y = (h.to(x.dtype) * F.gelu(z, approximate="tanh")) @ m.out
     K = m.conv_w.shape[0]
-    state = {"h": h[:, -1].clone(),
-             "conv": xb[:, -(K - 1):].to(cache_dtype)}
+    S = xb.shape[1]
+    tail = xb[:, max(S - (K - 1), 0):]
+    tail = F.pad(tail, (0, 0, K - 1 - tail.shape[1], 0))
+    state = {"h": h[:, -1].clone(), "conv": tail.to(cache_dtype)}
     return y, state
 
 

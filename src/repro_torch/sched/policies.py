@@ -64,13 +64,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from .._device import as_tensor, resolve_device
+from .._device import as_tensor, resolve_device, vpow
 from ..core.classes import aggregate_classes, plan_classes
 from ..core.gwf import solve_cap_batched
 from ..core.simulator import lane_budget
 from ..core.smartfill import _host, _is_pure_power, _solve
 from ..core.speedup import (RegularSpeedup, Speedup, StackedSpeedup,
-                            inner_per_job, leaves, map_leaves, per_instance)
+                            inner_per_job, map_leaves, per_instance)
 
 __all__ = [
     "Policy",
@@ -146,6 +146,13 @@ class Policy:
 
     def __call__(self, rem, w, active, B=None):
         """Allocations for (K, M) (or one (M,)) workload state."""
+        rem, w, active, b, one = self._state(rem, w, active, B)
+        th = self._allocate(rem, w, active, b, moved=B is not None)
+        return th[0] if one else th
+
+    def _state(self, rem, w, active, B):
+        """The call's state as (K, M) tensors on one device, its (K,)
+        budget, and whether it was one (M,) workload."""
         if isinstance(rem, torch.Tensor):
             dev = rem.device
         else:
@@ -156,21 +163,25 @@ class Policy:
         one = rem.ndim == 1
         if one:
             rem, w, active = rem[None], w[None], active[None]
-        K = rem.shape[0]
-        b = lane_budget(self.B if B is None else B, K, rem)
-        th = self._allocate(rem, w, active, b, moved=B is not None)
-        return th[0] if one else th
+        b = lane_budget(self.B if B is None else B, rem.shape[0], rem)
+        return rem, w, active, b, one
 
     def _allocate(self, rem, w, active, b, moved):
         raise NotImplementedError
 
     def _tensor_leaves(self):
-        for name in self.LEAVES:
-            v = getattr(self, name)
-            if isinstance(v, Speedup):
-                yield from leaves(v)
-            elif isinstance(v, torch.Tensor):
-                yield v
+        found = []
+        self.map_leaves(lambda v: found.append(v) or v)
+        return [v for v in found if isinstance(v, torch.Tensor)]
+
+    def map_leaves(self, fn):
+        """A copy with ``fn`` applied to every numeric leaf: the values
+        named in ``LEAVES`` (scalars, arrays, tensors), the leaves of a
+        speedup among them, and those of nested policies (a ladder's
+        rungs, a wrapped policy), in one fixed order."""
+        new = {name: _map_value(getattr(self, name), fn)
+               for name in self.LEAVES if getattr(self, name) is not None}
+        return dataclasses.replace(self, **new)
 
     def _leaf(self, name, like):
         """Leaf ``name`` as a tensor in ``like``'s dtype and device."""
@@ -182,19 +193,20 @@ class Policy:
 
     def bind(self, device, dtype=torch.float64):
         """A copy whose numeric leaves are ``dtype`` tensors on ``device``
-        (speedup leaves included)."""
+        (speedup leaves and nested policies included)."""
         dev = torch.device(device)
-        new = {}
-        for name in self.LEAVES:
-            v = getattr(self, name)
-            if v is None:
-                continue
-            if isinstance(v, Speedup):
-                new[name] = map_leaves(v, lambda l: l.to(device=dev,
-                                                         dtype=dtype))
-            else:
-                new[name] = as_tensor(v, dev, dtype)
-        return dataclasses.replace(self, **new)
+        return self.map_leaves(lambda v: as_tensor(v, dev, dtype))
+
+
+def _map_value(v, fn):
+    """``fn`` over the numeric leaves of one ``LEAVES`` value."""
+    if isinstance(v, Policy):
+        return v.map_leaves(fn)
+    if isinstance(v, tuple):
+        return tuple(_map_value(x, fn) for x in v)
+    if isinstance(v, Speedup):
+        return map_leaves(v, fn)
+    return fn(v)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,7 +255,7 @@ class HeSRPTPolicy(Policy):
         ws = ws / torch.clamp_min(ws.amax(-1, keepdim=True), _TINY)
         m = active.sum(-1)
         mexp = 1.0 / (1.0 - _per_lane(self._leaf("p", rem), K))
-        Wm = torch.clamp_min(torch.cumsum(ws, -1), 0.0) ** mexp
+        Wm = vpow(torch.clamp_min(torch.cumsum(ws, -1), 0.0), mexp)
         Wm_prev = torch.cat([torch.zeros_like(Wm[:, :1]), Wm[:, :-1]], -1)
         Wk = Wm.gather(1, torch.clamp_min(m - 1, 0)[:, None])
         shares = b[:, None] * (Wm - Wm_prev) / torch.clamp_min(Wk, _TINY)

@@ -178,6 +178,27 @@ def test_local_rings_decode_past_max_len():
     assert st["pos"] == toks.shape[1]
 
 
+@pytest.mark.parametrize("S", [1, 2])
+def test_rglru_decode_after_a_short_prompt(S):
+    """A prompt shorter than the RG-LRU conv window (S < conv − 1) keeps
+    a window left-padded with zeros, the rows the cache-free forward's
+    causal conv sees before the first token: prefill and the decode
+    steps after it agree with that forward."""
+    model = PM.init_params(PC.get_config("recurrentgemma-2b", smoke=True),
+                           torch.Generator().manual_seed(0), device="cpu")
+    assert S < model.cfg.ssm_conv - 1
+    toks = np.random.default_rng(11).integers(
+        0, model.cfg.vocab, (B, S + 6)).astype(np.int32)
+    full = model(toks)
+    lp, st = PM.prefill(model, {"tokens": toks[:, :S]}, max_len=32,
+                        cache_dtype=torch.float32)
+    torch.testing.assert_close(lp, full[:, S - 1], atol=2e-4, rtol=1e-3)
+    for t in range(S, toks.shape[1]):
+        lp, st = PM.decode_step(model, toks[:, t:t + 1], st)
+        torch.testing.assert_close(lp, full[:, t], atol=2e-4, rtol=1e-3)
+    assert st["pos"] == toks.shape[1]
+
+
 @pytest.mark.parametrize("temperature", [0.0, 1.0])
 def test_generate_is_deterministic_for_a_seed(temperature):
     model = PM.init_params(PC.get_config("recurrentgemma-2b", smoke=True),
