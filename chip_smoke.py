@@ -113,7 +113,7 @@ Phases (each one is a check; any failure exits non-zero):
      lines): (a) the ladder SmartFill → GWF-static → EQUI on 12(b)'s
      plain fleet, J, T and n_events bit for bit equal to SmartFill
      alone, with wall, device kernels, busy share and kernels an event
-     of both; ``degradation_report`` on four face-off instances, card
+     of both; ``degradation_report`` on two face-off instances, card
      and CPU, every event on rung 0; (b) the ladder with its primary
      sabotaged (NaN, overspend, negative while more than four jobs are
      active) over the face-off's 128 workloads, card against CPU (J, T
@@ -125,7 +125,7 @@ Phases (each one is a check; any failure exits non-zero):
      ``plan_sharded`` (K = 1000 in chunks of 192),
      ``simulate_ensemble_sharded`` (K = 256 in chunks of 60, with
      arrivals and with a fault trace per workload, under √θ) and
-     ``plan_classes_sharded`` (K = 8, chunks of 3), each bit for bit
+     ``plan_classes_sharded`` (K = 5, chunks of 3), each bit for bit
      equal to its unsharded call on the card and held to the CPU; (e)
      ``examples/batched_planning.py`` §3's admission control, card
      against CPU (ΔJ 1e-9, the same admitted indices), the simulate
@@ -135,10 +135,33 @@ Phases (each one is a check; any failure exits non-zero):
      watchdog in virtual time; no K1–K5 launch.  Rehearse on the CPU
      with ``robust_phase(torch, np, torch.device("cpu"))`` (~160 s);
      ``tools/phase14_count.py`` counts its device operations.
+ 15. the streaming control plane and the fleet's stream service in
+     float64 under s = √θ, B = 10 (``stream_*`` and ``fleet_streams``
+     lines): (a) the committed trace
+     ``benchmarks/traces/arrivals_sample.csv`` and (b) the quick day
+     trace of ``benchmarks/perf_serve.py::bench_stream`` (seed 17, 2 h,
+     M = 8), each through ``StreamController.run`` with
+     ``StreamCascadePolicy``, through ``run_device`` and through
+     ``run_device`` in chunks of 17 events, bit for bit among the three
+     on the card and held to the CPU's ``run_device`` (the same counters
+     and finished set, completions and weighted J to 1e-9; (a) completes
+     139 of its 141 arrivals, as the reference does), with wall time,
+     events/s and host reads an event, and for (b) the kernels a replan
+     and the busy share from a profile of its first 20 events; (c) (b)'s
+     trace under the default ``StreamingSmartFillPolicy``, card against
+     CPU; (d) a primary planner that raises: every replan on the ladder,
+     every admitted job completes, card against CPU; (e)
+     ``serve_streams_sharded`` at D = 1 over four tenants (seeds 17–20,
+     30 min, M = 8), each bit for bit to its solo ``run_device``, the
+     admission view equal to the CPU's; no K1–K5 launch (the float64
+     CAP takes the closed form).  The CPU references run in spawned
+     worker processes beside the card's runs.  Rehearse on the CPU with
+     ``stream_phase(torch, np, torch.device("cpu"))`` (~115 s);
+     ``tools/phase15_count.py`` counts its device operations.
 
 Launch counters are reset before phases 3–4 drive the planning path,
-before phase 7 drives the serving path, before phases 11, 13 and 14 and
-before each float32 run of phase 12, and read right after each;
+before phase 7 drives the serving path, before phases 11, 13, 14 and
+15 and before each float32 run of phase 12, and read right after each;
 the comparisons and timings come later and do not count.  Prints one
 JSON line per measurement, the kernel summary line ``{"kernels": [...]}``
 (five kernels, each with its device ms; K1 and K2 also with their
@@ -1827,7 +1850,12 @@ CLASS_KNOBS = dict(coarse=64, descent_iters=96, cap_iters=64,
                    exchange_passes=2, exchange_window=1, stol_rel=1e-10)
 J_CLASS_REF = 517115540232.1484
 J_CLASS_PORT_CPU = 517115540232.14844
-ANCHOR_SEED, ANCHOR_C = 5, 8
+# (b)'s anchor plans 5 one-job classes twice (plan_classes and
+# smartfill_hetero, each with its exchange search): 8 took ~86 s on the
+# card, 5 about half as many device operations (aten operations counted
+# on the CPU: 3.55 M against 1.63 M), which keeps the whole script
+# within its time once phase 15 runs too.
+ANCHOR_SEED, ANCHOR_C = 5, 5
 BATCH_SEED, BATCH_K, BATCH_C, BATCH_COUNTS = 7, 64, 16, (0, 50_000)
 # (d)'s aggregates are stiff (up to 50,000 jobs a class, 58 of 64
 # heuristic orders unrealized): μ* sits where F is flat and moves with
@@ -2042,11 +2070,11 @@ def classes_phase(torch, np, dev):
 # Float64 throughout, so no K1–K5 launch.  (a) the certified ladder
 # (SmartFill → GWF-static → EQUI) on phase 12(b)'s plain fleet, bit for
 # bit equal to SmartFill alone, with its cost an event beside SmartFill's;
-# then degradation_report on four face-off instances of ≥ 6 live jobs,
+# then degradation_report on two face-off instances of ≥ 6 live jobs,
 # card and CPU, all events on rung 0; (b) the same ladder with its
 # primary sabotaged (NaN, overspend, negative while more than four jobs
 # are active) over the face-off's 128 workloads, card against CPU, and
-# the rung counts of the four instances, which must show rung 1; (c)
+# the rung counts of the two instances, which must show rung 1; (c)
 # certify_plan on phase 5's quickstart schedule and on the largest plan
 # of phase 11's per-job fleet, and two planted faults that must fail on
 # the field they break; (d) examples/fleet_sweep.py on a one-card mesh:
@@ -2064,10 +2092,15 @@ ROBUST_RTOL = 1e-6        # card vs CPU, the engine's (phase 12)
 ADMIT_RTOL = 1e-9         # admission ΔJ, card vs CPU
 SWEEP_K, SWEEP_M, SWEEP_CHUNK = 1000, 16, 192
 ENS_K, ENS_M, ENS_CHUNK, ENS_SEED, ENS_FAULT_SEED = 256, 8, 60, 1, 2
-CLS_SEED, CLS_K, CLS_C, CLS_CHUNK = 7, 8, 8, 3
+# The sharded class batch (d) is five instances in chunks of 3 (two
+# chunks, one padded row) and the degradation reports (a, b) run on two
+# face-off instances: each chunk is a whole launch-bound call (~8 s) and
+# each sabotaged report ~3 s an instance on the card, cut from eight
+# instances and four reports to keep the whole script within its time.
+CLS_SEED, CLS_K, CLS_C, CLS_CHUNK = 7, 5, 8, 3
 QUEUE_R, QUEUE_C, QUEUE_SEED = 32, 255, 14
 SABOTAGE_MIN_ACTIVE = 4
-REPORT_N, REPORT_MIN_LIVE = 4, 6
+REPORT_N, REPORT_MIN_LIVE = 2, 6
 
 
 def timed_call(sync, run):
@@ -2529,6 +2562,293 @@ def robust_phase(torch, np, dev, quickstart=None, hetero_fleet=None):
     return launches
 
 
+# ---- 15. the streaming control plane and the fleet's stream service ------
+# Slice E (serve/stream.py with the streaming half of sched/policies.py)
+# and slice F2 (distributed/fleet.py::serve_streams_sharded), float64
+# under s = √θ (the closed-form μ*) with B = 10: (a) the committed trace
+# benchmarks/traces/arrivals_sample.csv and (b) the quick day trace of
+# benchmarks/perf_serve.py::bench_stream, each through the host loop
+# with StreamCascadePolicy, through run_device and through run_device in
+# chunks of 17 events (bit for bit among the three on the card; the
+# CPU's run_device: the same counts, completions and J to 1e-9); (c)
+# (b)'s trace under the default StreamingSmartFillPolicy, card against
+# CPU; (d) a primary planner that raises: every replan on the ladder;
+# (e) serve_streams_sharded at D = 1 over the quick multi-tenant traces
+# of perf_serve.bench_multitenant_worker (four tenants), each tenant bit
+# for bit to its solo run_device, the admission view equal to the CPU's.
+STREAM_M = 8
+STREAM_RTOL = 1e-9        # card vs CPU: completion times and weighted J
+STREAM_TRACE = "benchmarks/traces/arrivals_sample.csv"
+DAY_TRACE = dict(seed=17, horizon=7200.0, rate=0.12, diurnal=0.75,
+                 period=7200.0, n_budget_events=2, budget_frac=(0.3, 0.8),
+                 deadline_slack=50.0)
+BROKEN_TRACE, BROKEN_M = dict(seed=5, horizon=4000.0, rate=0.01), 4
+TENANT_SEEDS, TENANT_HORIZON = (17, 18, 19, 20), 1800.0
+PROFILE_EVENTS = 20
+STREAM_COUNTERS = ("replans", "warm_replans", "cold_replans",
+                   "degraded_windows", "n_events")
+
+
+def stream_diff(np, a, b):
+    """The fields in which two StreamResults differ in any bit."""
+    out = [f for f in STREAM_COUNTERS if getattr(a, f) != getattr(b, f)]
+    if not np.array_equal(a.completion, b.completion):
+        out.append("completion")
+    if a.metrics != b.metrics:
+        out.append("metrics")
+    return out
+
+
+def stream_counts(res):
+    m = res.metrics
+    return {"arrivals": m.n_arrivals, "completed": m.n_completed,
+            **{f: getattr(res, f) for f in STREAM_COUNTERS},
+            "weighted_J": m.weighted_J, "mean_slowdown": m.mean_slowdown,
+            "p99_latency_s": m.p99_latency,
+            "deadline_misses": m.deadline_misses}
+
+
+def stream_vs_cpu(np, res, res_c):
+    """Card against CPU: the same counters and finished set; the largest
+    relative difference of a completion time and of weighted J."""
+    fin = np.isfinite(res_c.completion)
+    same = (all(getattr(res, f) == getattr(res_c, f)
+                for f in STREAM_COUNTERS)
+            and res.metrics.n_completed == res_c.metrics.n_completed
+            and bool(np.array_equal(np.isfinite(res.completion), fin)))
+    d = (np.abs(res.completion[fin] - res_c.completion[fin])
+         / np.abs(res_c.completion[fin])) if same and fin.any() else [0.0]
+    J, Jc = res.metrics.weighted_J, res_c.metrics.weighted_J
+    return {"same_counts_as_cpu": same,
+            "completion_rel_vs_cpu": float(np.max(d)),
+            "J_rel_vs_cpu": abs(J - Jc) / max(abs(Jc), 1e-300),
+            "limit": STREAM_RTOL}
+
+
+def check_stream_vs_cpu(tag, r):
+    check(r["same_counts_as_cpu"]
+          and r["completion_rel_vs_cpu"] <= STREAM_RTOL
+          and r["J_rel_vs_cpu"] <= STREAM_RTOL,
+          f"{tag}: card against CPU {r}")
+
+
+def stream_inputs():
+    """Phase 15's traces, made from their seeds (and the committed log)."""
+    from repro_torch.core import sample_arrival_stream
+    from repro_torch.core.workloads import load_arrival_log
+    return {
+        "trace": load_arrival_log(ROOT / STREAM_TRACE),
+        "day": sample_arrival_stream(B=B, **DAY_TRACE),
+        "broken": sample_arrival_stream(B=B, **BROKEN_TRACE),
+        "tenants": [sample_arrival_stream(
+            s, horizon=TENANT_HORIZON, rate=0.12, diurnal=0.75,
+            period=TENANT_HORIZON, B=B, n_budget_events=2,
+            budget_frac=(0.3, 0.8), deadline_slack=50.0)
+            for s in TENANT_SEEDS]}
+
+
+def stream_controller(d, kind="cascade", M=STREAM_M):
+    """A controller on ``d`` under s = √θ: the cascade, the default
+    streaming policy, or a primary planner that raises."""
+    from repro_torch.core import power
+    from repro_torch.sched.policies import StreamingSmartFillPolicy
+    from repro_torch.serve import StreamCascadePolicy, StreamController
+
+    class Broken(StreamingSmartFillPolicy):
+        def plan(self, rem, w, active=None, B=None, warm=True):
+            raise FloatingPointError("poisoned solve")
+
+    sp = power(1.0, 0.5, B, device=d)
+    policy = {"cascade": lambda: StreamCascadePolicy(sp, B),
+              "default": lambda: None,
+              "broken": lambda: Broken(sp, B)}[kind]()
+    return StreamController(sp, B, max_live=M, policy=policy)
+
+
+def stream_call(job, d, inputs):
+    """Phase 15's call ``job`` on device ``d``."""
+    from repro_torch.core import power
+    from repro_torch.distributed import fleet_mesh, serve_streams_sharded
+    if job in ("trace", "day"):
+        return stream_controller(d).run_device(inputs[job])
+    if job == "default":
+        return stream_controller(d, "default").run(inputs["day"])
+    if job == "broken":
+        return stream_controller(d, "broken", BROKEN_M).run(
+            inputs["broken"])
+    return serve_streams_sharded(power(1.0, 0.5, B, device=d),
+                                 inputs["tenants"], max_live=STREAM_M,
+                                 mesh=fleet_mesh(1, device=d))
+
+
+STREAM_JOBS = ("trace", "day", "default", "broken", "fleet")
+
+
+def stream_reference(job):
+    """(result, wall s) of phase 15's call ``job`` on the CPU.  On the
+    card's host it runs in a worker process, overlapping the card's
+    runs; one thread each, so the workers leave the host's other cores
+    to the process that drives the card.  The workers are spawned, so
+    they import the caller's main module: it must start nothing outside
+    its ``if __name__ == "__main__"`` (this script's ``main`` does)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = stream_call(job, torch.device("cpu"), stream_inputs())
+    return out, time.perf_counter() - t0
+
+
+def stream_phase(torch, np, dev):
+    """Phase 15 on ``dev``, held against the same calls on the CPU (on a
+    CPU ``dev``, a rehearsal: no profile, the CPU references in this
+    process).  Returns the phase's kernel launches, all of which must be
+    0: the float64 CAP of SmartFill's re-plan takes the closed form,
+    never K1–K5."""
+    import contextlib
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    reset_all_launches()
+    with contextlib.ExitStack() as stack:
+        if dev.type == "cuda":
+            pool = stack.enter_context(ProcessPoolExecutor(
+                max_workers=len(STREAM_JOBS),
+                mp_context=multiprocessing.get_context("spawn")))
+            refs = {j: pool.submit(stream_reference, j) for j in STREAM_JOBS}
+            stack.callback(lambda: [f.cancel() for f in refs.values()])
+
+            def reference(job):
+                return refs[job].result()
+        else:
+            reference = stream_reference
+        return _stream_checks(torch, np, dev, reference)
+
+
+def _stream_checks(torch, np, dev, reference):
+    """Phase 15's runs on ``dev`` and their checks; ``reference(job)``
+    gives a job's CPU result and wall time."""
+    from repro_torch.core.workloads import ArrivalStream
+    from repro_torch.serve.stream import _event_arrays
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    inputs = stream_inputs()
+
+    def three_ways(tag, job):
+        """The host loop, run_device and run_device in chunks of 17 on
+        the card, bit for bit; run_device on the CPU."""
+        stream = inputs[job]
+        ctl = stream_controller(dev)
+        events = int(_event_arrays(stream)[0].size)
+        host, wall_h = timed_call(sync, lambda: ctl.run(stream))
+        res, wall_d = timed_call(sync, lambda: ctl.run_device(stream))
+        reads = ctl.host_reads
+        chunked, wall_c = timed_call(
+            sync, lambda: ctl.run_device(stream, chunk_events=17))
+        res_c, cpu_s = reference(job)
+        r = {**stream_counts(res), "events": events, "M": STREAM_M,
+             "run_wall_s": wall_h, "run_device_wall_s": wall_d,
+             "chunked_wall_s": wall_c, "cpu_wall_s": cpu_s,
+             "events_per_s": events / wall_d,
+             "host_reads_per_event": reads / events,
+             "run_vs_run_device": stream_diff(np, host, res),
+             "chunked_vs_whole": stream_diff(np, chunked, res),
+             **stream_vs_cpu(np, res, res_c)}
+        emit({"phase": tag, **r})
+        check(not r["run_vs_run_device"] and not r["chunked_vs_whole"],
+              f"{tag}: run, run_device and the chunked run_device differ "
+              f"on the card: {r}")
+        check_stream_vs_cpu(tag, r)
+        return r, ctl
+
+    # ---- a. the committed trace ------------------------------------------
+    r, _ = three_ways("stream_trace", "trace")
+    check((r["arrivals"], r["completed"]) == (141, 139),
+          f"stream_trace: the reference completes 139 of 141 arrivals: {r}")
+
+    # ---- b. the quick day trace, with a profile of its first events ------
+    r, ctl = three_ways("stream_day", "day")
+    check(r["completed"] == r["arrivals"],
+          f"stream_day: an arrival did not complete: {r}")
+    if on_card:
+        day = inputs["day"]
+        k = PROFILE_EVENTS - 1           # arrivals; the end is the last event
+        cut = day.budget_times < day.t[k]
+        head = ArrivalStream(
+            t=day.t[:k], x=day.x[:k], w=day.w[:k], deadline=day.deadline[:k],
+            horizon=float(day.t[k]), budget_times=day.budget_times[cut],
+            budget_values=day.budget_values[cut])
+        replans = ctl.run_device(head).replans
+        wall_p, busy, n_dev, n_launch = device_profile(
+            torch, lambda: (ctl.run_device(head), sync()))
+        events = int(_event_arrays(head)[0].size)
+        p = {"events": events, "replans": replans, "profiled_wall_s": wall_p,
+             "device_busy_s": busy, "busy_share": busy / wall_p,
+             "device_kernels": n_dev, "kernel_launches": n_launch,
+             "kernels_per_replan": n_launch / replans,
+             "kernels_per_event": n_launch / events}
+        emit({"phase": "stream_day_profile", **p})
+        check(busy > 0, f"stream_day_profile: no device work {p}")
+
+    # ---- c. the default streaming policy on (b)'s trace -------------------
+    res, wall = timed_call(sync, lambda: stream_call("default", dev, inputs))
+    res_c, cpu_s = reference("default")
+    r = {**stream_counts(res), "policy": "StreamingSmartFillPolicy",
+         "wall_s": wall, "cpu_wall_s": cpu_s,
+         **stream_vs_cpu(np, res, res_c)}
+    emit({"phase": "stream_default_policy", **r})
+    check_stream_vs_cpu("stream_default_policy", r)
+
+    # ---- d. a primary planner that raises: every replan on the ladder ----
+    res, wall = timed_call(sync, lambda: stream_call("broken", dev, inputs))
+    res_c, _ = reference("broken")
+    r = {**stream_counts(res), "M": BROKEN_M, "wall_s": wall,
+         **stream_vs_cpu(np, res, res_c)}
+    emit({"phase": "stream_broken_primary", **r})
+    check(r["degraded_windows"] == r["replans"] > 0
+          and r["completed"] == res.metrics.n_admitted,
+          f"stream_broken_primary: not every replan on the ladder, or an "
+          f"admitted job unfinished: {r}")
+    check_stream_vs_cpu("stream_broken_primary", r)
+
+    # ---- e. the fleet's stream service at D = 1 ----------------------------
+    tenants = inputs["tenants"]
+    fleet, wall = timed_call(sync, lambda: stream_call("fleet", dev, inputs))
+    solos, wall_s = timed_call(sync, lambda: [
+        stream_controller(dev).run_device(t) for t in tenants])
+    fleet_c, cpu_s = reference("fleet")
+    events = sum(int(_event_arrays(t)[0].size) for t in tenants)
+    view = ("backlog", "unfinished_work", "suggested_budget_share",
+            "deadline_misses", "mean_slowdown", "p99_latency")
+    r = {"tenants": len(tenants), "D": 1, "events": events,
+         "arrivals": [len(t) for t in tenants],
+         "completed": [x.metrics.n_completed for x in fleet.results],
+         "replans": [x.replans for x in fleet.results],
+         "wall_s": wall, "solo_wall_s": wall_s, "cpu_wall_s": cpu_s,
+         "events_per_s": events / wall,
+         "vs_solo": [stream_diff(np, a, b)
+                     for a, b in zip(fleet.results, solos)],
+         "view_vs_cpu": [f for f in view if not np.allclose(
+             getattr(fleet, f), getattr(fleet_c, f), rtol=STREAM_RTOL,
+             atol=0.0)],
+         "suggested_budget_share": fleet.suggested_budget_share.tolist()}
+    emit({"phase": "fleet_streams", **r})
+    check(not any(r["vs_solo"]),
+          f"fleet_streams: a tenant differs from its solo run_device: {r}")
+    check(not r["view_vs_cpu"],
+          f"fleet_streams: the admission view differs from the CPU's: {r}")
+
+    launches = all_launches()
+    emit({"phase": "stream_launches", "launches": launches,
+          "note": "no K1-K5 launch: the float64 CAP of the re-plan takes "
+                  "the closed form"})
+    check(not any(launches.values()),
+          f"a kernel was launched in the streaming phase: {launches}")
+    return launches
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -2889,6 +3209,12 @@ def main():
     launches14 = robust_phase(torch, np, dev, quickstart=sched,
                               hetero_fleet=hetero_fleet)
     emit({"phase": "robust", "launches": launches14,
+          "wall_s": time.perf_counter() - t0})
+
+    # ---- 15. the streaming control plane and the fleet's streams ------------
+    t0 = time.perf_counter()
+    launches15 = stream_phase(torch, np, dev)
+    emit({"phase": "stream", "launches": launches15,
           "wall_s": time.perf_counter() - t0})
 
     print(json.dumps({"kernels": kernels}), flush=True)

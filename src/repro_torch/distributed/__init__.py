@@ -1,14 +1,14 @@
-"""Distributed layer: device meshes and the fleet-sharded planner and
-ensemble runner.
+"""Distributed layer: device meshes and the fleet-sharded planner,
+ensemble runner and multi-tenant stream service.
 
 The fleet layer re-exports lazily (PEP 562): it pulls in the whole core
 solver/simulator stack, which a mesh-only consumer must not pay for.
 """
 from .sharding import FleetMesh, active_mesh  # noqa: F401
 
-_FLEET_EXPORTS = ("FLEET_AXIS", "active_fleet_mesh", "fleet_mesh",
-                  "plan_classes_sharded", "plan_sharded",
-                  "simulate_ensemble_sharded")
+_FLEET_EXPORTS = ("FLEET_AXIS", "FleetStreamResult", "active_fleet_mesh",
+                  "fleet_mesh", "plan_classes_sharded", "plan_sharded",
+                  "serve_streams_sharded", "simulate_ensemble_sharded")
 
 
 def __getattr__(name):

@@ -13,6 +13,9 @@ over a 1-D ``FleetMesh``:
 ``simulate_ensemble_sharded``
     ``simulate_ensemble`` with workloads partitioned across the mesh
     (policies stay a Python loop, as in the single-device runner).
+``serve_streams_sharded``
+    T tenant arrival streams, each through ``StreamController.
+    run_device``'s event loop, tenants partitioned across the mesh.
 
 All of them go through one driver (``_run_sharded``):
 
@@ -44,6 +47,7 @@ fresh one-device mesh on the device of the inputs (``fleet_mesh``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -59,15 +63,18 @@ from ..core.simulator import (EnsembleResult, _bound, _check_policy_budget,
                               _validate_workload, _warn_event_budget,
                               n_events_for)
 from ..core.smartfill import _fast_ok, _on, _solve
-from ..core.speedup import Speedup, collapse_homogeneous, map_leaves
+from ..core.speedup import (Speedup, collapse_homogeneous, is_per_job,
+                            map_leaves)
 from .sharding import FleetMesh, active_mesh
 
 __all__ = [
     "FLEET_AXIS",
+    "FleetStreamResult",
     "active_fleet_mesh",
     "fleet_mesh",
     "plan_classes_sharded",
     "plan_sharded",
+    "serve_streams_sharded",
     "simulate_ensemble_sharded",
 ]
 
@@ -477,3 +484,219 @@ def simulate_ensemble_sharded(
     return EnsembleResult(J=torch.stack(Js), T=torch.stack(Ts),
                           finished=finished_all, n_events=nev_all,
                           exhausted=exhausted, policy_names=names)
+
+
+# ---------------------------------------------------------------------------
+# Sharded multi-tenant streaming service
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FleetStreamResult:
+    """T tenant streams serviced on the mesh, plus the cross-tenant view.
+
+    ``results[i]`` is tenant i's full ``StreamResult`` (identical in
+    meaning to a solo ``StreamController.run_device``).  The remaining
+    fields are the fleet-level admission view — the summary a host
+    admission/budget controller reads *across* tenants at the horizon:
+
+      backlog: (T,) jobs still unfinished (live slots + FIFO queue).
+      unfinished_work: (T,) remaining size mass (partial progress of
+        live jobs counted, queued jobs at full size).
+      mean_slowdown / p99_latency / deadline_misses: (T,) per-tenant
+        SLO columns lifted out of the per-tenant metrics.
+      suggested_budget_share: (T,) sums to 1 — unfinished work,
+        normalized; the proportional-fair advisory split of the next
+        planning round's global budget (uniform when the fleet drained).
+    """
+
+    results: tuple
+    backlog: np.ndarray
+    unfinished_work: np.ndarray
+    mean_slowdown: np.ndarray
+    p99_latency: np.ndarray
+    deadline_misses: np.ndarray
+    suggested_budget_share: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.results)
+
+
+# the carry's entries a tenant's service returns: the fleet view's and
+# the counters ``_finalize`` reads
+_SERVE_KEYS = ("completion", "rem", "active", "qbuf", "qhead", "qtail",
+               "replans", "warm_ct", "cold_ct", "degraded", "n_windows")
+
+
+def _serve_fn(sp, events, X, W, budgets, M: int, plan_latency: float,
+              rtol: float, cert_rtol: float, knobs: dict):
+    """The per-device body of ``serve_streams_sharded``: ``fn(lo, hi,
+    dev)`` services the padded tenant rows lo..hi on ``dev``.
+
+    Tenants run one after another, each a whole event loop over its own
+    carry — never batched: a batched carry would have to take both sides
+    of every branch (the cascade's solve and search, the ladder, the cut
+    re-run) for every tenant at every event, inert ones included.  A
+    padded tenant carries only kind-0 events, which its loop skips.
+    """
+    from ..robust.degrade import DegradingPolicy
+    from ..serve.stream import _Loop, _stream_chunk, _stream_state0
+
+    Nmax = X.shape[1]
+
+    def fn(lo, hi, dev):
+        sp_d = _on(sp, dev, torch.float64)
+        outs = []
+        for i in range(lo, hi):
+            b = float(budgets[i])
+            loop = _Loop(sp=sp_d, ladder=DegradingPolicy.ladder(sp_d, B=b),
+                         x_all=X[i].to(dev), w_all=W[i].to(dev), B_key=b,
+                         plan_latency=plan_latency, rtol=rtol,
+                         cert_rtol=cert_rtol, knobs=knobs)
+            st = _stream_state0(M, Nmax, b, torch.float64, dev)
+            st = _stream_chunk(st, tuple(a[i] for a in events), loop)
+            outs.append(st)
+        return tuple(torch.stack([st[k] for st in outs])
+                     for k in _SERVE_KEYS)
+
+    return fn
+
+
+def serve_streams_sharded(
+    sp,
+    streams,
+    *,
+    budgets=None,
+    max_live: int = 16,
+    mesh: FleetMesh | None = None,
+    chunk_size: int | None = None,
+    plan_latency: float = 0.0,
+    rtol: float = 1e-12,
+    certificate_rtol: float = 1e-8,
+    coarse: int = 32,
+    descent_iters: int = 40,
+    cap_iters: int = 64,
+    stol_rel: float | None = None,
+    search_steps: int | None = None,
+) -> FleetStreamResult:
+    """T independent tenant streams serviced on device, tenant axis
+    sharded over the mesh.
+
+    Each tenant is one ``ArrivalStream`` driven through the same event
+    loop as ``StreamController.run_device`` — cascade replanning,
+    double-buffered plans, FIFO queue, cut-at-first-completion backfill
+    — under its own nominal budget (trace budget events still override
+    live).  Tenants are independent streams, so the devices exchange
+    nothing and tenant i's result is bit-identical to a solo
+    ``run_device`` of the same stream (``tests/test_torch_fleet_stream.py``
+    pins it).  Within a device its tenants run one after another.
+
+    Padding reuses the fleet contract: tenant rows pad to the mesh
+    multiple with zeros, and the event encoding makes an all-zero row
+    *inert* (kind 0 = pad event, skipped), so a padded tenant costs one
+    skipped loop; event and job axes pad to the fleet maxima the same
+    way.  The speedup is shared fleet-wide (one scalar-leaf speedup;
+    per-tenant speedups belong in separate fleets); ``budgets`` is the
+    per-tenant nominal budget vector (default: ``sp.B`` for every
+    tenant), which also seeds each tenant's ladder fallback.  Runs in
+    float64 on the mesh (default: the active mesh context, else one
+    device: the speedup's, CUDA by default).
+
+    Returns a ``FleetStreamResult``: per-tenant ``StreamResult``s plus
+    the cross-tenant admission view (backlog, unfinished work, SLO
+    columns, and the advisory ``suggested_budget_share``).
+    """
+    from ..serve.stream import StreamController, _event_arrays
+
+    streams = tuple(streams)
+    T = len(streams)
+    if T < 1:
+        raise ValueError("need at least one tenant stream")
+    sp = collapse_homogeneous(sp)
+    if is_per_job(sp):
+        raise ValueError(
+            "serve_streams_sharded needs one shared scalar-leaf speedup; "
+            "per-tenant speedups belong in separate fleets")
+    M = int(max_live)
+    if M < 1:
+        raise ValueError("max_live must be >= 1")
+    if budgets is None:
+        budgets = [float(sp.B)] * T
+    budgets = [float(b) for b in budgets]
+    if len(budgets) != T:
+        raise ValueError("budgets must give one nominal budget per tenant")
+
+    Ns = [len(s) for s in streams]
+    Nmax = max(1, max(Ns))
+    evs = [_event_arrays(s) for s in streams]
+    Emax = max(e[0].size for e in evs)
+    t_e = np.zeros((T, Emax))
+    kind = np.zeros((T, Emax), np.int32)
+    pi = np.zeros((T, Emax), np.int32)
+    pf = np.zeros((T, Emax))
+    for i, (te, kd, pj, pv) in enumerate(evs):
+        t_e[i, :te.size] = te
+        kind[i, :te.size] = kd
+        pi[i, :te.size] = pj
+        pf[i, :te.size] = pv
+    X = np.zeros((T, Nmax))
+    W = np.zeros((T, Nmax))
+    for i, strm in enumerate(streams):
+        X[i, :Ns[i]] = np.asarray(strm.x, float)
+        W[i, :Ns[i]] = np.asarray(strm.w, float)
+
+    mesh = _resolve_mesh(mesh, sp)
+    home = mesh.devices.flat[0]
+    total, _, _ = _chunk_layout(T, mesh.size, chunk_size)
+    # host-side rows: a tenant's events and budget are read by its loop
+    events = tuple(_pad_rows(torch.from_numpy(a), total, edge=False).numpy()
+                   for a in (t_e, kind, pi, pf))
+    Bp = _pad_rows(torch.tensor(budgets, dtype=torch.float64), total,
+                   edge=True).tolist()
+    Xp = _pad_rows(torch.from_numpy(X), total, edge=False)
+    Wp = _pad_rows(torch.from_numpy(W), total, edge=False)
+    sp = _on(sp, home, torch.float64)
+    knobs = dict(fast=_fast_ok(sp), coarse=int(coarse),
+                 descent_iters=int(descent_iters), cap_iters=int(cap_iters),
+                 stol_rel=stol_rel,
+                 search_steps=4 * M if search_steps is None
+                 else int(search_steps))
+    fn = _serve_fn(sp, events, Xp, Wp, Bp, M, float(plan_latency),
+                   float(rtol), float(certificate_rtol), knobs)
+    out = dict(zip(_SERVE_KEYS, (o.cpu().numpy() for o in
+                                 _run_sharded(mesh, fn, T, chunk_size))))
+
+    comp_all = out["completion"].astype(float)
+    rem = out["rem"].astype(float)
+    act = out["active"].astype(bool)
+    qb, qh, qt = out["qbuf"], out["qhead"], out["qtail"]
+    results = []
+    backlog = np.zeros(T, int)
+    work = np.zeros(T)
+    for i, strm in enumerate(streams):
+        ctl = StreamController(sp, budgets[i], max_live=M,
+                               plan_latency=plan_latency, rtol=rtol,
+                               device=home)
+        results.append(ctl._finalize(
+            strm, comp_all[i, :Ns[i]], np.ones(Ns[i], bool),
+            replans=int(out["replans"][i]),
+            warm_replans=int(out["warm_ct"][i]),
+            cold_replans=int(out["cold_ct"][i]),
+            degraded=int(out["degraded"][i]),
+            n_windows=int(out["n_windows"][i])))
+        qidx = qb[i, qh[i]:qt[i]]
+        backlog[i] = int(act[i].sum()) + qidx.size
+        work[i] = float(np.sum(rem[i] * act[i]))
+        if qidx.size:
+            work[i] += float(np.sum(np.asarray(strm.x, float)[qidx]))
+    share = (work / work.sum() if work.sum() > 0
+             else np.full(T, 1.0 / T))
+    return FleetStreamResult(
+        results=tuple(results),
+        backlog=backlog,
+        unfinished_work=work,
+        mean_slowdown=np.array([r.metrics.mean_slowdown for r in results]),
+        p99_latency=np.array([r.metrics.p99_latency for r in results]),
+        deadline_misses=np.array([r.metrics.deadline_misses
+                                  for r in results]),
+        suggested_budget_share=share,
+    )

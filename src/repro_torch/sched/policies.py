@@ -47,6 +47,12 @@ Heterogeneous fleets (paper §7) add two members:
 ``ClassSmartFillPolicy`` is heteroSF over class aggregates
 (``core/classes.py``), the policy of ``simulate_fluid_classes``.
 
+The streaming control plane (``serve/stream.py``) replans through the
+host-side ``StreamingSmartFillPolicy`` (carried order and λ payload,
+warm or cold) or through ``stream_replan_core``, the per-event cascade
+(fresh solve → certificate → exchange search → ladder) that the device
+event loop calls and ``StreamCascadePolicy`` mirrors on the host loop.
+
 SmartFill and heteroSF call the batch-first SmartFill core once per
 event for all K workloads.  GWF-static and WMR call the batched CAP
 front door ``solve_cap_batched(impl="auto")`` where the reference takes
@@ -68,15 +74,21 @@ from .._device import as_tensor, resolve_device, vpow
 from ..core.classes import aggregate_classes, plan_classes
 from ..core.gwf import solve_cap_batched
 from ..core.simulator import lane_budget
-from ..core.smartfill import _host, _is_pure_power, _solve
+from ..core.smartfill import (WarmStart, _fast_ok, _host, _is_pure_power,
+                              _on, _permute_speedup, _solve)
 from ..core.speedup import (RegularSpeedup, Speedup, StackedSpeedup,
-                            inner_per_job, map_leaves, per_instance)
+                            collapse_homogeneous, host_call, inner_per_job,
+                            is_per_job, map_leaves, per_instance)
 
 __all__ = [
     "Policy",
     "SmartFillPolicy",
     "HeteroSmartFillPolicy",
     "ClassSmartFillPolicy",
+    "StreamingSmartFillPolicy",
+    "StreamCascadePolicy",
+    "StreamPlan",
+    "stream_replan_core",
     "HeSRPTPolicy",
     "EquiPolicy",
     "SRPT1Policy",
@@ -569,3 +581,514 @@ def default_zoo(sp: Speedup, B: float | None = None,
         SRPT1Policy(B=B),
         GWFStaticPolicy(sp, B=B),
     )
+
+
+# ---------------------------------------------------------------------------
+# Streaming replanning (serve/stream.py): the host-side incremental
+# re-planner, and the per-event cascade the device event loop runs
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """One replanning event's output.
+
+    order: (m,) controller-slot indices — schedule row r executes the
+      job in slot ``order[r]`` (row coords: remaining size
+      non-increasing, so row m−1 completes first).
+    table: (M, M) allocation table in row coords (column j = the phase
+      with rows 0..j active), a tensor on the planner's device, executed
+      by active-count lookup exactly like
+      ``HeteroSmartFillPolicy.pinned(cache_plan=True)``.
+    J / J_linear: the solve's executed objective and value-function
+      claim Σ a_i x_i; ``certified`` is the J == J_linear realized-order
+      certificate (Prop. 9 / §7).
+    warm: True when the plan came from the warm-start path (carried
+      completion order + validated λ hints) rather than a cold solve.
+    """
+
+    order: np.ndarray
+    table: torch.Tensor
+    J: float
+    J_linear: float
+    m: int
+    B: float
+    warm: bool
+    certified: bool
+
+    def slot_allocations(self) -> np.ndarray:
+        """(M,) current-phase allocations scattered back to slot coords."""
+        M = int(self.table.shape[0])
+        out = np.zeros(M)
+        if self.m:
+            col = _host(self.table)[:, min(self.m - 1, M - 1)]
+            out[self.order] = col[:self.m]
+        return out
+
+
+class StreamingSmartFillPolicy(Policy):
+    """Host-side incremental re-planner for the streaming control plane.
+
+    Carries warm-start state *across* replanning events (the open-arrival
+    loop of ``serve/stream.py``): the previous plan's completion order
+    and its λ payload (per-iteration CAP duals + the generic-path
+    λ-bracket, ``core.smartfill.WarmStart``).  Between consecutive
+    events the live set changes by one arrival or completion, so
+
+      * the **order** is maintained incrementally — completed slots drop
+        out, arrivals binary-insert by normalized remaining size
+        rem_i / s_i(B).  This is sound between events because CAP
+        allocations are non-decreasing along schedule rows (θ_1 ≤ … ≤
+        θ_m), so remaining sizes never cross during execution; and
+
+      * the **λ payload** seeds the next solve's searches.  Both halves
+        are validated on use (β-probes, ``core.gwf.cap_bracket_probe``
+        semantics), so a stale payload costs cold pricing, never a wrong
+        answer.
+
+    Every warm plan is accepted only under the ``J == J_linear``
+    realized-order certificate; a failed certificate (or non-finite
+    solve) falls back to a **cold** plan — a from-scratch re-rank, plus
+    the full §7 exchange-order search for per-job speedups.  A cold plan
+    that *still* fails certification is returned uncertified; the
+    streaming controller then falls down the robust degradation ladder
+    instead of executing it.
+
+    Not an engine policy (``device_ready=False``): replanning is a
+    host-side control-plane step between execution windows, with mutable
+    warm state.  The solves run on ``device`` (default: the device of
+    ``sp``'s leaves, else CUDA) in float64.  ``plan`` is the real
+    interface; ``__call__`` adapts it to the host-policy signature.
+    """
+
+    device_ready = False
+    name = "streamingSF"
+
+    def __init__(self, sp: Speedup, B: float | None = None, *,
+                 certificate_rtol: float = 1e-8, coarse: int = 32,
+                 descent_iters: int = 40, cap_iters: int = 64,
+                 exchange_passes: int = 2, exchange_window: int = 1,
+                 stol_rel: float | None = None, device=None):
+        self.device = resolve_device(device, sp)
+        self.sp = collapse_homogeneous(_on(sp, self.device, torch.float64))
+        self.B = float(sp.B if B is None else B)
+        self.certificate_rtol = float(certificate_rtol)
+        self.coarse = int(coarse)
+        self.descent_iters = int(descent_iters)
+        self.cap_iters = int(cap_iters)
+        self.exchange_passes = int(exchange_passes)
+        self.exchange_window = int(exchange_window)
+        self.stol_rel = stol_rel
+        self._per_job = is_per_job(self.sp)
+        self._fast = _fast_ok(self.sp)
+        self.reset()
+
+    def reset(self) -> None:
+        """Drop all carried warm state (and the replan counters)."""
+        self.warm: WarmStart | None = None
+        self._order = np.zeros(0, np.int64)
+        self.warm_replans = 0
+        self.cold_replans = 0
+        self.order_searches = 0
+
+    # -- internals --------------------------------------------------------
+
+    def _solo_key(self, rem: np.ndarray) -> np.ndarray:
+        """Normalized remaining size rem_i / s_i(B) per slot (the §7
+        SJF ranking key; shared speedups broadcast)."""
+        M = rem.shape[0]
+        rate = np.broadcast_to(host_call(self.sp, "s", np.full(M, self.B)),
+                               (M,))
+        return rem / np.maximum(rate, _TINY)
+
+    def release(self, slots) -> None:
+        """Forget carried state for recycled slots.
+
+        The controller calls this when a job leaves its slot (completion
+        or eviction).  Without it a new occupant of the same slot would
+        inherit the old job's position in the carried order — the merged
+        order silently stops being the SJF order and warm plans drift
+        from cold ones.
+        """
+        slots = np.atleast_1d(np.asarray(slots, np.int64))
+        if self._order.size:
+            self._order = self._order[~np.isin(self._order, slots)]
+
+    def _merge_order(self, rem, w, act) -> np.ndarray:
+        """Warm order: drop completed slots from the carried order and
+        binary-insert arrivals by normalized size (no re-sort of the
+        survivors — that is the whole point)."""
+        keep = self._order[act[self._order]]
+        new = np.setdiff1d(np.where(act)[0], keep)
+        if new.size:
+            key = self._solo_key(rem)
+            new = new[np.argsort(-key[new], kind="stable")]
+            # survivor keys are non-increasing along the carried order
+            # (allocations non-decreasing along rows ⇒ sizes never
+            # cross); searchsorted wants ascending, hence the negation
+            pos = np.searchsorted(-key[keep], -key[new], side="right")
+            keep = np.insert(keep, pos, new)
+        return keep
+
+    def _fresh_order(self, rem, w, act) -> np.ndarray:
+        slots = np.where(act)[0]
+        key = self._solo_key(rem)
+        return slots[np.lexsort((w[slots], -key[slots]))]
+
+    def _run(self, order, rem, w, Bv, m, lam0=None, bracket0=None):
+        """Padded one-instance ``_solve`` on the given slot order (row
+        coords, m live rows); returns ``_solve``'s outputs for the row."""
+        M = rem.shape[0]
+        dev = self.device
+        rest = np.setdiff1d(np.arange(M), order)
+        full = np.concatenate([order, rest]).astype(np.int64)
+        live = np.arange(M) < m
+        xs = as_tensor(np.where(live, rem[full], 0.0), dev)[None]
+        ws = as_tensor(np.where(live, w[full], 0.0), dev)[None]
+        sp_o = _permute_speedup(self.sp, full) if self._per_job else self.sp
+        kw = {}
+        if lam0 is not None:
+            kw["lam0"] = as_tensor(lam0, dev, xs.dtype)[None]
+        if bracket0 is not None:
+            kw["bracket0"] = as_tensor(bracket0, dev, xs.dtype)[None]
+        out = _solve(sp_o, xs, ws,
+                     torch.full((1,), Bv, dtype=xs.dtype, device=dev),
+                     torch.full((1,), m, device=dev), self.coarse,
+                     self.descent_iters, self.cap_iters, self._fast,
+                     stol_rel=self.stol_rel, **kw)
+        return tuple(o[0] for o in out)
+
+    def _certified(self, J, J_lin) -> bool:
+        # floor the tolerance at the solve dtype's precision: the 1e-8
+        # default is meaningful in float64 but unreachable in float32
+        eps = float(torch.finfo(J.dtype).eps)
+        rtol = max(self.certificate_rtol, 64.0 * eps)
+        J = float(J)
+        J_lin = float(J_lin)
+        if not (np.isfinite(J) and np.isfinite(J_lin)):
+            return False
+        return abs(J - J_lin) <= rtol * max(1.0, abs(J_lin))
+
+    def _search_order(self, rem, w, act, Bv) -> np.ndarray:
+        """Full §7 exchange-order search on the dense active set."""
+        from ..core.smartfill import smartfill_hetero
+
+        slots = np.where(act)[0]
+        sp_sub = (_permute_speedup(self.sp, slots) if self._per_job
+                  else self.sp)
+        plan = smartfill_hetero(
+            sp_sub, rem[slots], w[slots], B=Bv,
+            coarse=self.coarse, descent_iters=self.descent_iters,
+            cap_iters=self.cap_iters,
+            exchange_passes=self.exchange_passes,
+            exchange_window=self.exchange_window, stol_rel=self.stol_rel,
+            device=self.device)
+        self.order_searches += 1
+        return slots[np.asarray(plan.order)]
+
+    # -- interface --------------------------------------------------------
+
+    def plan(self, rem, w, active=None, B=None,
+             warm: bool = True) -> StreamPlan:
+        """Replan the live set; warm-start when possible.
+
+        rem/w are (M,) slot-coordinate state (M = the controller's slot
+        capacity); ``active`` masks the live slots (zero-remaining slots
+        are dropped regardless).  ``B`` is the live budget.
+        ``warm=False`` forces the cold from-scratch path (the benchmark
+        baseline).  Updates the carried warm state either way.
+        """
+        rem = _host(rem)
+        w = _host(w)
+        M = rem.shape[0]
+        act = (np.ones(M, bool) if active is None
+               else np.asarray(active, bool)) & (rem > 0)
+        Bv = float(self.B if B is None else B)
+        m = int(act.sum())
+        if m == 0:
+            return StreamPlan(order=np.zeros(0, np.int64),
+                              table=torch.zeros((M, M), dtype=torch.float64,
+                                                device=self.device),
+                              J=0.0, J_linear=0.0, m=0, B=Bv, warm=False,
+                              certified=True)
+
+        picked = None
+        if warm and self.warm is not None and self._order.size:
+            order = self._merge_order(rem, w, act)
+            out = self._run(order, rem, w, Bv, m,
+                            lam0=self.warm.lam, bracket0=self.warm.bracket)
+            if self._certified(out[5], out[6]):
+                self.warm_replans += 1
+                picked = (order, out, True)
+        if picked is None:
+            # cold: from scratch, no carried state — a fresh normalized-
+            # size ranking, escalating to the §7 exchange-order search
+            # when jobs carry their own speedups or the certificate
+            # rejects the ranking (non-agreeable weights: the order is
+            # a decision, and a cold replan must re-make it)
+            if self._per_job and m > 1:
+                order = self._search_order(rem, w, act, Bv)
+                out = self._run(order, rem, w, Bv, m)
+            else:
+                order = self._fresh_order(rem, w, act)
+                out = self._run(order, rem, w, Bv, m)
+                if m > 1 and not self._certified(out[5], out[6]):
+                    order = self._search_order(rem, w, act, Bv)
+                    out = self._run(order, rem, w, Bv, m)
+            self.cold_replans += 1
+            picked = (order, out, False)
+
+        order, out, was_warm = picked
+        self.warm = WarmStart(lam=out[7], bracket=out[8])
+        self._order = np.asarray(order, np.int64)
+        return StreamPlan(order=self._order, table=out[0],
+                          J=float(out[5]), J_linear=float(out[6]), m=m,
+                          B=Bv, warm=was_warm,
+                          certified=self._certified(out[5], out[6]))
+
+    def __call__(self, rem, w, active, B=None):
+        """Host-policy adapter: the current-phase allocation column."""
+        return as_tensor(self.plan(rem, w, active, B=B).slot_allocations(),
+                         self.device)
+
+
+class HostReads:
+    """A read of device flags to the host, counted.
+
+    The cascade and the device event loop take their branches on the
+    host; each read syncs the host to the device on a card.  Passing a
+    ``HostReads`` as ``read=`` counts them (``n``).
+    """
+
+    def __init__(self):
+        self.n = 0
+
+    def __call__(self, flags):
+        self.n += 1
+        return flags.tolist()
+
+
+def _stream_certified(J, J_lin, certificate_rtol, dtype):
+    """The J == J_linear realized-order certificate (Prop. 9) as a device
+    flag, floored at the dtype's precision like the host ``_certified``."""
+    rt = max(float(certificate_rtol), 64.0 * torch.finfo(dtype).eps)
+    return (torch.isfinite(J) & torch.isfinite(J_lin)
+            & (torch.abs(J - J_lin)
+               <= rt * torch.clamp_min(torch.abs(J_lin), 1.0)))
+
+
+def _exchange_search_shared(run_orders, order0, out0, m, max_steps, read):
+    """Steepest-descent adjacent-exchange order search (shared speedups).
+
+    Starts from a failed fresh order, scores all M−1 adjacent swaps
+    with one batched solve per step (``run_orders`` over (M−1, M)
+    orders), and takes the best strictly-improving swap until none
+    improves (or ``max_steps``): one host read a step.  The
+    shared-speedup analogue of the §7 host search the streaming policy
+    escalates to (non-agreeable live weights: rem shrinks while w stays
+    1/x₀, so the order is a decision the certificate audits).
+    """
+    M = order0.shape[0]
+    ci = torch.arange(M - 1, device=order0.device)
+    J0 = out0[5]
+    bestJ = torch.where(torch.isfinite(J0), J0, torch.inf)
+    order, out = order0, out0
+    for _ in range(int(max_steps)):
+        orders = order.expand(M - 1, M).clone()
+        orders[ci, ci] = order[ci + 1]
+        orders[ci, ci + 1] = order[ci]
+        outs = run_orders(orders)
+        # swaps reaching past the live prefix are no-ops, not candidates
+        Js = torch.where(((ci + 1) < m) & torch.isfinite(outs[5]),
+                         outs[5], torch.inf)
+        i = torch.argmin(Js)
+        better = Js[i] < bestJ - 1e-12 * torch.clamp_min(bestJ.abs(), 1.0)
+        if not read(better):
+            break
+        order, bestJ = orders[i], Js[i]
+        out = tuple(o[i] for o in outs)
+    return order, out
+
+
+def stream_replan_core(sp, ladder, rem, w, active, B_live, B_key, warm,
+                       certificate_rtol, *, fast, coarse=32,
+                       descent_iters=40, cap_iters=64, stol_rel=None,
+                       search_steps=64, read=torch.Tensor.tolist):
+    """One replanning event on the device of ``rem`` (shared speedups).
+
+    The decision cascade, every stage a real branch taken on the host so
+    the common path pays one solve:
+
+      1. **fresh solve** — rank the live set by normalized remaining
+         size (SJF key under the *nominal* budget ``B_key``, weights
+         break ties) and solve under the live budget, seeded with the
+         carried ``WarmStart`` λ/bracket payload (validated on use, so
+         a stale payload costs cold pricing, never a wrong answer);
+      2. **exchange search** — if the J == J_linear certificate rejects
+         the ranking (and m > 1), ``_exchange_search_shared``;
+      3. **ladder** — still uncertified ⇒ the certificate-gated
+         ``ladder_plan_table`` on the SJF ranking (solver failures are
+         absorbed, never executed).
+
+    ``rem``, ``w``, ``active`` are (M,) tensors; ``warm`` a WarmStart of
+    (M,) λ hints and a (2,) bracket on the same device.  ``read`` turns
+    a device flag into host values (one read after the fresh solve, one
+    a search step, one after the search); pass a ``HostReads`` to count
+    them.  Returns ``(order, table, m, certified, searched, J, J_linear,
+    warm2)`` with ``order`` a full (M,) slot permutation (live prefix
+    first), ``table`` the (M, M) plan to execute, ``m`` a device scalar,
+    ``certified``/``searched`` host bools and ``warm2`` the carry for
+    the next event.  ``StreamCascadePolicy`` (host loop) and
+    ``serve.stream.StreamController.run_device`` call this *same*
+    function, which makes the host loop a bit-comparable oracle for the
+    device loop.
+    """
+    dtype, dev = rem.dtype, rem.device
+    M = rem.shape[0]
+    idx = torch.arange(M, device=dev)
+    w = as_tensor(w, dev, dtype)
+    act = as_tensor(active, dev, torch.bool) & (rem > 0)
+    m = act.sum()
+    B_live = as_tensor(B_live, dev, dtype)
+    rate = sp.s(torch.full((), float(B_key), dtype=dtype, device=dev))
+    key = torch.where(act, -(rem / torch.clamp_min(rate, _TINY)), torch.inf)
+    order0 = _lexsort(torch.where(act, w, 0.0), key)
+
+    def run_orders(orders):
+        # one batched solve of P orders; each row carries the warm payload
+        P = orders.shape[0]
+        live = idx < m
+        xs = torch.where(live, rem[orders], 0.0)
+        ws = torch.where(live, w[orders], 0.0)
+        return _solve(sp, xs, ws, B_live.expand(P).contiguous(),
+                      m.expand(P).contiguous(), coarse, descent_iters,
+                      cap_iters, fast,
+                      lam0=warm.lam.expand(P, M).contiguous(),
+                      stol_rel=stol_rel,
+                      bracket0=warm.bracket.expand(P, 2).contiguous())
+
+    out0 = tuple(o[0] for o in run_orders(order0[None]))
+    cert0 = _stream_certified(out0[5], out0[6], certificate_rtol, dtype)
+    certified, several = read(torch.stack([cert0, m > 1]))
+    searched = (not certified) and several
+    order1, out1 = order0, out0
+    if searched:
+        order1, out1 = _exchange_search_shared(run_orders, order0, out0, m,
+                                               search_steps, read)
+        certified = read(_stream_certified(out1[5], out1[6],
+                                           certificate_rtol, dtype))
+    if certified:
+        order_f, table_f = order1, out1[0]
+    else:
+        from ..robust.degrade import ladder_plan_table
+        order_f = torch.argsort(torch.where(act, -rem, torch.inf),
+                                stable=True)
+        rem_l = torch.where(idx < m, rem[order_f], 0.0)
+        w_l = torch.where(idx < m, w[order_f], 0.0)
+        table_f = ladder_plan_table(ladder, rem_l, w_l, B=B_live)
+    warm2 = WarmStart(lam=out1[7], bracket=out1[8])
+    return order_f, table_f, m, certified, searched, out1[5], out1[6], warm2
+
+
+def stream_warm0(M: int, dtype=torch.float64, device=None) -> WarmStart:
+    """The "no hint yet" WarmStart the cascade starts from: zero λ
+    hints and the full-range cold bracket [tiny/eps, max/4] — ``_solve``
+    treats both exactly like absent hints, so the first replan prices
+    cold."""
+    dev = resolve_device(device)
+    fi = torch.finfo(dtype)
+    return WarmStart(
+        lam=torch.zeros((M,), dtype=dtype, device=dev),
+        bracket=torch.tensor([fi.tiny / fi.eps, fi.max / 4.0], dtype=dtype,
+                             device=dev))
+
+
+class StreamCascadePolicy:
+    """Host-side mirror of the device replanning cascade.
+
+    Same ``plan``/``release``/``reset`` surface as
+    ``StreamingSmartFillPolicy`` so it drops into ``StreamController``
+    unchanged, but every decision — ranking, certificate, exchange
+    search, warm-payload update — is made by the *same*
+    ``stream_replan_core`` the device event loop calls.  Running the
+    host event loop with this policy is therefore the differential
+    oracle for ``StreamController.run_device``: the two share only the
+    per-event planner and the window executor; event ordering, buffer
+    promotion, queueing, backfill and metrics are independent code paths
+    that must agree bit for bit.
+
+    Counter semantics (device-mirrored, coarser than the streaming
+    policy's): ``warm_replans`` counts replans certified on the fresh
+    hinted solve, ``cold_replans`` counts escalations (search or
+    ladder), ``order_searches`` counts search entries.  Solves run on
+    ``device`` (default: the device of ``sp``'s leaves, else CUDA).
+    """
+
+    device_ready = False
+    name = "cascadeSF"
+
+    def __init__(self, sp: Speedup, B: float | None = None, *,
+                 certificate_rtol: float = 1e-8, coarse: int = 32,
+                 descent_iters: int = 40, cap_iters: int = 64,
+                 stol_rel: float | None = None,
+                 search_steps: int | None = None, ladder=None, device=None):
+        self.device = resolve_device(device, sp)
+        self.sp = collapse_homogeneous(_on(sp, self.device, torch.float64))
+        if is_per_job(self.sp):
+            raise ValueError(
+                "StreamCascadePolicy is the shared-speedup cascade; "
+                "per-job streams replan through "
+                "StreamingSmartFillPolicy")
+        self.B = float(sp.B if B is None else B)
+        self.certificate_rtol = float(certificate_rtol)
+        self.coarse = int(coarse)
+        self.descent_iters = int(descent_iters)
+        self.cap_iters = int(cap_iters)
+        self.stol_rel = stol_rel
+        self.search_steps = search_steps
+        self._fast = _fast_ok(self.sp)
+        if ladder is None:
+            from ..robust.degrade import DegradingPolicy
+            ladder = DegradingPolicy.ladder(self.sp, B=self.B)
+        self.ladder = ladder
+        self.reset()
+
+    def reset(self) -> None:
+        self.warm: WarmStart | None = None
+        self.warm_replans = 0
+        self.cold_replans = 0
+        self.order_searches = 0
+
+    def release(self, slots) -> None:
+        """No carried order — nothing to forget on slot recycling."""
+
+    def plan(self, rem, w, active=None, B=None) -> StreamPlan:
+        dev = self.device
+        rem = _host(rem)
+        w = _host(w)
+        M = rem.shape[0]
+        act = (np.ones(M, bool) if active is None
+               else np.asarray(active, bool))
+        Bv = float(self.B if B is None else B)
+        if self.warm is None or tuple(self.warm.lam.shape) != (M,):
+            self.warm = stream_warm0(M, torch.float64, dev)
+        steps = (4 * M if self.search_steps is None
+                 else int(self.search_steps))
+        order, table, m_, cert, sd, J, J_lin, warm2 = stream_replan_core(
+            self.sp, self.ladder, as_tensor(rem, dev), as_tensor(w, dev),
+            as_tensor(act, dev), Bv, self.B, self.warm,
+            self.certificate_rtol, fast=self._fast, coarse=self.coarse,
+            descent_iters=self.descent_iters, cap_iters=self.cap_iters,
+            stol_rel=self.stol_rel, search_steps=steps)
+        self.warm = warm2
+        m = int(m_)
+        self.warm_replans += int(cert and not sd)
+        self.cold_replans += int(sd or not cert)
+        self.order_searches += int(sd)
+        return StreamPlan(order=order.cpu().numpy().astype(np.int64)[:m],
+                          table=table, J=float(J), J_linear=float(J_lin),
+                          m=m, B=Bv, warm=cert and not sd, certified=cert)
+
+    def __call__(self, rem, w, active, B=None):
+        """Host-policy adapter: the current-phase allocation column."""
+        return as_tensor(self.plan(rem, w, active, B=B).slot_allocations(),
+                         self.device)
