@@ -43,7 +43,9 @@ Phases (each one is a check; any failure exits non-zero):
      greedy tokens each; per wave the prefill ms, decode ms per token,
      tokens/s and peak memory.  Every prefill must launch the flash
      attention kernel (K5) once per local layer (8) and the linear scan
-     kernel (K4) once per RG-LRU layer (18);
+     kernel (K4) once per RG-LRU layer (18).  ``serve_phase``,
+     ``end_to_end_phase`` and ``kernel_record`` take the arch, so phase
+     16(b) drives Mamba through them;
   8. K5 and K4 against their plain versions on the q/k/v of the first
      local layer and the a/b of the first RG-LRU layer of wave 0: in f32
      (the inputs cast up, both run there) to a limit in units of the
@@ -84,8 +86,8 @@ Phases (each one is a check; any failure exits non-zero):
      mean gap 0 and every baseline's above 0; (b) the zoo at K = 1024 ×
      M = 32 under s = √θ, plain (SmartFill ≤ heSRPT·(1 + 1e-9) on every
      workload), with arrivals and with a fault trace per workload, with
-     wall time, events/s, instances/s and, for the plain and faulted
-     runs, device kernels and busy share; (c) the per-job five-family
+     wall time, events/s, instances/s and, for the plain run, device
+     kernels and busy share; (c) the per-job five-family
      fleet (K = 256, M = 16) under the pinned heteroSF with its cached
      plan (simulated J equal to the plan's on realized orders) and WMR,
      then a budget step that must invalidate the cached table (the
@@ -96,7 +98,7 @@ Phases (each one is a check; any failure exits non-zero):
      exceed.  Rehearse on the CPU with ``engine_phase(torch, np,
      torch.device("cpu"))``;
  13. class-aggregated planning in float64 (``classes_*`` lines): (a)
-     one million jobs as 8 classes through ``plan_classes`` (Σθ = B, J
+     one million jobs as 5 classes through ``plan_classes`` (Σθ = B, J
      = J_linear, J against the JAX package's and the port's CPU J, the
      numpy oracle not below it; wall time, jobs/s, one solve's device
      kernels and busy share); (b) ``plan_classes`` against
@@ -113,7 +115,7 @@ Phases (each one is a check; any failure exits non-zero):
      lines): (a) the ladder SmartFill → GWF-static → EQUI on 12(b)'s
      plain fleet, J, T and n_events bit for bit equal to SmartFill
      alone, with wall, device kernels, busy share and kernels an event
-     of both; ``degradation_report`` on two face-off instances, card
+     of both; ``degradation_report`` on a face-off instance, card
      and CPU, every event on rung 0; (b) the ladder with its primary
      sabotaged (NaN, overspend, negative while more than four jobs are
      active) over the face-off's 128 workloads, card against CPU (J, T
@@ -125,7 +127,7 @@ Phases (each one is a check; any failure exits non-zero):
      ``plan_sharded`` (K = 1000 in chunks of 192),
      ``simulate_ensemble_sharded`` (K = 256 in chunks of 60, with
      arrivals and with a fault trace per workload, under √θ) and
-     ``plan_classes_sharded`` (K = 5, chunks of 3), each bit for bit
+     ``plan_classes_sharded`` (K = 5, C = 5, chunks of 3), each bit for bit
      equal to its unsharded call on the card and held to the CPU; (e)
      ``examples/batched_planning.py`` §3's admission control, card
      against CPU (ΔJ 1e-9, the same admitted indices), the simulate
@@ -139,8 +141,8 @@ Phases (each one is a check; any failure exits non-zero):
      float64 under s = √θ, B = 10 (``stream_*`` and ``fleet_streams``
      lines): (a) the committed trace
      ``benchmarks/traces/arrivals_sample.csv`` and (b) the quick day
-     trace of ``benchmarks/perf_serve.py::bench_stream`` (seed 17, 2 h,
-     M = 8), each through ``StreamController.run`` with
+     trace of ``benchmarks/perf_serve.py::bench_stream`` (seed 17, its
+     first hour of 2 h, M = 8), each through ``StreamController.run`` with
      ``StreamCascadePolicy``, through ``run_device`` and through
      ``run_device`` in chunks of 17 events, bit for bit among the three
      on the card and held to the CPU's ``run_device`` (the same counters
@@ -151,24 +153,53 @@ Phases (each one is a check; any failure exits non-zero):
      trace under the default ``StreamingSmartFillPolicy``, card against
      CPU; (d) a primary planner that raises: every replan on the ladder,
      every admitted job completes, card against CPU; (e)
-     ``serve_streams_sharded`` at D = 1 over four tenants (seeds 17–20,
-     30 min, M = 8), each bit for bit to its solo ``run_device``, the
+     ``serve_streams_sharded`` at D = 1 over two of its four tenants
+     (seeds 17–18, the first 15 of their 30 min, M = 8), each bit for bit to its solo ``run_device``, the
      admission view equal to the CPU's; no K1–K5 launch (the float64
      CAP takes the closed form).  The CPU references run in spawned
      worker processes beside the card's runs.  Rehearse on the CPU with
      ``stream_phase(torch, np, torch.device("cpu"))`` (~115 s);
      ``tools/phase15_count.py`` counts its device operations.
+ 16. the cluster scheduler and Mamba serving: (a) ``sched/cluster.py``
+     in float64 (``cluster_*`` lines), each call held to the port's CPU
+     run of it (run in spawned workers beside the card's runs): the
+     eight fleets of ``examples/batched_planning.py`` §2 through
+     ``current_allocations_fleets`` (Σθ = B); the 12 jobs on 256 GPUs of
+     ``benchmarks/cluster_sim.py::bench_cluster`` through the cost-free
+     device path (SmartFill ≤ heSRPT), the host loop with a 30 s
+     reallocation cost and 2-chip merging, and integer chips (J to 1e-9,
+     the same allocation changes, their times and allocations to 1e-7:
+     SmartFill's schedule off the pure-power path; the event counts are
+     printed, and may differ by the host loop's ghost events,
+     ``schedule_of``); the ten configs'
+     roofline speedups as one 256-GPU pod (the plan against
+     ``smartfill_hetero``, the device path against the host loop to
+     1e-5); 256 fleets under a one-card fleet mesh, bit for bit to the
+     call without one; no K1–K5 launch.  (b) falcon-mamba-7b at full
+     width (``mamba_*`` lines) through phase 7's and 9's helpers: two
+     waves of B = 2 prompts of 4096 tokens, 16 greedy tokens each, every
+     prefill launching K4 exactly 64 layers × 16 chunks = 1024 times and
+     K5 never; K4 against its plain version across the first layer's
+     first chunk boundary (the carry folded into the second chunk), with
+     the carry dropped as a planted fault; wave 0 end to end through the
+     plain scan; K4's times at the chunk shape and the cost of its
+     wrapper's scratch.  Rehearse (a) with ``cluster_phase(torch, np,
+     torch.device("cpu"))`` (~50 s); ``tools/phase16_count.py`` counts
+     both parts' device operations.
 
 Launch counters are reset before phases 3–4 drive the planning path,
-before phase 7 drives the serving path, before phases 11, 13, 14 and
-15 and before each float32 run of phase 12, and read right after each;
+before phases 7 and 16(b) drive the serving paths, before phases 11,
+13, 14, 15 and 16(a) and before each float32 run of phase 12, and read
+right after each;
 the comparisons and timings come later and do not count.  Prints one
 JSON line per measurement, the kernel summary line ``{"kernels": [...]}``
 (five kernels, each with its device ms; K1 and K2 also with their
-launches inside the engine, ``engine_launches``), the card line, and last
+launches inside the engine, ``engine_launches``; K4 also with its Mamba
+path's launches and times, ``mamba_path``), the card line, and last
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -198,6 +229,8 @@ BF16_TC_OPS = 989e12      # dense bf16 tensor-core peak
 # the serving phases: one full-width model, three waves of requests
 ARCH = "recurrentgemma-2b"
 WAVES, BATCH, PROMPT, GEN = 3, 2, 4096, 16
+# phase 16(b): full-width Mamba, two waves of the same requests
+MAMBA_ARCH, MAMBA_WAVES = "falcon-mamba-7b", 2
 
 
 def fail(msg):
@@ -798,36 +831,56 @@ ATTN_FAULTS = {"window_plus_1": attn_window_plus_1,
                "causal_off": attn_causal_off}
 
 
-def serve_phase(torch, np, dev):
-    """Phase 7.  Returns the model, wave 0's prompt and tokens, its
-    captures, and the launches of the three waves."""
+def serve_taps(arch):
+    """Where ``serve_phase`` taps wave 0's kernel inputs for the later
+    checks: cap key → (module, attribute, calls kept)."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import rglru as rglru_mod
+    from repro_torch.models import scan_ops
+    if arch == MAMBA_ARCH:      # the first layer's first two chunks
+        return {"chunks": (scan_ops, "_scan_folded", 2)}
+    return {"qkv": (attn_mod, "flash_attention_op", 1),
+            "ab": (rglru_mod, "linear_scan_op", 1)}
+
+
+def serve_phase(torch, np, dev, arch=ARCH, waves=WAVES, expect=None,
+                prefix="serve"):
+    """Phase 7 (and 16(b)): ``arch`` at full width serves ``waves`` waves.
+    ``expect`` maps a kernel to (launches a prefill, exact?); by default
+    K5 at least once a local layer and K4 once an RG-LRU layer.  Lines
+    are ``<prefix>_model``, ``<prefix>_wave`` and ``<prefix>_main_path``.
+    Returns the model, wave 0's prompt and tokens, its captures (the
+    logits, and the kernel inputs of ``serve_taps``) and the launches of
+    all waves."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.linear_scan import kernel as sk
-    from repro_torch.models import attention as attn_mod
     from repro_torch.models import init_params
-    from repro_torch.models import rglru as rglru_mod
     from repro_torch.serve import ServeEngine
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     kinds = cfg.layer_kinds()
-    n_local, n_rglru = kinds.count("local"), kinds.count("rglru")
+    if expect is None:
+        expect = {"flash_attention": (kinds.count("local"), False),
+                  "linear_scan": (kinds.count("rglru"), False)}
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                         device=dev)
     torch.cuda.synchronize()
-    emit({"phase": "serve_model", "arch": cfg.name, "dtype": cfg.dtype,
+    emit({"phase": f"{prefix}_model", "arch": cfg.name, "dtype": cfg.dtype,
           "params": sum(p.numel() for p in model.parameters()),
-          "param_count": cfg.param_count(), "local_layers": n_local,
-          "rglru_layers": n_rglru,
+          "param_count": cfg.param_count(),
+          "layers": {k: kinds.count(k) for k in sorted(set(kinds))},
           "weights_gb": torch.cuda.memory_allocated() / 1e9,
           "init_s": time.perf_counter() - t0})
     eng = ServeEngine(model=model, max_len=PROMPT + GEN)
 
     # time each wave's prefill and decode with CUDA events (no host
     # sync inside generate), count K4/K5 launches per prefill, and keep
-    # wave 0's logits and the first local / RG-LRU layer's kernel inputs
-    cap = {"logits": [], "qkv": None, "ab": None}
+    # wave 0's logits and the tapped kernel inputs (copies: a tap's
+    # callee may overwrite them)
+    taps = serve_taps(arch)
+    cap = {"logits": [], **{key: [] for key in taps}}
     marks, per_prefill = [], []
     prefill0, step0 = eng._prefill, eng._step
 
@@ -854,33 +907,35 @@ def serve_phase(torch, np, dev):
             cap["logits"].append(logits)
         return logits, state
 
-    def first(key, fn):
+    def tap(key, fn, n):
         def run(*args, **kw):
-            if len(marks) == 1 and cap[key] is None:
-                cap[key] = (args, kw)
+            if len(marks) == 1 and len(cap[key]) < n:
+                cap[key].append((
+                    tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                          for a in args), dict(kw)))
             return fn(*args, **kw)
         return run
 
     eng._prefill, eng._step = prefill, step
     rng = np.random.default_rng(0)
     prompts = [rng.integers(2, cfg.vocab, (BATCH, PROMPT)) for _ in
-               range(WAVES)]
+               range(waves)]
     torch.cuda.synchronize()
     outs = []
     fk.reset_launches()
     sk.reset_launches()
-    with mock.patch.object(attn_mod, "flash_attention_op",
-                           first("qkv", attn_mod.flash_attention_op)), \
-            mock.patch.object(rglru_mod, "linear_scan_op",
-                              first("ab", rglru_mod.linear_scan_op)):
-        for w in range(WAVES):
+    with contextlib.ExitStack() as stack:
+        for key, (mod, attr, n) in taps.items():
+            stack.enter_context(mock.patch.object(
+                mod, attr, tap(key, getattr(mod, attr), n)))
+        for w in range(waves):
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             out = eng.generate({"tokens": prompts[w]}, GEN)
             wall = time.perf_counter() - t0
             ev = marks[w]
             outs.append(out)
-            emit({"phase": "serve_wave", "wave": w,
+            emit({"phase": f"{prefix}_wave", "wave": w,
                   "prefill_ms": ev[0].elapsed_time(ev[1]),
                   "decode_ms_per_token": ev[1].elapsed_time(ev[-1])
                   / (GEN - 1),
@@ -892,12 +947,16 @@ def serve_phase(torch, np, dev):
                   "first_tokens": out[:, :4].tolist()})
     launches = {"flash_attention": fk.LAUNCHES["flash_attention"],
                 "linear_scan": sk.LAUNCHES["linear_scan"]}
-    emit({"phase": "serve_main_path", "launches": launches,
-          "per_prefill": per_prefill})
-    for w, (n5, n4) in enumerate(per_prefill):
-        check(n5 >= n_local and n4 >= n_rglru,
-              f"wave {w}'s prefill launched K5 {n5}×, K4 {n4}× (at least "
-              f"{n_local} and {n_rglru} expected)")
+    emit({"phase": f"{prefix}_main_path", "launches": launches,
+          "per_prefill": per_prefill,
+          "expected_per_prefill": {k: list(v) for k, v in expect.items()}})
+    for w, counts in enumerate(per_prefill):
+        for (name, (n, exact)), got in zip(
+                (("flash_attention", expect["flash_attention"]),
+                 ("linear_scan", expect["linear_scan"])), counts):
+            check(got == n if exact else got >= n,
+                  f"{arch}: wave {w}'s prefill launched {name} {got}× "
+                  f"({'exactly' if exact else 'at least'} {n} expected)")
     for out in outs:
         check(out.shape == (BATCH, GEN) and out.dtype == np.int32
               and bool(((out >= 0) & (out < cfg.vocab)).all()),
@@ -906,8 +965,9 @@ def serve_phase(torch, np, dev):
     for lg in cap["logits"]:
         check(lg.shape == (BATCH, cfg.vocab) and bool(torch.isfinite(lg).all()),
               "non-finite or misshapen logits in wave 0")
-    check(cap["qkv"] is not None and cap["ab"] is not None,
-          "wave 0's kernel inputs were not captured")
+    for key, (_, _, n) in taps.items():
+        check(len(cap[key]) == n,
+              f"wave 0's kernel inputs {key!r} were not captured")
     return model, prompts[0], outs[0], cap, launches
 
 
@@ -919,7 +979,7 @@ def kernel_phase(torch, cap):
     from repro_torch.kernels.linear_scan import kernel as sk
     from repro_torch.kernels.linear_scan.ref import linear_scan_ref
 
-    (q, k, v), kw = cap["qkv"]
+    (q, k, v), kw = cap["qkv"][0]
     kw = {n: kw[n] for n in ("causal", "window", "cap")}
     check(kw["causal"] and kw["window"] is not None,
           f"the first local layer's attention is not a causal window: {kw}")
@@ -944,7 +1004,7 @@ def kernel_phase(torch, cap):
                 name = "causal_off_one_tile"
             r5[f"{dt}fault_{name}"] = rms_err(wrong, plain)
 
-    a, b = cap["ab"][0][:2]
+    a, b = cap["ab"][0][0][:2]
     plain4 = linear_scan_ref(a, b)
     sound4 = sk.linear_scan(a, b)
     r4 = {"f32_rms_units": rms_err(sound4, plain4),
@@ -1124,43 +1184,103 @@ def teacher_forced(torch, model, prompt, tokens):
     return out
 
 
-def end_to_end_phase(torch, model, prompt, out, cap):
-    """Phase 9: wave 0 through the plain versions, teacher-forced on the
-    kernel run's tokens, logits in units of the plain run's std: the bf16
-    path itself, then the same weights in f32; planted faults in K4 and
-    K5 must read over the limits."""
-    import copy
+def kernel_sites(arch):
+    """The model's kernel call sites for ``arch``: kernel → (module,
+    attribute, plain version)."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.linear_scan.ref import linear_scan_ref
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import rglru as rglru_mod
+    from repro_torch.models import scan_ops
+    if arch == MAMBA_ARCH:
+        return {"K4": (scan_ops, "linear_scan_op", linear_scan_ref)}
+    return {"K5": (attn_mod, "flash_attention_op", attention_ref),
+            "K4": (rglru_mod, "linear_scan_op", linear_scan_ref)}
 
+
+E2E_FAULTS = {"bf16": ["K4_no_carry"],
+              "f32": ["K4_carry_reset_halfway", "K4_step_one_slot_late",
+                      "K5_window_plus_1", "K5_dropped_last_kv_tile",
+                      "K5_causal_off"]}
+
+
+def linear_scan_f64(a, b, block=16):
+    """The plain scan with its state in float64, rounded to a's dtype at
+    the end: a plain version more exact than ``linear_scan_ref``, whose
+    distance from it is the end-to-end floor of a deep model.  Blocks of
+    ``block`` steps are scanned side by side from a zero state with their
+    running products of a, then the carry goes from block to block (in
+    float64 the order of the sums moves nothing at f32's scale)."""
+    import torch
+    B_, S, D = a.shape
+    n = -(-S // block)
+    A = torch.ones(B_, n * block, D, dtype=torch.float64, device=a.device)
+    Bv = torch.zeros_like(A)
+    A[:, :S], Bv[:, :S] = a, b
+    A, Bv = A.view(B_, n, block, D), Bv.view(B_, n, block, D)
+    hs, ps = torch.empty_like(A), torch.empty_like(A)
+    h, p = torch.zeros_like(A[:, :, 0]), torch.ones_like(A[:, :, 0])
+    for t in range(block):
+        h = A[:, :, t] * h + Bv[:, :, t]
+        p = p * A[:, :, t]
+        hs[:, :, t], ps[:, :, t] = h, p
+    carry = torch.zeros_like(A[:, 0, 0])
+    for k in range(n):
+        hs[:, k] += ps[:, k] * carry[:, None]
+        carry = hs[:, k, -1]
+    return hs.view(B_, n * block, D)[:, :S].to(a.dtype)
+
+
+def end_to_end_phase(torch, model, prompt, out, cap, arch=ARCH,
+                     prefix="serve", floor=False):
+    """Phase 9 (and 16(b)): wave 0 through the plain versions,
+    teacher-forced on the kernel run's tokens, logits in units of the
+    plain run's std: the bf16 path itself, then the same weights in f32;
+    planted faults of the model's kernels (``E2E_FAULTS``) must read over
+    the limits.  With ``floor`` the plain run is also taken with K4's
+    state in float64 (``linear_scan_f64``): its distance from the plain
+    run is what rounding alone moves the logits by, and the limit is the
+    larger of phase 9's and twice that floor (a kernel as exact as the
+    plain version reads at most its own and the plain version's distance
+    from the exact scan).  Prints ``<prefix>_end_to_end``."""
+    import copy
+
+    sites = kernel_sites(arch)
     fed = torch.as_tensor(out[:, :-1], device=model.device)
 
-    def plain_run(m):
-        """The model's two kernel call sites swapped for the plain
-        versions, as ``faults`` swaps them for planted faults."""
-        with mock.patch.object(attn_mod, "flash_attention_op",
-                               attention_ref), \
-                mock.patch.object(rglru_mod, "linear_scan_op",
-                                  linear_scan_ref):
+    def plain_run(m, plain_fns=None):
+        """The model's kernel call sites swapped for the plain versions
+        (or for ``plain_fns[kernel]``), as ``faults`` swaps them for
+        planted faults."""
+        with contextlib.ExitStack() as stack:
+            for kernel, (mod, attr, plain_fn) in sites.items():
+                fn = (plain_fns or {}).get(kernel, plain_fn)
+                stack.enter_context(mock.patch.object(mod, attr, fn))
             return teacher_forced(torch, m, prompt, fed)
 
     def per_step(logits, plain):
         return [float((x.float() - y.float()).abs().max() / y.float().std())
                 for x, y in zip(logits, plain)]
 
-    def faults(m, names, plain):
+    def faults(m, dtype, plain):
         got = {}
-        for name in names:
+        for name in E2E_FAULTS[dtype]:
             kernel, fault = name.split("_", 1)
-            where = ((rglru_mod, "linear_scan_op", SCAN_FAULTS[fault])
-                     if kernel == "K4" else
-                     (attn_mod, "flash_attention_op", ATTN_FAULTS[fault]))
-            with mock.patch.object(*where):
+            if kernel not in sites:
+                continue
+            mod, attr, _ = sites[kernel]
+            wrong = (SCAN_FAULTS if kernel == "K4" else ATTN_FAULTS)[fault]
+            with mock.patch.object(mod, attr, wrong):
                 got[name] = max(per_step(teacher_forced(
                     torch, m, prompt, fed), plain))
         return got
+
+    def with_floor(r, m, plain, limit):
+        if floor:
+            r["floor"] = max(per_step(
+                plain_run(m, {"K4": linear_scan_f64}), plain))
+        r["limit"] = max(limit, 2.0 * r.get("floor", 0.0))
+        return r
 
     t0 = time.perf_counter()
     plain = plain_run(model)
@@ -1169,31 +1289,30 @@ def end_to_end_phase(torch, model, prompt, out, cap):
     steps = per_step(cap["logits"], plain)
     tokens_equal = bool((torch.stack([x.argmax(-1) for x in plain], 1)
                          .cpu().numpy() == out).all())
-    r16 = {"sound": max(steps), "per_step": steps,
-           "faults": faults(model, ["K4_no_carry"], plain),
-           "greedy_tokens_equal": tokens_equal, "plain_run_s": plain_s}
+    r16 = with_floor({"sound": max(steps), "per_step": steps,
+                      "faults": faults(model, "bf16", plain),
+                      "greedy_tokens_equal": tokens_equal,
+                      "plain_run_s": plain_s}, model, plain, E2E_BF16_LIMIT)
     del plain
 
     m32 = copy.deepcopy(model).float()
     plain = plain_run(m32)
-    r32 = {"sound": max(per_step(teacher_forced(torch, m32, prompt, fed),
-                                 plain)),
-           "faults": faults(m32, ["K4_carry_reset_halfway",
-                                  "K4_step_one_slot_late",
-                                  "K5_window_plus_1",
-                                  "K5_dropped_last_kv_tile",
-                                  "K5_causal_off"], plain)}
+    steps = per_step(teacher_forced(torch, m32, prompt, fed), plain)
+    r32 = with_floor({"sound": max(steps), "per_step": steps,
+                      "faults": faults(m32, "f32", plain)}, m32, plain,
+                     E2E_F32_LIMIT)
     del m32, plain
-    emit({"phase": "serve_end_to_end",
+    emit({"phase": f"{prefix}_end_to_end",
           "limits": {"bf16": E2E_BF16_LIMIT, "f32": E2E_F32_LIMIT},
           "bf16": r16, "f32": r32})
-    for name, r, lim in (("bf16", r16, E2E_BF16_LIMIT),
-                         ("f32", r32, E2E_F32_LIMIT)):
-        check(r["sound"] <= lim, f"end to end in {name}, kernels vs plain: "
-                                 f"{r['sound']:.3e} > {lim}")
+    for name, r in (("bf16", r16), ("f32", r32)):
+        lim = r["limit"]
+        check(r["sound"] <= lim, f"{arch} end to end in {name}, kernels vs "
+                                 f"plain: {r['sound']:.3e} > {lim}")
+        check(r["faults"], f"{arch} end to end in {name}: no planted fault")
         for fault, val in r["faults"].items():
-            check(val > lim, f"end to end in {name}: the planted fault "
-                             f"{fault} reads {val:.3e}, within {lim}")
+            check(val > lim, f"{arch} end to end in {name}: the planted "
+                             f"fault {fault} reads {val:.3e}, within {lim}")
 
 
 def serve_profile(torch, model, prompt):
@@ -1235,6 +1354,31 @@ def serve_profile(torch, model, prompt):
     emit({"phase": "serve_profile", **got})
 
 
+def kernel_record(torch, name, src, tpu, op, plain_runs, bound_, lib_ms,
+                  launches, err, phase="time"):
+    """One kernel's line of the summary: op ms (``op("cuda")``), plain ms
+    (``op("ref")``), the kernel's device ms from a profiler trace, the
+    bound, the library call's ms.  Prints it as a ``phase`` line."""
+    ms_k = timed(torch, lambda: op("cuda"))
+    ms_p = timed(torch, lambda: op("ref"), runs=plain_runs)
+    mine, _ = traced_kernel(torch, lambda: op("cuda"), f"{name}_kernel")
+    n = len(mine)
+    check(n > 0, f"the profiler saw no {name} kernel on the device")
+    b_ms, by = bound_
+    rec = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+           "launches": launches, "max_abs_err": err, "ms": ms_k,
+           "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": by,
+           "library_ms": lib_ms, "kernel_device_ms": sum(mine) / 1e6 / n}
+    emit({"phase": phase, **rec, "traced_launches": n})
+    return rec
+
+
+def scan_bound(a):
+    """K4's bound on (B, S, D) inputs: a and b read, h written; two f32
+    operations a step and channel."""
+    return bound(a.element_size() * 3 * a.numel(), 2 * a.numel())
+
+
 def serve_times(torch, cap, launches, errs):
     """Phase 10: K5 and K4 at the path's shapes: kernel and plain ms,
     the kernel's device ms, the bound, K5's library yardstick."""
@@ -1242,9 +1386,9 @@ def serve_times(torch, cap, launches, errs):
     from repro_torch.kernels.flash_attention import ops as fo
     from repro_torch.kernels.linear_scan import ops as so
 
-    (q, k, v), kw = cap["qkv"]
+    (q, k, v), kw = cap["qkv"][0]
     kw = {n: kw[n] for n in ("causal", "window", "cap")}
-    a, b = cap["ab"][0][:2]
+    a, b = cap["ab"][0][0][:2]
     B_, S, H, hd = q.shape
     W = kw["window"]
     # valid (q, k) pairs of one (b, h) row block: min(i + 1, W) keys for
@@ -1252,8 +1396,6 @@ def serve_times(torch, cap, launches, errs):
     pairs = sum(min(i + 1, W) for i in range(S))
     k5_ops = 4 * B_ * H * hd * pairs
     k5_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    k4_bytes = a.element_size() * 3 * a.numel()
-    k4_ops = 2 * a.numel()
     pos = torch.arange(S, device=q.device)
     mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1264,30 +1406,17 @@ def serve_times(torch, cap, launches, errs):
 
     lib_err = rel_err(sdpa().transpose(1, 2),
                       fo.attention_ref(q, k, v, **kw))
-    calls = {
-        "flash_attention": (
-            CU_K5, TPU_K5, lambda impl: fo.flash_attention_op(
-                q, k, v, impl=impl, **kw),
-            5, bound(k5_bytes, k5_ops, BF16_TC_OPS), timed(torch, sdpa)),
-        "linear_scan": (
-            CU_K4, TPU_K4, lambda impl: so.linear_scan_op(a, b, impl=impl),
-            3, bound(k4_bytes, k4_ops), None),
-    }
-    recs = []
-    for name, (src, tpu, op, plain_runs, (b_ms, by), lib_ms) in calls.items():
-        ms_k = timed(torch, lambda: op("cuda"))
-        ms_p = timed(torch, lambda: op("ref"), runs=plain_runs)
-        mine, _ = traced_kernel(torch, lambda: op("cuda"), f"{name}_kernel")
-        n = len(mine)
-        check(n > 0, f"the profiler saw no {name} kernel on the device")
-        dev_ms = sum(mine) / 1e6 / n
-        rec = {"name": name, "route": "cuda", "source": src,
-               "replaces": tpu, "launches": launches[name],
-               "max_abs_err": errs[name], "ms": ms_k, "plain_ms": ms_p,
-               "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
-               "kernel_device_ms": dev_ms}
-        recs.append(rec)
-        emit({"phase": "time", **rec, "traced_launches": n})
+    recs = [
+        kernel_record(torch, "flash_attention", CU_K5, TPU_K5,
+                      lambda impl: fo.flash_attention_op(q, k, v, impl=impl,
+                                                         **kw),
+                      5, bound(k5_bytes, k5_ops, BF16_TC_OPS),
+                      timed(torch, sdpa), launches["flash_attention"],
+                      errs["flash_attention"]),
+        kernel_record(torch, "linear_scan", CU_K4, TPU_K4,
+                      lambda impl: so.linear_scan_op(a, b, impl=impl),
+                      3, scan_bound(a), None, launches["linear_scan"],
+                      errs["linear_scan"])]
     q32, k32, v32 = q.float(), k.float(), v.float()
     emit({"phase": "K5_f32_time", "q": list(q.shape), **kw,
           "ms": timed(torch, lambda: fo.flash_attention_op(
@@ -1664,7 +1793,7 @@ def engine_phase(torch, np, dev):
                                                   .abs().max())
             check(bool((Jsf <= Jhe * (1 + 1e-9)).all()),
                   f"fleet: SmartFill above heSRPT·(1 + 1e-9): {r}")
-        if on_card and name in ("plain", "faults"):
+        if on_card and name == "plain":
             wall_p, busy, n_dev, n_launch = device_profile(
                 torch, lambda run=run: (run(dev), sync()))
             check(busy > 0, f"fleet {name}: the profile saw no device work")
@@ -1835,21 +1964,22 @@ def engine_phase(torch, np, dev):
 # through plan_classes_batched against the port's CPU run; (e) the ten
 # configs' roofline speedups on one 256-GPU pod.
 #
-# (a) is cut from the example's C = 32 classes of 31,250 jobs to C = 8
-# of 125,000 (the same million jobs): the per-job planner issues its
+# (a) is cut from the example's C = 32 classes of 31,250 jobs to C = 5
+# of 200,000 (the same million jobs): the per-job planner issues its
 # small kernels from the host, a `_solve` at M = 32 with the class knobs
 # takes ~27 s on the card (`tools/class_solve_time.py`) and plan_classes
 # makes 41 of them at C = 32 (its exchange search; `--count` of the same
-# tool), more than the 1200 s the whole script may take; at C = 8
-# it makes 10.  J of (a) on the CPU, from
-#   PYTHONPATH=src python tools/class_reference.py 1 8 125000
+# tool), more than the 1200 s the whole script may take.  C = 8 (4.51
+# M operations counted on the CPU, ~80 s on the card) gave way to C = 5
+# (1.03 M) for phase 16's room.  J of (a) on the CPU, from
+#   PYTHONPATH=src python tools/class_reference.py 1 5 200000
 # (the JAX package's plan_classes compiled, its recursion op by op at
-# that order, and the port's plan_classes; all three agree to 1.2e-16).
-CLASS_SEED, CLASS_C, CLASS_PER = 1, 8, 125_000
+# that order, and the port's plan_classes; all three agree to 4.4e-16).
+CLASS_SEED, CLASS_C, CLASS_PER = 1, 5, 200_000
 CLASS_KNOBS = dict(coarse=64, descent_iters=96, cap_iters=64,
                    exchange_passes=2, exchange_window=1, stol_rel=1e-10)
-J_CLASS_REF = 517115540232.1484
-J_CLASS_PORT_CPU = 517115540232.14844
+J_CLASS_REF = 13375083293911.18
+J_CLASS_PORT_CPU = 13375083293911.186
 # (b)'s anchor plans 5 one-job classes twice (plan_classes and
 # smartfill_hetero, each with its exchange search): 8 took ~86 s on the
 # card, 5 about half as many device operations (aten operations counted
@@ -2070,18 +2200,18 @@ def classes_phase(torch, np, dev):
 # Float64 throughout, so no K1–K5 launch.  (a) the certified ladder
 # (SmartFill → GWF-static → EQUI) on phase 12(b)'s plain fleet, bit for
 # bit equal to SmartFill alone, with its cost an event beside SmartFill's;
-# then degradation_report on two face-off instances of ≥ 6 live jobs,
+# then degradation_report on a face-off instance of ≥ 6 live jobs,
 # card and CPU, all events on rung 0; (b) the same ladder with its
 # primary sabotaged (NaN, overspend, negative while more than four jobs
 # are active) over the face-off's 128 workloads, card against CPU, and
-# the rung counts of the two instances, which must show rung 1; (c)
+# the rung counts of the instance, which must show rung 1; (c)
 # certify_plan on phase 5's quickstart schedule and on the largest plan
 # of phase 11's per-job fleet, and two planted faults that must fail on
 # the field they break; (d) examples/fleet_sweep.py on a one-card mesh:
 # plan_sharded (1000 instances in chunks of 192), simulate_ensemble_sharded
 # (256 workloads in chunks of 60, with arrivals and with a fault trace
 # each, under √θ: see (d)) and
-# plan_classes_sharded (8 class instances in chunks of 3), each held bit
+# plan_classes_sharded (5 class instances in chunks of 3), each held bit
 # for bit to its unsharded call on the card and to the port's CPU run;
 # (e) examples/batched_planning.py §3's admission control on the card
 # against the CPU, the simulate estimator with and without a fleet mesh,
@@ -2092,15 +2222,17 @@ ROBUST_RTOL = 1e-6        # card vs CPU, the engine's (phase 12)
 ADMIT_RTOL = 1e-9         # admission ΔJ, card vs CPU
 SWEEP_K, SWEEP_M, SWEEP_CHUNK = 1000, 16, 192
 ENS_K, ENS_M, ENS_CHUNK, ENS_SEED, ENS_FAULT_SEED = 256, 8, 60, 1, 2
-# The sharded class batch (d) is five instances in chunks of 3 (two
-# chunks, one padded row) and the degradation reports (a, b) run on two
-# face-off instances: each chunk is a whole launch-bound call (~8 s) and
-# each sabotaged report ~3 s an instance on the card, cut from eight
-# instances and four reports to keep the whole script within its time.
-CLS_SEED, CLS_K, CLS_C, CLS_CHUNK = 7, 5, 8, 3
+# The sharded class batch (d) is five instances of five classes in
+# chunks of 3 (two chunks, one padded row) and the degradation reports
+# (a, b) run on one face-off instance: each chunk is a whole
+# launch-bound call (~8 s) and each sabotaged report ~3 s an instance on
+# the card, cut from eight instances, eight classes (0.72 M operations
+# against 1.36 M counted on the CPU) and four reports to keep the whole
+# script within its time (PERF.md §4).
+CLS_SEED, CLS_K, CLS_C, CLS_CHUNK = 7, 5, 5, 3
 QUEUE_R, QUEUE_C, QUEUE_SEED = 32, 255, 14
 SABOTAGE_MIN_ACTIVE = 4
-REPORT_N, REPORT_MIN_LIVE = 2, 6
+REPORT_N, REPORT_MIN_LIVE = 1, 6
 
 
 def timed_call(sync, run):
@@ -2219,7 +2351,7 @@ def robust_phase(torch, np, dev, quickstart=None, hetero_fleet=None):
     check(not diff and r["all_finished"],
           f"the healthy ladder is not SmartFill bit for bit: {diff}")
 
-    # the face-off instances (ln(1+θ)); four with ≥ REPORT_MIN_LIVE jobs
+    # the first face-off instance (ln(1+θ)) with ≥ REPORT_MIN_LIVE jobs
     fo = sample_workloads(seed=FACEOFF_SEED, K=FACEOFF_K, M=FACEOFF_M, B=B,
                           m_range=(3, FACEOFF_M))
     picks = [int(k) for k in np.flatnonzero(fo.m >= REPORT_MIN_LIVE)
@@ -2574,16 +2706,19 @@ def robust_phase(torch, np, dev, quickstart=None, hetero_fleet=None):
 # (b)'s trace under the default StreamingSmartFillPolicy, card against
 # CPU; (d) a primary planner that raises: every replan on the ladder;
 # (e) serve_streams_sharded at D = 1 over the quick multi-tenant traces
-# of perf_serve.bench_multitenant_worker (four tenants), each tenant bit
-# for bit to its solo run_device, the admission view equal to the CPU's.
+# of perf_serve.bench_multitenant_worker, each tenant bit for bit to its
+# solo run_device, the admission view equal to the CPU's.  For phase
+# 16's room (b)'s trace stops at 3600 s of its 7200 s day (at 1800 s an
+# arrival would still be running at its end) and (e) runs two of the
+# four tenants for 900 s of their 1800 s (PERF.md §4).
 STREAM_M = 8
 STREAM_RTOL = 1e-9        # card vs CPU: completion times and weighted J
 STREAM_TRACE = "benchmarks/traces/arrivals_sample.csv"
-DAY_TRACE = dict(seed=17, horizon=7200.0, rate=0.12, diurnal=0.75,
+DAY_TRACE = dict(seed=17, horizon=3600.0, rate=0.12, diurnal=0.75,
                  period=7200.0, n_budget_events=2, budget_frac=(0.3, 0.8),
                  deadline_slack=50.0)
 BROKEN_TRACE, BROKEN_M = dict(seed=5, horizon=4000.0, rate=0.01), 4
-TENANT_SEEDS, TENANT_HORIZON = (17, 18, 19, 20), 1800.0
+TENANT_SEEDS, TENANT_HORIZON, TENANT_PERIOD = (17, 18), 900.0, 1800.0
 PROFILE_EVENTS = 20
 STREAM_COUNTERS = ("replans", "warm_replans", "cold_replans",
                    "degraded_windows", "n_events")
@@ -2642,7 +2777,7 @@ def stream_inputs():
         "broken": sample_arrival_stream(B=B, **BROKEN_TRACE),
         "tenants": [sample_arrival_stream(
             s, horizon=TENANT_HORIZON, rate=0.12, diurnal=0.75,
-            period=TENANT_HORIZON, B=B, n_budget_events=2,
+            period=TENANT_PERIOD, B=B, n_budget_events=2,
             budget_frac=(0.3, 0.8), deadline_slack=50.0)
             for s in TENANT_SEEDS]}
 
@@ -2847,6 +2982,394 @@ def _stream_checks(torch, np, dev, reference):
     check(not any(launches.values()),
           f"a kernel was launched in the streaming phase: {launches}")
     return launches
+
+
+# ---- 16(a). the cluster scheduler, float64 -----------------------------------
+# ``sched/cluster.py`` on the card, each call held to the port's CPU run of
+# the same call: examples/batched_planning.py §2's eight fleets;
+# benchmarks/cluster_sim.py::bench_cluster's instance (12 jobs on 256 GPUs
+# under job_speedup's analytic roofline: the repo holds no dry-run JSON)
+# through the cost-free device path (SmartFill ≤ heSRPT), the host loop
+# with a 30 s reallocation cost and 2-chip merging, and integer chips;
+# the ten configs' roofline speedups as the jobs of one 256-GPU pod (the
+# plan, and the device and host paths against each other at the
+# reference's 1e-5, tests/sched/test_cluster.py:213-221); and 256 fleets
+# under a one-card fleet mesh, bit for bit to the call without one.  The
+# float64 CAP takes the closed form: no K1–K5 launch.
+CLUSTER_GPUS, CLUSTER_M, CLUSTER_FLEETS = 256.0, 12, 256
+CLUSTER_RTOL = 1e-9        # card vs CPU: J; Σθ = B
+# card vs CPU: allocations (over B) and event times (relative).  Off the
+# pure-power path SmartFill's schedule is determined only to ~1e-7 (μ*
+# sits at a flat minimum; J to ~1e-16): the §2 fleets have read 6.1e-9
+# of B between card and CPU on the H100 (PERF.md §6).
+CLUSTER_THETA_RTOL = 1e-7
+CLUSTER_PATHS_RTOL = 1e-5  # the pod's device path vs its host loop
+
+
+CLUSTER_SIMS = {"cost_free": {},
+                "realloc30_merge2": {"realloc_cost_s": 30.0, "min_delta": 2.0},
+                "integer_chips": {"integer_chips": True}}
+CLUSTER_JOBS = ("fleets", *CLUSTER_SIMS, "pod_plan", "pod_ref",
+                "pod_device", "pod_host", "many_fleets")
+
+
+def batched_planning_fleets(np, Job):
+    """examples/batched_planning.py §2's eight fleets: its generator after
+    §1's draws (N = 256 instances of 2..16 jobs)."""
+    rng = np.random.default_rng(0)
+    ms = rng.integers(2, 16 + 1, 256)
+    for n in range(256):
+        rng.uniform(0.5, 20.0, ms[n])
+    fleets = []
+    for _ in range(8):
+        k = int(rng.integers(2, 7))
+        sizes = np.sort(rng.uniform(50.0, 500.0, k))[::-1]
+        fleets.append([Job(name=f"j{i}", size=float(s), weight=float(1.0 / s))
+                       for i, s in enumerate(sizes)])
+    return fleets
+
+
+def cluster_call(job, d):
+    """Phase 16(a)'s call ``job`` on device ``d`` (instance built there),
+    its result in host values."""
+    import numpy as np
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.core import log_speedup, smartfill_hetero, stack_speedups
+    from repro_torch.core.speedup import host_call
+    from repro_torch.sched.cluster import ClusterScheduler, Job
+    from repro_torch.sched.speedup_models import job_speedup
+
+    if job in ("fleets", "many_fleets"):
+        cs = ClusterScheduler(log_speedup(1.0, 1.0, B, device=d), B)
+        if job == "fleets":
+            return cs.current_allocations_fleets(
+                batched_planning_fleets(np, Job))
+        rng = np.random.default_rng(3)
+        many = []
+        for n in range(CLUSTER_FLEETS):
+            sz = np.sort(rng.uniform(50.0, 500.0, int(rng.integers(2, 17))))
+            many.append([Job(name=f"f{n}j{i}", size=float(s),
+                             weight=float(1.0 / s))
+                         for i, s in enumerate(sz[::-1])])
+        return cs.current_allocations_fleets(many)
+    if job in CLUSTER_SIMS:
+        # benchmarks/cluster_sim.py::bench_cluster's instance
+        sp = job_speedup(step_flops=6 * 7e9 * 1e6, grad_bytes=2 * 7e9,
+                         tokens_per_step=1e6, B=CLUSTER_GPUS, device=d)
+        rng = np.random.default_rng(0)
+        sizes = np.sort(rng.uniform(1.0, 20.0, CLUSTER_M))[::-1] * 1e9
+        jobs = [Job(name=f"job{i}", size=float(sizes[i]),
+                    weight=float(1.0 / sizes[i])) for i in range(CLUSTER_M)]
+        return ClusterScheduler(sp, CLUSTER_GPUS,
+                                **CLUSTER_SIMS[job]).simulate(jobs)
+    # the ten configs' roofline speedups on one 256-GPU pod
+    names = sorted(list_archs())
+    members = [job_speedup(
+        step_flops=6.0 * get_config(a).active_param_count() * POD_TOKENS,
+        grad_bytes=2.0 * get_config(a).param_count(),
+        tokens_per_step=POD_TOKENS, B=POD_GPUS, device=d) for a in names]
+    x = np.random.default_rng(0).uniform(2, 15, len(names)) * 1e9
+    w = np.array([float(host_call(m, "s", POD_GPUS)) for m in members]) / x
+    jobs = [Job(name=a, size=float(x[i]), weight=float(w[i]),
+                speedup=members[i]) for i, a in enumerate(names)]
+    cs = ClusterScheduler(members[0], POD_GPUS)
+    if job == "pod_plan":
+        order, plan = cs.plan(jobs)
+        return [int(i) for i in order], plan.J, plan.J_linear
+    if job == "pod_ref":            # the reference test's check of the plan
+        ref = smartfill_hetero(stack_speedups(members, B=POD_GPUS), x, w,
+                               B=POD_GPUS, exchange_passes=0)
+        return [int(i) for i in ref.order], ref.J
+    if job == "pod_device":
+        return cs.simulate(jobs)
+    return cs.simulate_host(jobs)
+
+
+def cluster_reference(job):
+    """(result, wall s) of phase 16(a)'s call ``job`` on the CPU; on the
+    card's host in a spawned worker of one thread (as phase 15's)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = cluster_call(job, torch.device("cpu"))
+    return out, time.perf_counter() - t0
+
+
+def schedule_of(np, events):
+    """The events at which the allocation changes.  The host loop marks a
+    job done once its remaining size is ≤ 1e-9; a completion that leaves
+    a rounding residue above that (sizes here are ~1e9–2e10 tokens) is
+    finished by one more event a moment later that keeps the allocation
+    (a merge), and which completion leaves one depends on the last bits."""
+    out = []
+    for t, th in events:
+        if not out or not np.array_equal(th, out[-1][1]):
+            out.append((t, th))
+    return out
+
+
+def cluster_runs_close(np, run, ref, B_):
+    """Readings of two (events, J) runs: event counts, J, and the times
+    and allocations (over B) of their schedules (``schedule_of``)."""
+    (ev, J), (ev_r, J_r) = run, ref
+    r = {"events": len(ev), "cpu_events": len(ev_r), "J": J,
+         "dJ": abs(J - J_r) / abs(J_r)}
+    ev, ev_r = schedule_of(np, ev), schedule_of(np, ev_r)
+    r.update(changes=len(ev), cpu_changes=len(ev_r),
+             ghost_events=r["events"] - len(ev),
+             cpu_ghost_events=r["cpu_events"] - len(ev_r))
+    if len(ev) == len(ev_r):
+        r["dt"] = max((abs(t - tr) / max(1.0, abs(tr))
+                       for (t, _), (tr, _) in zip(ev, ev_r)), default=0.0)
+        r["dtheta"] = max((float(np.abs(th - thr).max()) / B_
+                           for (_, th), (_, thr) in zip(ev, ev_r)),
+                          default=0.0)
+    return r
+
+
+def cluster_ok(r):
+    """The same schedule, card against CPU: as many allocation changes,
+    at the same times, to the same allocations, and J to 1e-9.  The raw
+    event counts may differ by ghost events (``schedule_of``): on the
+    H100 the integer-chip run has made 12 events on the card and 13 on
+    the CPU over the same 12 changes, which is recorded, not held."""
+    return (r["dJ"] <= CLUSTER_RTOL and r["changes"] == r["cpu_changes"]
+            and r["dt"] <= CLUSTER_THETA_RTOL
+            and r["dtheta"] <= CLUSTER_THETA_RTOL)
+
+
+def cluster_phase(torch, np, dev):
+    """Phase 16(a): the cluster scheduler on ``dev`` in float64, each call
+    held to the same call on the CPU (on the card's host in worker
+    processes beside the card's runs; on a CPU ``dev``, a rehearsal, in
+    this process).  Returns the phase's kernel launches, all of which
+    must be 0."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    reset_all_launches()
+    with contextlib.ExitStack() as stack:
+        if dev.type == "cuda":
+            pool = stack.enter_context(ProcessPoolExecutor(
+                max_workers=4,
+                mp_context=multiprocessing.get_context("spawn")))
+            refs = {j: pool.submit(cluster_reference, j)
+                    for j in CLUSTER_JOBS}
+            stack.callback(lambda: [f.cancel() for f in refs.values()])
+
+            def reference(job):
+                return refs[job].result()
+        else:
+            reference = cluster_reference
+        return _cluster_checks(torch, np, dev, reference)
+
+
+def _cluster_checks(torch, np, dev, reference):
+    """Phase 16(a)'s runs on ``dev`` and their checks; ``reference(job)``
+    gives a job's CPU result and wall time."""
+    from repro_torch.core import fit_power, simulate_policy
+    from repro_torch.core.speedup import host_call
+    from repro_torch.distributed import fleet_mesh
+    from repro_torch.sched import HeSRPTPolicy
+    from repro_torch.sched.speedup_models import job_speedup
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def run(job):
+        return timed_call(sync, lambda: cluster_call(job, dev))
+
+    # examples/batched_planning.py §2
+    al, wall = run("fleets")
+    al_c, cpu_s = reference("fleets")
+    r = {"fleets": len(al), "wall_s": wall, "cpu_wall_s": cpu_s,
+         "sum_vs_B": max(abs(a.sum() - B) / B for a in al),
+         "card_vs_cpu": max(float(np.abs(a - c).max()) / B
+                            for a, c in zip(al, al_c)),
+         "fleet0": al[0].tolist()}
+    emit({"phase": "cluster_batched_planning", **r})
+    check(r["sum_vs_B"] <= CLUSTER_RTOL
+          and r["card_vs_cpu"] <= CLUSTER_THETA_RTOL, f"cluster fleets: {r}")
+
+    # benchmarks/cluster_sim.py::bench_cluster's instance, three ways
+    got = {}
+    for name in CLUSTER_SIMS:
+        res, wall = run(name)
+        res_c, cpu_s = reference(name)
+        r = cluster_runs_close(np, res, res_c, CLUSTER_GPUS)
+        r.update(path=res.path, status=res.status, wall_s=wall,
+                 cpu_wall_s=cpu_s)
+        got[name] = r
+        emit({"phase": f"cluster_sim_{name}", **r})
+        check(cluster_ok(r) and res.ok, f"cluster {name} card vs CPU: {r}")
+    sp_c = job_speedup(step_flops=6 * 7e9 * 1e6, grad_bytes=2 * 7e9,
+                       tokens_per_step=1e6, B=CLUSTER_GPUS, device="cpu")
+    a_fit, p_fit = fit_power(
+        lambda t: float(host_call(sp_c, "s", max(t, 1e-6))), CLUSTER_GPUS)
+    rng = np.random.default_rng(0)
+    sizes = np.sort(rng.uniform(1.0, 20.0, CLUSTER_M))[::-1] * 1e9
+    sp = job_speedup(step_flops=6 * 7e9 * 1e6, grad_bytes=2 * 7e9,
+                     tokens_per_step=1e6, B=CLUSTER_GPUS, device=dev)
+    he, _ = timed_call(sync, lambda: simulate_policy(
+        sp, sizes, 1.0 / sizes, HeSRPTPolicy(p=p_fit, B=CLUSTER_GPUS),
+        B=CLUSTER_GPUS))
+    J_sf = got["cost_free"]["J"]
+    r = {"smartfill_J": J_sf, "hesrpt_J": he.J, "fit": [a_fit, p_fit],
+         "smartfill_gain": (he.J - J_sf) / he.J,
+         "realloc_over_free": got["realloc30_merge2"]["J"] / J_sf - 1.0,
+         "integer_over_free": got["integer_chips"]["J"] / J_sf - 1.0,
+         "paths": [got[k]["path"] for k in got]}
+    emit({"phase": "cluster_bench", **r})
+    check(r["paths"] == ["device", "host", "host"],
+          f"cluster simulate took the wrong paths: {r['paths']}")
+    check(J_sf <= he.J * (1 + 1e-9), f"cluster: SmartFill J above heSRPT's: "
+                                     f"{r}")
+
+    # the ten configs' roofline speedups on one 256-GPU pod
+    (order, J, J_lin), wall = run("pod_plan")
+    (order_c, J_c, _), cpu_s = reference("pod_plan")
+    (ref_order, ref_J), _ = reference("pod_ref")
+    r = {"jobs": len(order), "plan_wall_s": wall, "cpu_plan_wall_s": cpu_s,
+         "J": J, "order": order, "card_vs_cpu": abs(J - J_c) / J_c,
+         "vs_smartfill_hetero_cpu": abs(J - ref_J) / ref_J,
+         "J_vs_J_linear": abs(J - J_lin) / J}
+    dev_run, wall = run("pod_device")
+    dev_run_c, cpu_s = reference("pod_device")
+    r.update(device_path=dev_run.path, device_wall_s=wall,
+             cpu_device_wall_s=cpu_s,
+             device=cluster_runs_close(np, dev_run, dev_run_c, POD_GPUS))
+    host_run, wall = run("pod_host")
+    host_run_c, cpu_s = reference("pod_host")
+    r.update(host_wall_s=wall, cpu_host_wall_s=cpu_s,
+             host=cluster_runs_close(np, host_run, host_run_c, POD_GPUS),
+             device_vs_host=abs(dev_run.J - host_run[1]) / host_run[1])
+    emit({"phase": "cluster_pod", **r})
+    check(order == order_c == ref_order and r["card_vs_cpu"] <= CLUSTER_RTOL
+          and r["vs_smartfill_hetero_cpu"] <= 1e-6, f"cluster pod plan: {r}")
+    check(dev_run.path == "device" and dev_run.ok, f"cluster pod: {r}")
+    check(cluster_ok(r["device"]) and cluster_ok(r["host"]),
+          f"cluster pod card vs CPU: {r}")
+    check(r["device_vs_host"] <= CLUSTER_PATHS_RTOL,
+          f"cluster pod device path vs host loop: {r}")
+
+    # 256 fleets, without and under a one-card fleet mesh
+    plain, wall = run("many_fleets")
+    with fleet_mesh(1, device=dev):
+        meshed, mesh_wall = run("many_fleets")
+    plain_c, cpu_s = reference("many_fleets")
+    r = {"fleets": CLUSTER_FLEETS, "wall_s": wall, "mesh_wall_s": mesh_wall,
+         "cpu_wall_s": cpu_s,
+         "bit_for_bit": all(np.array_equal(a, b)
+                            for a, b in zip(plain, meshed)),
+         "card_vs_cpu": max(float(np.abs(a - c).max()) / B
+                            for a, c in zip(plain, plain_c))}
+    emit({"phase": "cluster_fleet_mesh", **r})
+    check(r["bit_for_bit"], "cluster fleets: the mesh changed the bits")
+    check(r["card_vs_cpu"] <= CLUSTER_THETA_RTOL,
+          f"cluster fleets on a mesh: {r}")
+    launches = all_launches()
+    check(not any(launches.values()),
+          f"a kernel was launched in the cluster phase: {launches}")
+    return launches
+
+
+# ---- 16(b). falcon-mamba-7b at full width through K4 --------------------------
+# 64 Mamba blocks, d 4096, d_inner 8192, N 16, bf16, seed-0 weights made
+# on the card, not cut.  Each layer's prefill scans 4096 tokens in chunks
+# of scan_chunk = 256: one K4 call a chunk on (2, 256, 8192·16) f32, the
+# carry folded into the chunk's first step, so a prefill launches K4
+# exactly 64 × 16 = 1024 times and K5 never.
+def chunk_pair(torch, cap):
+    """The first Mamba layer's first two chunks as wave 0 scanned them:
+    (a0, b0, h0), (a1, b1, h1), each a and b (B, c, di, N) f32 before the
+    fold, h the state folded in."""
+    (a0, b0, h0), _ = cap["chunks"][0]
+    (a1, b1, h1), _ = cap["chunks"][1]
+    return (a0, b0, h0), (a1, b1, h1)
+
+
+def mamba_scan_phase(torch, cap, launches):
+    """Phase 16(b), continued: K4 against its plain version across the
+    boundary of the first layer's first two chunks (two K4 calls, the
+    carry folded into the second, against one plain scan over both), in
+    f32 RMS units; the carry dropped between the chunks must read over the
+    limit.  Then K4's times at the chunk shape and the wrapper's own
+    allocations a launch.  Returns K4's Mamba-path record."""
+    from repro_torch.kernels.linear_scan import kernel as sk
+    from repro_torch.kernels.linear_scan import ops as so
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+    from repro_torch.models.scan_ops import _scan_folded
+
+    (a0, b0, h0), (a1, b1, h1) = chunk_pair(torch, cap)
+    Bsz, c = a0.shape[:2]
+    D = a0[0, 0].numel()
+
+    def flat(t):
+        return t.reshape(Bsz, -1, D)
+
+    A = torch.cat([flat(a0), flat(a1)], 1)
+    Bf = torch.cat([flat(b0), flat(b1)], 1)
+    Bf[:, 0] += A[:, 0] * h0.reshape(Bsz, D)
+    plain = linear_scan_ref(A, Bf)
+    k0 = _scan_folded(a0, b0.clone(), h0)
+    k1 = _scan_folded(a1, b1.clone(), k0[:, -1])
+    sound = torch.cat([flat(k0), flat(k1)], 1)
+    dropped = torch.cat([flat(k0), flat(_scan_folded(
+        a1, b1.clone(), torch.zeros_like(h0)))], 1)
+    r = {"shape": [Bsz, 2 * c, D], "f32_rms_units": rms_err(sound, plain),
+         "f32_max_abs": float((sound - plain).abs().max()),
+         "fault_carry_dropped": rms_err(dropped, plain),
+         "h0_zero": not bool(h0.any()),
+         "carry_as_served": bool(torch.equal(h1, k0[:, -1])),
+         "limit": K4_F32_LIMIT}
+    torch.cuda.synchronize()
+    emit({"phase": "mamba_kernels", **r})
+    check(r["h0_zero"], "the first layer's first chunk did not start at 0")
+    check(r["f32_rms_units"] <= K4_F32_LIMIT,
+          f"K4 across the chunk boundary vs plain: {r['f32_rms_units']:.3e}")
+    check(r["fault_carry_dropped"] > K4_F32_LIMIT,
+          f"K4: the dropped carry reads {r['fault_carry_dropped']:.3e}, "
+          f"within {K4_F32_LIMIT}")
+    del A, Bf, plain, sound, dropped, k0, k1
+
+    a = flat(a0).contiguous()
+    b = flat(b0).contiguous()
+    rec = kernel_record(torch, "linear_scan", CU_K4, TPU_K4,
+                        lambda impl: so.linear_scan_op(a, b, impl=impl), 3,
+                        scan_bound(a), None, launches["linear_scan"],
+                        r["f32_max_abs"], phase="mamba_time")
+    geo = sk.scan_geometry(*a.shape)
+    rec["wrapper_alloc_ms"] = timed(torch, lambda: (
+        torch.zeros(geo.flag_ints, dtype=torch.int32, device=a.device),
+        torch.empty(geo.carry_floats, dtype=torch.float32, device=a.device)))
+    rec["shape"] = list(a.shape)
+    emit({"phase": "mamba_wrapper", "shape": list(a.shape),
+          "flag_ints": geo.flag_ints, "carry_floats": geo.carry_floats,
+          "alloc_ms": rec["wrapper_alloc_ms"], "op_ms": rec["ms"],
+          "kernel_device_ms": rec["kernel_device_ms"]})
+    return {k: rec[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "kernel_device_ms",
+                                "wrapper_alloc_ms", "shape")}
+
+
+def mamba_phase(torch, np, dev):
+    """Phase 16(b): falcon-mamba-7b serves ``MAMBA_WAVES`` waves through
+    ``serve_phase``; K4 across a chunk boundary and its times; wave 0 end
+    to end through the plain scan.  Returns K4's Mamba-path record."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MAMBA_ARCH)
+    per_prefill = cfg.n_layers * -(-PROMPT // cfg.scan_chunk)
+    model, prompt0, out0, cap, launches = serve_phase(
+        torch, np, dev, arch=MAMBA_ARCH, waves=MAMBA_WAVES,
+        expect={"flash_attention": (0, True),
+                "linear_scan": (per_prefill, True)},
+        prefix="mamba")
+    with torch.inference_mode():
+        rec = mamba_scan_phase(torch, cap, launches)
+        end_to_end_phase(torch, model, prompt0, out0, cap, arch=MAMBA_ARCH,
+                         prefix="mamba", floor=True)
+    return rec
 
 
 def main():
@@ -3182,6 +3705,8 @@ def main():
         end_to_end_phase(torch, model, prompt0, out0, cap)
         kernels += serve_times(torch, cap, serve_launches, errs)
     serve_profile(torch, model, prompt0)
+    del model, cap                      # phase 16(b) needs the memory
+    torch.cuda.empty_cache()
 
     # ---- 11. per-job SmartFill (§7), float64, counted -----------------------
     t0 = time.perf_counter()
@@ -3216,6 +3741,18 @@ def main():
     launches15 = stream_phase(torch, np, dev)
     emit({"phase": "stream", "launches": launches15,
           "wall_s": time.perf_counter() - t0})
+
+    # ---- 16. the cluster scheduler; Mamba serving through K4 ---------------
+    t0 = time.perf_counter()
+    launches16 = cluster_phase(torch, np, dev)
+    emit({"phase": "cluster", "launches": launches16,
+          "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    mamba = mamba_phase(torch, np, dev)
+    emit({"phase": "mamba", "wall_s": time.perf_counter() - t0})
+    for rec in kernels:
+        if rec["name"] == "linear_scan":
+            rec["mamba_path"] = mamba
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

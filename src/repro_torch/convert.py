@@ -61,10 +61,11 @@ def params_from_arrays(cfg, tree, device=None, dtype=None) -> Transformer:
     after the groups), ``final_norm`` and, when untied, ``unembed``.
     Layer i < cycle·G is ``blocks[i % cycle]`` at group ``i // cycle``;
     the rest come from ``tail``.  Leaf names inside a layer are the JAX
-    ones (``norm1/scale``, ``mixer/wq``, ``mlp/w_gate``, …); attention
-    projections are flattened from (d, H, hd) and (H, hd, d).  Matrices
-    are stored in ``dtype`` (default ``cfg.compute_dtype``), norm scales
-    and ``lam`` in f32.
+    ones (``norm1/scale``, ``mixer/wq``, ``mlp/w_gate``, Mamba's
+    ``mixer/in_proj`` … ``mixer/A_log``); attention projections are
+    flattened from (d, H, hd) and (H, hd, d).  Matrices are stored in
+    ``dtype`` (default ``cfg.compute_dtype``), norm scales, ``lam`` and
+    Mamba's vectors and ``A_log`` in f32.
     """
     model = Transformer(cfg, device=resolve_device(device), dtype=dtype)
     cyc = len(cfg.cycle)

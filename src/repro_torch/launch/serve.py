@@ -4,7 +4,8 @@
         --batch 4 --prompt-len 64 --gen 32 [--requests 3] [--device cpu]
 
 Runs the architecture's smoke config with random weights from seed 0, as
-the JAX launcher does; on CUDA unless ``--device`` says otherwise.
+the JAX launcher does; on CUDA unless ``--device`` says otherwise.  The
+port serves the dense and RG-LRU configs and falcon-mamba-7b.
 ``chip_smoke.py`` drives the full config on the card.
 """
 from __future__ import annotations

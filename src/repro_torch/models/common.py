@@ -1,4 +1,5 @@
-"""Shared model building blocks: initialisers and the plain math.
+"""Shared model building blocks: initialisers and the plain math (norms,
+rotary embeddings, the causal conv of the recurrent mixers).
 
 Conventions (as in the JAX package, with PyTorch idiom):
   * parameters live in ``nn.Module``s; the math is plain functions on
@@ -27,6 +28,7 @@ __all__ = [
     "rope",
     "softcap",
     "matmul_f32acc",
+    "causal_conv",
 ]
 
 
@@ -101,3 +103,22 @@ def matmul_f32acc(eq: str, a: torch.Tensor, b: torch.Tensor):
     ``preferred_element_type=float32`` does: bf16 operands are exact in
     f32 and so are their products."""
     return torch.einsum(eq, a.float(), b.float())
+
+
+def causal_conv(m, x, init=None):
+    """Depthwise causal conv with the ``conv_w`` (conv, w) and ``conv_b``
+    (w) of ``m`` (an RG-LRU or Mamba mixer).  x: (B, S, w); init:
+    (B, conv−1, w) in any float dtype (the two are joined in their
+    promoted dtype, as jnp's concatenate does).  Returns (out, the last
+    conv−1 inputs)."""
+    w = m.conv_w.to(x.dtype)
+    K = w.shape[0]
+    if init is None:
+        init = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                           device=x.device)
+    dt = torch.promote_types(init.dtype, x.dtype)
+    xp = torch.cat([init.to(dt), x.to(dt)], dim=1)
+    S = x.shape[1]
+    out = sum(xp[:, i:i + S] * w[i] for i in range(K))
+    tail = xp[:, -(K - 1):] if K > 1 else None
+    return out + m.conv_b.to(x.dtype), tail

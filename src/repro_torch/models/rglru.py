@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.linear_scan.ops import linear_scan_op
-from .common import dense_init
+from .common import causal_conv, dense_init
 
 __all__ = ["RGLRU", "rglru_init", "gates", "causal_conv", "rglru_apply",
            "rglru_prefill", "init_rglru_state", "rglru_decode"]
@@ -64,23 +64,6 @@ def rglru_init(m: RGLRU, generator) -> RGLRU:
     dense_init(m.gate_i, w, generator)
     dense_init(m.out, w, generator)
     return m
-
-
-def causal_conv(m: RGLRU, x, init=None):
-    """Depthwise causal conv. x: (B, S, w); init: (B, conv−1, w) in any
-    float dtype (the two are joined in their promoted dtype, as jnp's
-    concatenate does).  Returns (out, the last conv−1 inputs)."""
-    w = m.conv_w.to(x.dtype)
-    K = w.shape[0]
-    if init is None:
-        init = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
-                           device=x.device)
-    dt = torch.promote_types(init.dtype, x.dtype)
-    xp = torch.cat([init.to(dt), x.to(dt)], dim=1)
-    S = x.shape[1]
-    out = sum(xp[:, i:i + S] * w[i] for i in range(K))
-    tail = xp[:, -(K - 1):] if K > 1 else None
-    return out + m.conv_b.to(x.dtype), tail
 
 
 def gates(m: RGLRU, xc):

@@ -4,9 +4,9 @@ cycle groups; the port keeps layer order and loops), full-sequence
 prefill that fills the decode state, and single-token decode.
 
 Carries the decoder-only kinds of the serving path: global ('attn') and
-sliding-window ('local') attention blocks and RG-LRU blocks, dense MLPs.
-Mamba, MoE, the VLM prefix and the encoder–decoder raise
-NotImplementedError when the model is built.
+sliding-window ('local') attention blocks, RG-LRU blocks, dense MLPs and
+Mamba blocks (mixer only, no MLP).  MoE, the VLM prefix and the
+encoder–decoder raise NotImplementedError when the model is built.
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ from .._device import resolve_device
 from .attention import (Attention, attention, attn_init, decode_attention,
                         init_kv_cache, prefill_attention)
 from .common import RMSNorm, embed_init, softcap
+from .mamba import (Mamba, init_mamba_state, mamba_apply, mamba_decode,
+                    mamba_init, mamba_prefill)
 from .mlp import MLP, mlp, mlp_init
 from .rglru import (RGLRU, init_rglru_state, rglru_apply, rglru_decode,
                     rglru_init, rglru_prefill)
@@ -35,24 +37,23 @@ _ATTN = ("attn", "local")
 def check_supported(cfg) -> None:
     """Raise NotImplementedError for what this slice of the port lacks."""
     later = None
-    if "mamba" in cfg.cycle:
-        later = "Mamba blocks (models/mamba.py) come with a later slice"
-    elif cfg.moe:
+    if cfg.moe:
         later = "MoE layers (models/moe.py) come with a later slice"
     elif cfg.family == "vlm":
         later = "the VLM patch-embedding prefix comes with a later slice"
     elif cfg.encoder_decoder:
         later = ("the encoder–decoder with cross-attention comes with a "
                  "later slice")
-    elif not set(cfg.cycle) <= {"attn", "local", "rglru"}:
+    elif not set(cfg.cycle) <= {"attn", "local", "rglru", "mamba"}:
         later = f"block kinds {cfg.cycle} are not ported"
     if later:
         raise NotImplementedError(f"{cfg.name}: {later}")
 
 
 class Block(nn.Module):
-    """One layer: pre-norm mixer (attention or RG-LRU) and pre-norm MLP
-    residuals, with gemma2's post-norms where the config has them."""
+    """One layer: pre-norm mixer (attention, RG-LRU or Mamba) and, except
+    for Mamba, a pre-norm MLP residual, with gemma2's post-norms where the
+    config has them."""
 
     def __init__(self, cfg, kind, device=None, dtype=None):
         super().__init__()
@@ -61,12 +62,15 @@ class Block(nn.Module):
         self.norm1 = RMSNorm(d, device)
         if kind in _ATTN:
             self.mixer = Attention(cfg, kind, device, dtype)
+        elif kind == "mamba":
+            self.mixer = Mamba(cfg, device, dtype)
         else:
             self.mixer = RGLRU(cfg, device, dtype)
         post = cfg.post_norm and kind in _ATTN
         self.post1 = RMSNorm(d, device) if post else None
-        self.norm2 = RMSNorm(d, device)
-        self.mlp = MLP(d, cfg.d_ff, device, dtype)
+        has_mlp = kind != "mamba"
+        self.norm2 = RMSNorm(d, device) if has_mlp else None
+        self.mlp = MLP(d, cfg.d_ff, device, dtype) if has_mlp else None
         self.post2 = RMSNorm(d, device) if post else None
 
 
@@ -74,8 +78,8 @@ class Transformer(nn.Module):
     """embed (vocab, d), the layers, final_norm, and unembed unless tied.
 
     Matrices are stored in ``dtype`` (default ``cfg.compute_dtype``; see
-    ``models/common.py``), norm scales and ``lam`` in f32.  Serving only:
-    no parameter takes a gradient.
+    ``models/common.py``), norm scales, ``lam`` and Mamba's vectors and
+    ``A_log`` in f32.  Serving only: no parameter takes a gradient.
     """
 
     def __init__(self, cfg, device=None, dtype=None):
@@ -112,16 +116,19 @@ def init_params(cfg, generator, device=None, dtype=None) -> Transformer:
     """A model of ``cfg`` with random weights from ``generator`` (a
     ``torch.Generator`` on ``device``): truncated normals as in the JAX
     package's initialisers, zero norm scales and biases, ``lam`` as in the
-    RG-LRU init.  The numbers differ from JAX's for the same seed; the
-    distributions are the same."""
+    RG-LRU init, Mamba's A, Δ bias and D as in its init.  The numbers
+    differ from JAX's for the same seed; the distributions are the same."""
     model = Transformer(cfg, device=resolve_device(device), dtype=dtype)
     embed_init(model.embed, generator)
     for blk in model.layers:
         if blk.kind in _ATTN:
             attn_init(blk.mixer, cfg, generator)
+        elif blk.kind == "mamba":
+            mamba_init(blk.mixer, generator)
         else:
             rglru_init(blk.mixer, generator)
-        mlp_init(blk.mlp, generator)
+        if blk.mlp is not None:
+            mlp_init(blk.mlp, generator)
     if model.unembed is not None:
         embed_init(model.unembed, generator)
     return model
@@ -144,6 +151,8 @@ def _post(blk, name, y, cfg):
 def block_fwd(blk: Block, h, cfg, positions):
     """One block, full sequence, no cache."""
     hn = blk.norm1(h, cfg.norm_eps)
+    if blk.kind == "mamba":
+        return h + mamba_apply(blk.mixer, hn, cfg)
     if blk.kind in _ATTN:
         y = attention(blk.mixer, hn, cfg, blk.kind, positions)
         h = h + _post(blk, "post1", y, cfg)
@@ -185,9 +194,9 @@ def prefill(model: Transformer, batch, max_len: int,
     """Full forward over batch['tokens'] (B, S) that returns the last
     position's logits (B, vocab) and the decode state: ``pos`` (an int)
     and one cache per layer — KV (a ring buffer for local layers) or the
-    RG-LRU's (h, conv window).  ``cache_dtype`` defaults to bf16 even for
-    an f32 model, as in the JAX package.  Raises ValueError when S >
-    ``max_len`` and the model has a global attention layer."""
+    RG-LRU's or Mamba's (h, conv window).  ``cache_dtype`` defaults to
+    bf16 even for an f32 model, as in the JAX package.  Raises ValueError
+    when S > ``max_len`` and the model has a global attention layer."""
     cfg = model.cfg
     tokens = _tokens(batch["tokens"], model.device)
     if any(blk.kind == "attn" for blk in model.layers):
@@ -197,6 +206,11 @@ def prefill(model: Transformer, batch, max_len: int,
     caches = []
     for blk in model.layers:
         hn = blk.norm1(h, cfg.norm_eps)
+        if blk.kind == "mamba":
+            y, cache = mamba_prefill(blk.mixer, hn, cfg, cache_dtype)
+            h = h + y
+            caches.append(cache)
+            continue
         if blk.kind in _ATTN:
             y, cache = prefill_attention(blk.mixer, hn, cfg, blk.kind,
                                          positions, max_len, cache_dtype)
@@ -218,6 +232,8 @@ def init_decode_state(cfg, B, max_len, cache_dtype=torch.bfloat16,
     dev = resolve_device(device)
     layers = [init_kv_cache(cfg, B, max_len, kind, cache_dtype, device=dev)
               if kind in _ATTN else
+              init_mamba_state(cfg, B, cache_dtype, device=dev)
+              if kind == "mamba" else
               init_rglru_state(cfg, B, cache_dtype, device=dev)
               for kind in cfg.layer_kinds()]
     return {"pos": 0, "layers": layers}
@@ -226,6 +242,9 @@ def init_decode_state(cfg, B, max_len, cache_dtype=torch.bfloat16,
 def block_decode(blk: Block, h, cfg, cache, pos):
     """One block, one token. Returns (h, the layer's new cache)."""
     hn = blk.norm1(h, cfg.norm_eps)
+    if blk.kind == "mamba":
+        y, cache = mamba_decode(blk.mixer, hn, cfg, cache)
+        return h + y, cache
     if blk.kind in _ATTN:
         y = decode_attention(blk.mixer, hn, cfg, blk.kind, cache, pos)
         h = h + _post(blk, "post1", y, cfg)

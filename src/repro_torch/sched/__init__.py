@@ -1,4 +1,11 @@
-"""Scheduling policies for the scenario engine (``core/simulator.py``)."""
+"""Scheduling policies for the scenario engine (``core/simulator.py``) and
+the cluster scheduler (``cluster.py``)."""
+from .cluster import (  # noqa: F401
+    ClusterScheduler,
+    ClusterSimResult,
+    Job,
+    integerize,
+)
 from .policies import (  # noqa: F401
     ClassSmartFillPolicy,
     EquiPolicy,

@@ -28,10 +28,10 @@ from repro_torch.models.transformer import Transformer
 from repro_torch.serve import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
-# the three the serving slice names, and the two other dense archs it
-# carries (qwen1.5-4b has the QKV biases)
+# the three the serving slice names, the two other dense archs it
+# carries (qwen1.5-4b has the QKV biases) and Mamba
 ARCHS = ["recurrentgemma-2b", "llama3.2-1b", "gemma2-27b", "qwen1.5-4b",
-         "deepseek-7b"]
+         "deepseek-7b", "falcon-mamba-7b"]
 B, S, MAX_LEN, STEPS = 2, 33, 64, 3
 CACHE = {"f32": (jnp.float32, torch.float32),
          "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -77,7 +77,8 @@ def test_prefill_and_decode_match_jax(pair, cache):
 
 def test_decode_state_matches_jax(pair):
     """The prefill's decode state, unstacked from JAX's per-cycle groups
-    into the port's layer order: KV rings and the RG-LRU (h, conv)."""
+    into the port's layer order: KV rings and the RG-LRU's and Mamba's
+    (h, conv)."""
     jcfg, params, model, toks = pair
     _, sj = JM.prefill(params, {"tokens": jnp.asarray(toks[:, :S])}, jcfg,
                        max_len=MAX_LEN, cache_dtype=jnp.float32)
@@ -225,8 +226,8 @@ def test_sampling_takes_fresh_draws():
     assert len(set(draws.flatten().tolist())) > 8
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "qwen2-moe-a2.7b",
-                                  "internvl2-1b", "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "internvl2-1b",
+                                  "seamless-m4t-medium"])
 def test_kinds_of_later_slices_raise(arch):
     cfg = PC.get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="later slice"):
@@ -282,3 +283,17 @@ def test_launcher_serves_on_the_cpu():
     lines = out.stdout.strip().splitlines()
     assert lines[0].startswith("request wave 0: (2, 4)")
     assert lines[-1].startswith("served 16 tokens") and "cpu" in lines[-1]
+
+
+def test_launcher_serves_mamba_on_the_cpu():
+    code = ("import sys; sys.path.insert(0, 'src'); "
+            "from repro_torch.launch.serve import main; "
+            "main(['--arch', 'falcon-mamba-7b', '--batch', '2', "
+            "'--prompt-len', '40', '--gen', '3', '--requests', '2', "
+            "'--device', 'cpu'])")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].startswith("request wave 0: (2, 3)")
+    assert lines[-1].startswith("served 12 tokens") and "cpu" in lines[-1]
