@@ -38,14 +38,14 @@ Phases (each one is a check; any failure exits non-zero):
      profile of each op's device kernels (K1's must be at most two a
      call: its bracket is the kernel's);
   7. serving: full-width recurrentgemma-2b in bf16 (random weights from
-     a seeded generator on the card), ``ServeEngine.generate`` over three
+     a seeded generator on the card), ``ServeEngine.generate`` over two
      waves of B = 2 prompts of 4096 tokens (past the 2048 window), 16
      greedy tokens each; per wave the prefill ms, decode ms per token,
      tokens/s and peak memory.  Every prefill must launch the flash
      attention kernel (K5) once per local layer (8) and the linear scan
      kernel (K4) once per RG-LRU layer (18).  ``serve_phase``,
      ``end_to_end_phase`` and ``kernel_record`` take the arch, so phase
-     16(b) drives Mamba through them;
+     16(b) and 17 drive other archs through them;
   8. K5 and K4 against their plain versions on the q/k/v of the first
      local layer and the a/b of the first RG-LRU layer of wave 0: in f32
      (the inputs cast up, both run there) to a limit in units of the
@@ -176,26 +176,51 @@ Phases (each one is a check; any failure exits non-zero):
      ``smartfill_hetero``, the device path against the host loop to
      1e-5); 256 fleets under a one-card fleet mesh, bit for bit to the
      call without one; no K1–K5 launch.  (b) falcon-mamba-7b at full
-     width (``mamba_*`` lines) through phase 7's and 9's helpers: two
-     waves of B = 2 prompts of 4096 tokens, 16 greedy tokens each, every
-     prefill launching K4 exactly 64 layers × 16 chunks = 1024 times and
-     K5 never; K4 against its plain version across the first layer's
+     width and 16 of its 64 layers (``mamba_*`` lines) through phase 7's
+     and 9's helpers: two waves of B = 2 prompts of 4096 tokens, 16
+     greedy tokens each, every prefill launching K4 exactly 16 layers ×
+     16 chunks = 256 times and K5 never; K4 against its plain version across the first layer's
      first chunk boundary (the carry folded into the second chunk), with
      the carry dropped as a planted fault; wave 0 end to end through the
      plain scan; K4's times at the chunk shape and the cost of its
      wrapper's scratch.  Rehearse (a) with ``cluster_phase(torch, np,
      torch.device("cpu"))`` (~50 s); ``tools/phase16_count.py`` counts
      both parts' device operations.
+ 17. the rest of the serving stack through K5, each model at full width
+     in bf16 from a seeded generator on the card and freed before the
+     next, through ``serve_phase``: (a) qwen2-moe-a2.7b (24 layers, 60
+     routed experts top-4 and 4 shared, dispatch at 8 groups of 1024
+     with C = 88; ``moe_*`` lines), two waves of 2 × 4096 tokens, 16
+     greedy tokens each, K5 exactly 24 times a prefill, wave 0's routes
+     (choices dropped by capacity and the largest expert load a layer);
+     K5 against its plain version on layer 0's q/k/v (``k5_path_check``:
+     f32 and bf16 readings, planted faults); K5's times at that shape
+     with SDPA as the yardstick; wave 0 end to end (``end_to_end_phase``
+     with ``perturb``: the limits and the route and drop differences
+     held to twice a measured floor, the plain run against itself with
+     noise of K5's reading's size; the f32 pass at its first 4 layers);
+     (b) dbrx-132b at 2 of its 40 layers (no shared experts, E = 16, C =
+     320, GQA 48:8), one wave, 2 K5 launches a prefill, K5 against its
+     plain version; (c) internvl2-1b, 256 patches and 3840 tokens (St =
+     4096), 24 K5 launches a prefill (GQA 7:1, hd 64), K5 against its
+     plain version, end to end; (d) seamless-m4t-medium, 4096 frames and
+     a 512-token decoder prompt, 36 K5 launches a prefill (12
+     non-causal over the frames, 12 causal over 512, 12 cross S 512, T
+     4096), K5 against its plain version on the first encoder layer's
+     and the first cross-attention's inputs, end to end.
+     ``tools/phase17_count.py`` counts its device operations.
 
 Launch counters are reset before phases 3–4 drive the planning path,
-before phases 7 and 16(b) drive the serving paths, before phases 11,
+before phases 7, 16(b) and each part of 17 drive the serving paths, before phases 11,
 13, 14, 15 and 16(a) and before each float32 run of phase 12, and read
 right after each;
 the comparisons and timings come later and do not count.  Prints one
 JSON line per measurement, the kernel summary line ``{"kernels": [...]}``
 (five kernels, each with its device ms; K1 and K2 also with their
 launches inside the engine, ``engine_launches``; K4 also with its Mamba
-path's launches and times, ``mamba_path``), the card line, and last
+path's launches and times, ``mamba_path``; K5 also with phase 17's
+launches, ``new_paths_launches``, and its times at qwen2-moe's shape,
+``moe_shape``), the card line, and last
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -226,11 +251,23 @@ HBM_BPS = 3.35e12
 FP32_OPS = 67e12
 BF16_TC_OPS = 989e12      # dense bf16 tensor-core peak
 
-# the serving phases: one full-width model, three waves of requests
+# the serving phases: one full-width model, two waves of requests (three
+# until phase 17 needed the room)
 ARCH = "recurrentgemma-2b"
-WAVES, BATCH, PROMPT, GEN = 3, 2, 4096, 16
-# phase 16(b): full-width Mamba, two waves of the same requests
-MAMBA_ARCH, MAMBA_WAVES = "falcon-mamba-7b", 2
+WAVES, BATCH, PROMPT, GEN = 2, 2, 4096, 16
+# phase 16(b): full-width Mamba at MAMBA_LAYERS of its 64 layers (all 64
+# until phase 17 needed the room), two waves of the same requests
+MAMBA_ARCH, MAMBA_WAVES, MAMBA_LAYERS = "falcon-mamba-7b", 2, 16
+# phase 17: the MoE (two waves), dbrx at two of its 40 layers (132 B
+# parameters do not fit one card), the VLM (its 256 patches and 3840
+# tokens fill PROMPT positions) and the encoder–decoder (ENCDEC_FRAMES
+# frames, an ENCDEC_PROMPT-token decoder prompt), one wave each.  The
+# MoE's f32 end-to-end pass runs its first MOE_F32_LAYERS layers: an f32
+# copy at its 24 would be 57 GB beside the 28.6 GB bf16 model.
+MOE_ARCH, MOE_WAVES, MOE_F32_LAYERS = "qwen2-moe-a2.7b", 2, 4
+DBRX_ARCH, DBRX_LAYERS = "dbrx-132b", 2
+VLM_ARCH = "internvl2-1b"
+ENCDEC_ARCH, ENCDEC_FRAMES, ENCDEC_PROMPT = "seamless-m4t-medium", 4096, 512
 
 
 def fail(msg):
@@ -831,7 +868,7 @@ ATTN_FAULTS = {"window_plus_1": attn_window_plus_1,
                "causal_off": attn_causal_off}
 
 
-def serve_taps(arch):
+def serve_taps(arch, cfg):
     """Where ``serve_phase`` taps wave 0's kernel inputs for the later
     checks: cap key → (module, attribute, calls kept)."""
     from repro_torch.models import attention as attn_mod
@@ -839,26 +876,66 @@ def serve_taps(arch):
     from repro_torch.models import scan_ops
     if arch == MAMBA_ARCH:      # the first layer's first two chunks
         return {"chunks": (scan_ops, "_scan_folded", 2)}
-    return {"qkv": (attn_mod, "flash_attention_op", 1),
-            "ab": (rglru_mod, "linear_scan_op", 1)}
+    # the first K5 call; in an encoder–decoder every encoder layer's,
+    # then the first decoder layer's self- and cross-attention
+    n = cfg.n_enc_layers + 2 if cfg.encoder_decoder else 1
+    taps = {"qkv": (attn_mod, "flash_attention_op", n)}
+    if "rglru" in cfg.cycle:
+        taps["ab"] = (rglru_mod, "linear_scan_op", 1)
+    return taps
+
+
+def serve_shape(cfg):
+    """(prompt tokens, patches, frames) of a wave of ``cfg``: the VLM's
+    patches and its tokens fill ``PROMPT`` positions; the encoder–decoder
+    reads ``ENCDEC_FRAMES`` frames behind an ``ENCDEC_PROMPT``-token
+    decoder prompt."""
+    if cfg.family == "vlm":
+        return PROMPT - cfg.n_patches, cfg.n_patches, 0
+    if cfg.encoder_decoder:
+        return ENCDEC_PROMPT, 0, ENCDEC_FRAMES
+    return PROMPT, 0, 0
+
+
+def cache_len(batch):
+    """Decode caches for ``batch``: its patches, its tokens and GEN."""
+    n = batch["patches"].shape[1] if "patches" in batch else 0
+    return n + batch["tokens"].shape[1] + GEN
+
+
+def route_recorder(torch, cap, on):
+    """A stand-in for ``models.moe._router`` that appends each call's
+    top-k expert indices (uint8, on the card) to ``cap`` while ``on()``."""
+    from repro_torch.models import moe as moe_mod
+    router = moe_mod._router
+
+    def run(*args, **kw):
+        top_p, top_i, aux = router(*args, **kw)
+        if on():
+            cap.append(top_i.to(torch.uint8))
+        return top_p, top_i, aux
+    return mock.patch.object(moe_mod, "_router", run)
 
 
 def serve_phase(torch, np, dev, arch=ARCH, waves=WAVES, expect=None,
-                prefix="serve"):
-    """Phase 7 (and 16(b)): ``arch`` at full width serves ``waves`` waves.
-    ``expect`` maps a kernel to (launches a prefill, exact?); by default
-    K5 at least once a local layer and K4 once an RG-LRU layer.  Lines
-    are ``<prefix>_model``, ``<prefix>_wave`` and ``<prefix>_main_path``.
-    Returns the model, wave 0's prompt and tokens, its captures (the
-    logits, and the kernel inputs of ``serve_taps``) and the launches of
-    all waves."""
+                prefix="serve", cfg=None):
+    """Phase 7 (and 16(b), 17): ``arch`` at full width (or ``cfg``, a cut
+    of it) serves ``waves`` waves of ``serve_shape``.  ``expect`` maps a
+    kernel to (launches a prefill, exact?); by default K5 at least once a
+    local layer and K4 once an RG-LRU layer.  Lines are
+    ``<prefix>_model``, ``<prefix>_wave`` and ``<prefix>_main_path``.
+    Returns the model, wave 0's batch and tokens, its captures (the
+    logits, the kernel inputs of ``serve_taps``, every K5 call's
+    (causal, S, T) in ``qkv_calls`` and, for a MoE, each router call's
+    top-k in ``routes``) and the launches of all waves."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.linear_scan import kernel as sk
     from repro_torch.models import init_params
+    from repro_torch.models.moe import MoE
     from repro_torch.serve import ServeEngine
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     kinds = cfg.layer_kinds()
     if expect is None:
         expect = {"flash_attention": (kinds.count("local"), False),
@@ -871,16 +948,29 @@ def serve_phase(torch, np, dev, arch=ARCH, waves=WAVES, expect=None,
           "params": sum(p.numel() for p in model.parameters()),
           "param_count": cfg.param_count(),
           "layers": {k: kinds.count(k) for k in sorted(set(kinds))},
+          "encoder_layers": len(model.enc_layers),
           "weights_gb": torch.cuda.memory_allocated() / 1e9,
           "init_s": time.perf_counter() - t0})
-    eng = ServeEngine(model=model, max_len=PROMPT + GEN)
+    rng = np.random.default_rng(0)
+    n_tok, n_patch, n_frame = serve_shape(cfg)
+    batches = [{"tokens": rng.integers(2, cfg.vocab, (BATCH, n_tok))}
+               for _ in range(waves)]
+    for batch in batches:
+        if n_patch:
+            batch["patches"] = rng.standard_normal(
+                (BATCH, n_patch, cfg.patch_dim)).astype(np.float32)
+        if n_frame:
+            batch["frames"] = rng.standard_normal(
+                (BATCH, n_frame, cfg.patch_dim)).astype(np.float32)
+    eng = ServeEngine(model=model, max_len=cache_len(batches[0]))
 
     # time each wave's prefill and decode with CUDA events (no host
     # sync inside generate), count K4/K5 launches per prefill, and keep
     # wave 0's logits and the tapped kernel inputs (copies: a tap's
     # callee may overwrite them)
-    taps = serve_taps(arch)
-    cap = {"logits": [], **{key: [] for key in taps}}
+    taps = serve_taps(arch, cfg)
+    cap = {"logits": [], "qkv_calls": [], "routes": [],
+           **{key: [] for key in taps}}
     marks, per_prefill = [], []
     prefill0, step0 = eng._prefill, eng._step
 
@@ -909,17 +999,19 @@ def serve_phase(torch, np, dev, arch=ARCH, waves=WAVES, expect=None,
 
     def tap(key, fn, n):
         def run(*args, **kw):
-            if len(marks) == 1 and len(cap[key]) < n:
-                cap[key].append((
-                    tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                          for a in args), dict(kw)))
+            if len(marks) == 1:
+                if key == "qkv":
+                    cap["qkv_calls"].append((bool(kw.get("causal", True)),
+                                             args[0].shape[1],
+                                             args[1].shape[1]))
+                if len(cap[key]) < n:
+                    cap[key].append((
+                        tuple(a.clone() if isinstance(a, torch.Tensor)
+                              else a for a in args), dict(kw)))
             return fn(*args, **kw)
         return run
 
     eng._prefill, eng._step = prefill, step
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(2, cfg.vocab, (BATCH, PROMPT)) for _ in
-               range(waves)]
     torch.cuda.synchronize()
     outs = []
     fk.reset_launches()
@@ -928,10 +1020,13 @@ def serve_phase(torch, np, dev, arch=ARCH, waves=WAVES, expect=None,
         for key, (mod, attr, n) in taps.items():
             stack.enter_context(mock.patch.object(
                 mod, attr, tap(key, getattr(mod, attr), n)))
+        if cfg.moe:
+            stack.enter_context(route_recorder(torch, cap["routes"],
+                                               lambda: len(marks) == 1))
         for w in range(waves):
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            out = eng.generate({"tokens": prompts[w]}, GEN)
+            out = eng.generate(batches[w], GEN)
             wall = time.perf_counter() - t0
             ev = marks[w]
             outs.append(out)
@@ -940,7 +1035,7 @@ def serve_phase(torch, np, dev, arch=ARCH, waves=WAVES, expect=None,
                   "decode_ms_per_token": ev[1].elapsed_time(ev[-1])
                   / (GEN - 1),
                   "tokens_per_s": out.size / wall,
-                  "prompt_tokens_per_s": BATCH * PROMPT / wall,
+                  "prompt_tokens_per_s": BATCH * (n_tok + n_patch) / wall,
                   "wall_s": wall,
                   "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                   "launches_K5_K4": per_prefill[w],
@@ -968,7 +1063,12 @@ def serve_phase(torch, np, dev, arch=ARCH, waves=WAVES, expect=None,
     for key, (_, _, n) in taps.items():
         check(len(cap[key]) == n,
               f"wave 0's kernel inputs {key!r} were not captured")
-    return model, prompts[0], outs[0], cap, launches
+    if cfg.moe:
+        n_moe = sum(isinstance(b.mlp, MoE) for b in model.layers)
+        check(len(cap["routes"]) == GEN * n_moe,
+              f"wave 0's routes: {len(cap['routes'])} router calls, "
+              f"{GEN * n_moe} expected")
+    return model, batches[0], outs[0], cap, launches
 
 
 def kernel_phase(torch, cap):
@@ -1170,17 +1270,44 @@ def k4_options_phase(torch, dev):
                                           f"{key} reads {val:.3e}")
 
 
-def teacher_forced(torch, model, prompt, tokens):
-    """Logits of the prefill over ``prompt`` and of decode steps fed
-    ``tokens`` (B, n) one at a time."""
+def route_replay(torch, routes):
+    """A stand-in for ``models.moe._router`` that takes each call's top-k
+    from ``routes`` (another run's, call for call) and its weights from
+    this run's own router probabilities there, renormalised."""
+    from repro_torch.models import moe as moe_mod
+    router = moe_mod._router
+    it = iter(routes)
+
+    def run(m, x, cfg):
+        _, top_i, aux = router(m, x, cfg)
+        top_i = next(it).to(device=x.device, dtype=torch.long)
+        check(top_i.shape == (x.shape[0], cfg.top_k),
+              f"replayed routes {tuple(top_i.shape)} for {x.shape[0]} rows")
+        probs = torch.softmax(x.float() @ m.router.float(), dim=-1)
+        top_p = probs.gather(1, top_i)
+        return top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9), \
+            top_i, aux
+    return mock.patch.object(moe_mod, "_router", run)
+
+
+def teacher_forced(torch, model, batch, tokens, routes=None, replay=None):
+    """Logits of the prefill over ``batch`` and of decode steps fed
+    ``tokens`` (B, n) one at a time.  With ``routes`` (a list), each MoE
+    router call appends its top-k to it; with ``replay``, each takes its
+    top-k from there (``route_replay``)."""
     from repro_torch.models import decode_step, prefill
-    with torch.inference_mode():
-        logits, state = prefill(model, {"tokens": prompt},
-                                max_len=PROMPT + GEN)
-        out = [logits]
-        for t in range(tokens.shape[1]):
-            logits, state = decode_step(model, tokens[:, t:t + 1], state)
-            out.append(logits)
+    with contextlib.ExitStack() as stack:
+        if replay is not None:
+            stack.enter_context(route_replay(torch, replay))
+        elif routes is not None:
+            stack.enter_context(route_recorder(torch, routes, lambda: True))
+        with torch.inference_mode():
+            logits, state = prefill(model, batch, max_len=cache_len(batch))
+            out = [logits]
+            for t in range(tokens.shape[1]):
+                logits, state = decode_step(model, tokens[:, t:t + 1],
+                                            state)
+                out.append(logits)
     return out
 
 
@@ -1202,6 +1329,15 @@ E2E_FAULTS = {"bf16": ["K4_no_carry"],
               "f32": ["K4_carry_reset_halfway", "K4_step_one_slot_late",
                       "K5_window_plus_1", "K5_dropped_last_kv_tile",
                       "K5_causal_off"]}
+# Phase 17's archs attend globally (no window).  Their planted faults are
+# held in f32; in bf16 they are read and printed, not held: with random
+# weights the attention branch moves the bf16 logits by little more than
+# one bf16 ulp of the largest logit (phase 9's finding), and on
+# qwen2-moe-a2.7b at fixed routes causal off read 0.344 std against the
+# sound kernel's 0.211 and the limit 0.5.
+E2E_ATTN_FAULTS = {"bf16": [],
+                   "f32": ["K5_dropped_last_kv_tile", "K5_causal_off"]}
+E2E_ATTN_BF16_READ = ["K5_dropped_last_kv_tile", "K5_causal_off"]
 
 
 def linear_scan_f64(a, b, block=16):
@@ -1231,24 +1367,97 @@ def linear_scan_f64(a, b, block=16):
     return hs.view(B_, n * block, D)[:, :S].to(a.dtype)
 
 
-def end_to_end_phase(torch, model, prompt, out, cap, arch=ARCH,
-                     prefix="serve", floor=False):
-    """Phase 9 (and 16(b)): wave 0 through the plain versions,
-    teacher-forced on the kernel run's tokens, logits in units of the
-    plain run's std: the bf16 path itself, then the same weights in f32;
-    planted faults of the model's kernels (``E2E_FAULTS``) must read over
-    the limits.  With ``floor`` the plain run is also taken with K4's
-    state in float64 (``linear_scan_f64``): its distance from the plain
-    run is what rounding alone moves the logits by, and the limit is the
-    larger of phase 9's and twice that floor (a kernel as exact as the
-    plain version reads at most its own and the plain version's distance
-    from the exact scan).  Prints ``<prefix>_end_to_end``."""
+def route_diff(torch, cfg, routes, ref):
+    """Top-k selections and capacity decisions that differ between two
+    runs' router calls (lists of (N, k) top-k, call for call): entries of
+    top-k that differ (an order swap among the k counts), and slots kept
+    in one run and dropped in the other (``moe.slot_positions`` over the
+    call's groups of min(group size, N))."""
+    from repro_torch.models.moe import capacity, slot_positions
+    check(len(routes) == len(ref), f"router calls {len(routes)} vs "
+                                   f"{len(ref)}")
+    sel = drops = 0
+    for a, b in zip(routes, ref):
+        sel += int((a != b).sum())
+        N, k = a.shape
+        G = min(cfg.moe_group_size, N)
+        C = capacity(cfg, G)
+        keep = [slot_positions(t.long().view(-1, G, k),
+                               cfg.n_experts)[1] < C for t in (a, b)]
+        drops += int((keep[0] != keep[1]).sum())
+    return {"selections": sel, "drops": drops, "calls": len(routes)}
+
+
+def perturbed_attention(torch, rel, seed):
+    """The plain attention with f32 noise of ``rel`` times its output's
+    RMS added (from a generator seeded ``seed``), rounded to the output's
+    dtype: a plain run as far from the plain run as K5 reads."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    gens = {}
+
+    def run(q, k, v, causal=True, window=None, cap=None):
+        out = attention_ref(q, k, v, causal=causal, window=window, cap=cap)
+        if q.device not in gens:
+            gens[q.device] = torch.Generator(q.device).manual_seed(seed)
+        o = out.float()
+        noise = torch.randn(o.shape, generator=gens[q.device],
+                            device=q.device)
+        return (o + noise * (rel * o.pow(2).mean().sqrt())).to(out.dtype)
+    return run
+
+
+def f32_copy(torch, model, n_layers=None):
+    """An f32 copy of ``model``, or of its first ``n_layers`` layers (the
+    embeddings, norms and any encoder as they are)."""
     import copy
+    from repro_torch.models.transformer import Transformer
+    if n_layers is None or n_layers >= len(model.layers):
+        return copy.deepcopy(model).float()
+    cfg = model.cfg.replace(n_layers=n_layers)
+    m = Transformer(cfg, device="meta", dtype=torch.float32).to_empty(
+        device=model.device)
+    keep = m.state_dict()
+    m.load_state_dict({k: v for k, v in model.state_dict().items()
+                       if k in keep})
+    return m
+
+
+def end_to_end_phase(torch, model, batch, out, cap, arch=ARCH,
+                     prefix="serve", floor=False, perturb=None,
+                     f32_layers=None):
+    """Phase 9 (and 16(b), 17): wave 0 through the plain versions,
+    teacher-forced on the kernel run's tokens, logits in units of the
+    plain run's std: the bf16 path itself, then the same weights in f32
+    (or, with ``f32_layers``, its first layers in f32); planted faults of
+    the model's kernels (``E2E_FAULTS``, ``E2E_ATTN_FAULTS``) must read
+    over the limits (phase 17's bf16 faults, ``E2E_ATTN_BF16_READ``, are
+    printed as ``faults_read`` and not held).
+
+    A floor is what rounding alone moves the logits by, measured as the
+    plain run's distance from another plain version: with ``floor``, K4's
+    state in float64 (``linear_scan_f64``); with ``perturb`` ({dtype:
+    relative RMS}), the plain attention with noise of K5's reading's size
+    (``perturbed_attention``, two seeds).  The limit is then the larger
+    of phase 9's and twice the floor (a kernel as exact as the plain
+    version reads at most its own and the plain version's distance).
+
+    A MoE's routes are discrete, and a near tie moved by a rounding moves
+    a token's experts, its capacity slot, and through attention every
+    later token.  So its runs are compared twice: each run routing
+    freely, the top-k selections and capacity drops that differ from the
+    plain run's (``route_diff``) at most twice the floor runs' largest
+    count; and the logits, every run (plain, floors, faults) replaying
+    the kernel run's routes (``route_replay``), so that they read what
+    the kernel moves at fixed routes.  Prints ``<prefix>_end_to_end``."""
+    from repro_torch.models.moe import MoE
 
     sites = kernel_sites(arch)
     fed = torch.as_tensor(out[:, :-1], device=model.device)
+    moe = any(isinstance(b.mlp, MoE) for b in model.layers)
+    faults_of = (E2E_FAULTS if arch in (ARCH, MAMBA_ARCH)
+                 else E2E_ATTN_FAULTS)
 
-    def plain_run(m, plain_fns=None):
+    def plain_run(m, plain_fns=None, routes=None, replay=None):
         """The model's kernel call sites swapped for the plain versions
         (or for ``plain_fns[kernel]``), as ``faults`` swaps them for
         planted faults."""
@@ -1256,15 +1465,15 @@ def end_to_end_phase(torch, model, prompt, out, cap, arch=ARCH,
             for kernel, (mod, attr, plain_fn) in sites.items():
                 fn = (plain_fns or {}).get(kernel, plain_fn)
                 stack.enter_context(mock.patch.object(mod, attr, fn))
-            return teacher_forced(torch, m, prompt, fed)
+            return teacher_forced(torch, m, batch, fed, routes, replay)
 
     def per_step(logits, plain):
         return [float((x.float() - y.float()).abs().max() / y.float().std())
                 for x, y in zip(logits, plain)]
 
-    def faults(m, dtype, plain):
+    def faults(m, plain, replay, names):
         got = {}
-        for name in E2E_FAULTS[dtype]:
+        for name in names:
             kernel, fault = name.split("_", 1)
             if kernel not in sites:
                 continue
@@ -1272,58 +1481,97 @@ def end_to_end_phase(torch, model, prompt, out, cap, arch=ARCH,
             wrong = (SCAN_FAULTS if kernel == "K4" else ATTN_FAULTS)[fault]
             with mock.patch.object(mod, attr, wrong):
                 got[name] = max(per_step(teacher_forced(
-                    torch, m, prompt, fed), plain))
+                    torch, m, batch, fed, replay=replay), plain))
         return got
 
-    def with_floor(r, m, plain, limit):
+    def floor_fns(dtype):
         if floor:
-            r["floor"] = max(per_step(
-                plain_run(m, {"K4": linear_scan_f64}), plain))
+            return [{"K4": linear_scan_f64}]
+        if perturb:
+            return [{"K5": perturbed_attention(torch, perturb[dtype], seed)}
+                    for seed in (1, 2)]
+        return []
+
+    def check_run(r, m, dtype, plain, limit, kernel_routes):
+        """The floor and limit of ``r``; for a MoE the free-running route
+        comparison."""
+        floors = [max(per_step(plain_run(m, fns, replay=kernel_routes),
+                               plain)) for fns in floor_fns(dtype)]
+        if floors:
+            r["floor"] = max(floors)
+            r["floors"] = floors
         r["limit"] = max(limit, 2.0 * r.get("floor", 0.0))
+        if moe:
+            free = []
+            plain_run(m, routes=free)
+            r["routes"] = route_diff(torch, m.cfg, kernel_routes, free)
+            r["route_floors"] = []
+            for fns in floor_fns(dtype):
+                rts = []
+                plain_run(m, fns, routes=rts)
+                r["route_floors"].append(route_diff(torch, m.cfg, rts, free))
+            r["route_limits"] = {
+                key: 2 * max([f[key] for f in r["route_floors"]] or [0])
+                for key in ("selections", "drops")}
         return r
 
     t0 = time.perf_counter()
-    plain = plain_run(model)
+    routes16 = cap["routes"] if moe else None
+    plain = plain_run(model, replay=routes16)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     steps = per_step(cap["logits"], plain)
     tokens_equal = bool((torch.stack([x.argmax(-1) for x in plain], 1)
                          .cpu().numpy() == out).all())
-    r16 = with_floor({"sound": max(steps), "per_step": steps,
-                      "faults": faults(model, "bf16", plain),
-                      "greedy_tokens_equal": tokens_equal,
-                      "plain_run_s": plain_s}, model, plain, E2E_BF16_LIMIT)
+    attn_only = faults_of is E2E_ATTN_FAULTS
+    r16 = check_run({"sound": max(steps), "per_step": steps,
+                     "faults": faults(model, plain, routes16,
+                                      faults_of["bf16"]),
+                     "greedy_tokens_equal": tokens_equal,
+                     "plain_run_s": plain_s}, model, "bf16", plain,
+                    E2E_BF16_LIMIT, routes16)
+    if attn_only:
+        r16["faults_read"] = faults(model, plain, routes16,
+                                    E2E_ATTN_BF16_READ)
     del plain
 
-    m32 = copy.deepcopy(model).float()
-    plain = plain_run(m32)
-    steps = per_step(teacher_forced(torch, m32, prompt, fed), plain)
-    r32 = with_floor({"sound": max(steps), "per_step": steps,
-                      "faults": faults(m32, "f32", plain)}, m32, plain,
-                     E2E_F32_LIMIT)
-    del m32, plain
+    m32 = f32_copy(torch, model, f32_layers)
+    routes32 = [] if moe else None
+    logits32 = teacher_forced(torch, m32, batch, fed, routes32)
+    plain = plain_run(m32, replay=routes32)
+    steps = per_step(logits32, plain)
+    r32 = check_run({"sound": max(steps), "per_step": steps,
+                     "layers": len(m32.layers),
+                     "faults": faults(m32, plain, routes32,
+                                      faults_of["f32"])}, m32,
+                    "f32", plain, E2E_F32_LIMIT, routes32)
+    del m32, plain, logits32, routes32
     emit({"phase": f"{prefix}_end_to_end",
           "limits": {"bf16": E2E_BF16_LIMIT, "f32": E2E_F32_LIMIT},
-          "bf16": r16, "f32": r32})
+          "routes_replayed": moe, "bf16": r16, "f32": r32})
     for name, r in (("bf16", r16), ("f32", r32)):
         lim = r["limit"]
         check(r["sound"] <= lim, f"{arch} end to end in {name}, kernels vs "
                                  f"plain: {r['sound']:.3e} > {lim}")
-        check(r["faults"], f"{arch} end to end in {name}: no planted fault")
+        check(r["faults"] or (attn_only and name == "bf16"),
+              f"{arch} end to end in {name}: no planted fault")
         for fault, val in r["faults"].items():
             check(val > lim, f"{arch} end to end in {name}: the planted "
                              f"fault {fault} reads {val:.3e}, within {lim}")
+        for key, lim_r in r.get("route_limits", {}).items():
+            check(r["routes"][key] <= lim_r,
+                  f"{arch} in {name}: {r['routes'][key]} {key} differ from "
+                  f"the plain run's, over twice the floor's ({lim_r})")
 
 
-def serve_profile(torch, model, prompt):
+def serve_profile(torch, model, batch):
     """Where a wave's time goes on the device: the prefill alone, then a
     whole ``generate`` (prefill and 15 decode steps), each traced once
     after an untraced warm-up; busy share = device kernel time / wall."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import ServeEngine
 
-    eng = ServeEngine(model=model, max_len=PROMPT + GEN)
-    batch = {"tokens": prompt}
+    eng = ServeEngine(model=model, max_len=cache_len(batch))
     got = {}
     for part, run in (("prefill", lambda: eng._prefill(batch)),
                       ("generate", lambda: eng.generate(batch, GEN))):
@@ -3275,11 +3523,11 @@ def _cluster_checks(torch, np, dev, reference):
 
 
 # ---- 16(b). falcon-mamba-7b at full width through K4 --------------------------
-# 64 Mamba blocks, d 4096, d_inner 8192, N 16, bf16, seed-0 weights made
-# on the card, not cut.  Each layer's prefill scans 4096 tokens in chunks
-# of scan_chunk = 256: one K4 call a chunk on (2, 256, 8192·16) f32, the
-# carry folded into the chunk's first step, so a prefill launches K4
-# exactly 64 × 16 = 1024 times and K5 never.
+# MAMBA_LAYERS of its 64 Mamba blocks, d 4096, d_inner 8192, N 16, bf16,
+# seed-0 weights made on the card.  Each layer's prefill scans 4096
+# tokens in chunks of scan_chunk = 256: one K4 call a chunk on (2, 256,
+# 8192·16) f32, the carry folded into the chunk's first step, so a
+# prefill launches K4 exactly 16 × 16 = 256 times and K5 never.
 def chunk_pair(torch, cap):
     """The first Mamba layer's first two chunks as wave 0 scanned them:
     (a0, b0, h0), (a1, b1, h1), each a and b (B, c, di, N) f32 before the
@@ -3354,22 +3602,233 @@ def mamba_scan_phase(torch, cap, launches):
 
 
 def mamba_phase(torch, np, dev):
-    """Phase 16(b): falcon-mamba-7b serves ``MAMBA_WAVES`` waves through
+    """Phase 16(b): falcon-mamba-7b at ``MAMBA_LAYERS`` layers serves
+    ``MAMBA_WAVES`` waves through
     ``serve_phase``; K4 across a chunk boundary and its times; wave 0 end
     to end through the plain scan.  Returns K4's Mamba-path record."""
     from repro_torch.configs import get_config
-    cfg = get_config(MAMBA_ARCH)
+    cfg = get_config(MAMBA_ARCH).replace(n_layers=MAMBA_LAYERS)
     per_prefill = cfg.n_layers * -(-PROMPT // cfg.scan_chunk)
-    model, prompt0, out0, cap, launches = serve_phase(
-        torch, np, dev, arch=MAMBA_ARCH, waves=MAMBA_WAVES,
+    model, batch0, out0, cap, launches = serve_phase(
+        torch, np, dev, arch=MAMBA_ARCH, cfg=cfg, waves=MAMBA_WAVES,
         expect={"flash_attention": (0, True),
                 "linear_scan": (per_prefill, True)},
         prefix="mamba")
     with torch.inference_mode():
         rec = mamba_scan_phase(torch, cap, launches)
-        end_to_end_phase(torch, model, prompt0, out0, cap, arch=MAMBA_ARCH,
+        end_to_end_phase(torch, model, batch0, out0, cap, arch=MAMBA_ARCH,
                          prefix="mamba", floor=True)
     return rec
+
+
+# ---- phase 17: MoE, the VLM prefix, the encoder–decoder --------------------
+def k5_path_check(torch, label, qkv, kw):
+    """K5 against its plain version on one call's inputs of a phase-17
+    path, as phase 8 reads it: f32 (the inputs cast up) in RMS units,
+    bf16 relative and in RMS units of the f32 plain output, and planted
+    faults — the last kv tile dropped, causal flipped, the window one
+    wider where there is one — which must read over the f32 limit; the
+    causal flip must also read over the bf16 limit through the bf16
+    kernel.  Prints ``<label>_kernels``; returns the readings, with each
+    dtype's relative RMS distance (``perturbed_attention``'s scale)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = qkv
+    kw = {"causal": kw.get("causal", True), "window": kw.get("window"),
+          "cap": kw.get("cap")}
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    plain = attention_ref(q32, k32, v32, **kw)
+    out32 = fk.flash_attention(q32, k32, v32, **kw)
+    out16 = fk.flash_attention(q, k, v, **kw)
+    plain16 = attention_ref(q, k, v, **kw)
+
+    def rel_rms(out, ref):
+        ref = ref.double()
+        return float((out.double() - ref).pow(2).mean().sqrt()
+                     / ref.pow(2).mean().sqrt())
+
+    def causal_flip(q_, k_, v_, **w):
+        return fk.flash_attention(q_, k_, v_, **dict(w, causal=not w["causal"]))
+
+    r = {"q": list(q.shape), "kv": list(k.shape), **kw,
+         "f32_rms_units": rms_err(out32, plain),
+         "f32_rel_rms": rel_rms(out32, plain),
+         "bf16_rel": rel_err(out16, plain16),
+         "bf16_rel_rms": rel_rms(out16, plain16),
+         "bf16_max_abs": float((out16.float() - plain16.float()).abs().max()),
+         "bf16_rms_units": rms_err(out16, plain),
+         "plain_bf16_rms_units": rms_err(plain16, plain)}
+    faults = {"dropped_last_kv_tile": attn_dropped_last_kv_tile,
+              "causal_flip": causal_flip}
+    if kw["window"]:
+        faults["window_plus_1"] = attn_window_plus_1
+    for dt, ins in (("", (q32, k32, v32)), ("bf16_", (q, k, v))):
+        for name, fault in faults.items():
+            r[f"{dt}fault_{name}"] = rms_err(fault(*ins, **kw), plain)
+    torch.cuda.synchronize()
+    emit({"phase": f"{label}_kernels",
+          "limits": {"f32": K5_F32_LIMIT, "bf16": BF16_LIMIT,
+                     "bf16_rms": K5_BF16_RMS_LIMIT}, **r})
+    check(r["f32_rms_units"] <= K5_F32_LIMIT,
+          f"{label}: K5 vs plain in f32: {r['f32_rms_units']:.3e}")
+    check(r["bf16_rel"] <= BF16_LIMIT,
+          f"{label}: K5 vs plain in bf16: {r['bf16_rel']:.3e}")
+    check(r["bf16_rms_units"] <= K5_BF16_RMS_LIMIT,
+          f"{label}: K5 bf16 vs f32 plain: {r['bf16_rms_units']:.3e}")
+    for name in faults:
+        check(r[f"fault_{name}"] > K5_F32_LIMIT,
+              f"{label}: K5's planted fault {name} reads "
+              f"{r[f'fault_{name}']:.3e}")
+    check(r["bf16_fault_causal_flip"] > K5_BF16_RMS_LIMIT,
+          f"{label}: K5's causal flip in bf16 reads "
+          f"{r['bf16_fault_causal_flip']:.3e}")
+    return r
+
+
+def k5_time(torch, label, qkv, kw, launches, err):
+    """K5's times at a phase-17 shape (``kernel_record``): its bound from
+    the (q, k) pairs the mask leaves (S = T when causal), SDPA on the same
+    inputs as the yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fo
+
+    q, k, v = qkv
+    kw = {"causal": kw.get("causal", True), "window": None,
+          "cap": kw.get("cap")}
+    B_, S, H, hd = q.shape
+    T, K_ = k.shape[1], k.shape[2]
+    check(kw["cap"] is None and (not kw["causal"] or S == T),
+          f"{label}: K5's yardstick takes no softcap, and S = T if causal")
+    pairs = S * (S + 1) // 2 if kw["causal"] else S * T
+    k5_ops = 4 * B_ * H * hd * pairs
+    k5_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=kw["causal"], scale=1.0,
+            enable_gqa=H != K_)
+
+    lib_err = rel_err(sdpa().transpose(1, 2), fo.attention_ref(q, k, v, **kw))
+    rec = kernel_record(torch, "flash_attention", CU_K5, TPU_K5,
+                        lambda impl: fo.flash_attention_op(q, k, v, impl=impl,
+                                                           **kw),
+                        3, bound(k5_bytes, k5_ops, BF16_TC_OPS),
+                        timed(torch, sdpa), launches, err,
+                        phase=f"{label}_time")
+    rec["sdpa_vs_plain_bf16_rel"] = lib_err
+    rec["shape"] = {"q": list(q.shape), "kv": list(k.shape), **kw}
+    return rec
+
+
+def route_stats(cfg, routes):
+    """Wave 0's prefill routes a layer: tokens' choices dropped by
+    capacity and the largest count of choices of one expert in one group
+    (against the capacity C)."""
+    from repro_torch.models.moe import capacity, slot_positions
+    dropped, max_load = [], []
+    for t in routes[:cfg.n_layers]:
+        N, k = t.shape
+        G = min(cfg.moe_group_size, N)
+        C = capacity(cfg, G)
+        oh, pos = slot_positions(t.long().view(-1, G, k), cfg.n_experts)
+        dropped.append(int((pos >= C).sum()))
+        max_load.append(int(oh.sum(dim=(1, 2)).max()))
+    return {"group": G, "capacity": C, "choices": N * k,
+            "dropped": dropped, "max_load": max_load}
+
+
+def moe_serve_phase(torch, np, dev, arch, cfg, waves, prefix):
+    """Phase 17(a)/(b): a MoE through ``serve_phase`` (dispatch, K5 once
+    a layer), its routes, and K5 against its plain version on layer 0's
+    q/k/v.  Returns (model, wave 0's batch and tokens, captures,
+    launches, the K5 readings)."""
+    model, batch0, out0, cap, launches = serve_phase(
+        torch, np, dev, arch=arch, cfg=cfg, waves=waves, prefix=prefix,
+        expect={"flash_attention": (cfg.n_layers, True),
+                "linear_scan": (0, True)})
+    emit({"phase": f"{prefix}_routes", "moe_impl": cfg.moe_impl,
+          **route_stats(cfg, cap["routes"])})
+    with torch.inference_mode():
+        r = k5_path_check(torch, prefix, *cap["qkv"][0])
+    return model, batch0, out0, cap, launches, r
+
+
+def new_paths_phase(torch, np, dev):
+    """Phase 17: qwen2-moe-a2.7b (full), dbrx-132b (DBRX_LAYERS),
+    internvl2-1b and seamless-m4t-medium serve at full width in bf16,
+    each freed before the next.  Returns K5's launches on each path and
+    its record at qwen2-moe's shape."""
+    from repro_torch.configs import get_config
+
+    launches = {}
+    # (a) the MoE at full depth, dispatch as configured
+    cfg = get_config(MOE_ARCH)
+    model, batch0, out0, cap, n, r = moe_serve_phase(
+        torch, np, dev, MOE_ARCH, cfg, MOE_WAVES, "moe")
+    launches["qwen2-moe-a2.7b"] = n["flash_attention"]
+    with torch.inference_mode():
+        rec = k5_time(torch, "moe", *cap["qkv"][0], n["flash_attention"],
+                      r["bf16_max_abs"])
+        end_to_end_phase(torch, model, batch0, out0, cap, arch=MOE_ARCH,
+                         prefix="moe", f32_layers=MOE_F32_LAYERS,
+                         perturb={"bf16": r["bf16_rel_rms"],
+                                  "f32": r["f32_rel_rms"]})
+    del model, cap
+    torch.cuda.empty_cache()
+
+    # (b) dbrx at DBRX_LAYERS layers: no shared experts, E = 16, GQA 48:8
+    cfg = get_config(DBRX_ARCH).replace(n_layers=DBRX_LAYERS)
+    model, _, _, cap, n, _ = moe_serve_phase(
+        torch, np, dev, DBRX_ARCH, cfg, 1, "dbrx")
+    launches["dbrx-132b"] = n["flash_attention"]
+    del model, cap
+    torch.cuda.empty_cache()
+
+    # (c) the VLM: 256 patches before 3840 tokens, GQA 7:1 at hd 64
+    cfg = get_config(VLM_ARCH)
+    model, batch0, out0, cap, n = serve_phase(
+        torch, np, dev, arch=VLM_ARCH, waves=1, prefix="vlm",
+        expect={"flash_attention": (cfg.n_layers, True),
+                "linear_scan": (0, True)})
+    launches["internvl2-1b"] = n["flash_attention"]
+    with torch.inference_mode():
+        r = k5_path_check(torch, "vlm", *cap["qkv"][0])
+        end_to_end_phase(torch, model, batch0, out0, cap, arch=VLM_ARCH,
+                         prefix="vlm", perturb={"bf16": r["bf16_rel_rms"],
+                                                "f32": r["f32_rel_rms"]})
+    del model, cap
+    torch.cuda.empty_cache()
+
+    # (d) the encoder–decoder: 12 non-causal encoder calls over the
+    # frames, then 12 causal decoder calls and 12 cross calls
+    cfg = get_config(ENCDEC_ARCH)
+    L, Le = cfg.n_layers, cfg.n_enc_layers
+    model, batch0, out0, cap, n = serve_phase(
+        torch, np, dev, arch=ENCDEC_ARCH, waves=1, prefix="encdec",
+        expect={"flash_attention": (Le + 2 * L, True),
+                "linear_scan": (0, True)})
+    launches["seamless-m4t-medium"] = n["flash_attention"]
+    kinds = {}
+    for sig in cap["qkv_calls"]:
+        kinds[str(sig)] = kinds.get(str(sig), 0) + 1
+    want = {str((False, ENCDEC_FRAMES, ENCDEC_FRAMES)): Le,
+            str((True, ENCDEC_PROMPT, ENCDEC_PROMPT)): L,
+            str((False, ENCDEC_PROMPT, ENCDEC_FRAMES)): L}
+    emit({"phase": "encdec_calls", "calls": kinds, "expected": want})
+    check(kinds == want, f"seamless's K5 calls (causal, S, T): {kinds}")
+    with torch.inference_mode():
+        r_enc = k5_path_check(torch, "encdec_encoder", *cap["qkv"][0])
+        r_x = k5_path_check(torch, "encdec_cross", *cap["qkv"][Le + 1])
+        end_to_end_phase(
+            torch, model, batch0, out0, cap, arch=ENCDEC_ARCH,
+            prefix="encdec",
+            perturb={dt: max(r_enc[f"{dt}_rel_rms"], r_x[f"{dt}_rel_rms"])
+                     for dt in ("bf16", "f32")})
+    del model, cap
+    torch.cuda.empty_cache()
+    return launches, rec
 
 
 def main():
@@ -3697,14 +4156,14 @@ def main():
           f"{split['generic_waterfill']}")
 
     # ---- 7–10. serving recurrentgemma-2b through K4 and K5 -----------------
-    model, prompt0, out0, cap, serve_launches = serve_phase(torch, np, dev)
+    model, batch0, out0, cap, serve_launches = serve_phase(torch, np, dev)
     with torch.inference_mode():
         errs = kernel_phase(torch, cap)
         k5_options_phase(torch, dev)
         k4_options_phase(torch, dev)
-        end_to_end_phase(torch, model, prompt0, out0, cap)
+        end_to_end_phase(torch, model, batch0, out0, cap)
         kernels += serve_times(torch, cap, serve_launches, errs)
-    serve_profile(torch, model, prompt0)
+    serve_profile(torch, model, batch0)
     del model, cap                      # phase 16(b) needs the memory
     torch.cuda.empty_cache()
 
@@ -3753,6 +4212,18 @@ def main():
     for rec in kernels:
         if rec["name"] == "linear_scan":
             rec["mamba_path"] = mamba
+
+    # ---- 17. MoE, the VLM prefix, the encoder–decoder through K5 ---------
+    t0 = time.perf_counter()
+    launches17, moe_k5 = new_paths_phase(torch, np, dev)
+    emit({"phase": "new_paths", "launches": launches17,
+          "wall_s": time.perf_counter() - t0})
+    for rec in kernels:
+        if rec["name"] == "flash_attention":
+            rec["new_paths_launches"] = launches17
+            rec["moe_shape"] = {k: moe_k5[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "kernel_device_ms", "max_abs_err", "shape")}
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -58,46 +58,73 @@ def params_from_arrays(cfg, tree, device=None, dtype=None) -> Transformer:
     ``tree`` is the JAX package's ``init_params`` result with numpy
     leaves: ``embed``, ``blocks`` (one dict per cycle position, each leaf
     with a leading group axis), ``tail`` (the ``n_layers % cycle`` layers
-    after the groups), ``final_norm`` and, when untied, ``unembed``.
-    Layer i < cycle·G is ``blocks[i % cycle]`` at group ``i // cycle``;
-    the rest come from ``tail``.  Leaf names inside a layer are the JAX
-    ones (``norm1/scale``, ``mixer/wq``, ``mlp/w_gate``, Mamba's
-    ``mixer/in_proj`` … ``mixer/A_log``); attention projections are
-    flattened from (d, H, hd) and (H, hd, d).  Matrices are stored in
-    ``dtype`` (default ``cfg.compute_dtype``), norm scales, ``lam`` and
-    Mamba's vectors and ``A_log`` in f32.
+    after the groups), ``final_norm``, ``unembed`` when untied,
+    ``frontend_proj`` with a frontend, and an encoder–decoder's
+    ``enc_blocks`` (one stacked cycle position of ``bidir`` layers) and
+    ``enc_norm``.  Layer i < cycle·G is ``blocks[i % cycle]`` at group
+    ``i // cycle``; the rest come from ``tail``.  Leaf names inside a
+    layer are the JAX ones, nested as there (``norm1/scale``,
+    ``mixer/wq``, ``mlp/w_gate``, ``mlp/router``, ``mlp/shared/w_up``,
+    ``norm_x/scale``, ``cross/wk``, Mamba's ``mixer/in_proj`` …
+    ``mixer/A_log``); attention projections are flattened from (d, H, hd)
+    and (H, hd, d).  Matrices are stored in ``dtype`` (default
+    ``cfg.compute_dtype``); norm scales, ``lam``, Mamba's vectors and
+    ``A_log``, and the MoE router in f32.  Raises ValueError unless every
+    parameter is filled and every leaf is used.
     """
     model = Transformer(cfg, device=resolve_device(device), dtype=dtype)
-    cyc = len(cfg.cycle)
-    G = cfg.n_layers // cyc
+    known = {"embed", "blocks", "tail", "final_norm", "unembed",
+             "frontend_proj", "enc_blocks", "enc_norm"}
+    if set(tree) - known:
+        raise ValueError(f"leaves the port has no place for: "
+                         f"{sorted(set(tree) - known)}")
     filled = set()
 
     def put(param, arr, name):
         arr = np.asarray(arr)
-        if arr.size != param.numel():
-            raise ValueError(f"{name}: {arr.shape} does not fit "
-                             f"{tuple(param.shape)}")
+        if param is None or arr.size != param.numel():
+            shape = None if param is None else tuple(param.shape)
+            raise ValueError(f"{name}: {arr.shape} does not fit {shape}")
         with torch.no_grad():
             param.copy_(torch.tensor(arr).reshape(param.shape))
         filled.add(id(param))
 
+    def fill(mod, sub, group, name):
+        """Copy the nested dict ``sub`` into ``mod``'s attributes of the
+        same names, taking index ``group`` of each leaf when not None."""
+        for key, val in sub.items():
+            part = getattr(mod, key, None)
+            if part is None:
+                raise ValueError(f"{name}: no {key!r} in the port's "
+                                 f"{type(mod).__name__}")
+            if isinstance(val, dict):
+                fill(part, val, group, f"{name}/{key}")
+            else:
+                put(part, val if group is None else val[group],
+                    f"{name}/{key}")
+
+    def fill_layers(layers, blocks, tail, cyc, name):
+        G = len(layers) // cyc
+        for i, blk in enumerate(layers):
+            if i < cyc * G:
+                fill(blk, blocks[i % cyc], i // cyc, f"{name} {i}")
+            else:
+                fill(blk, tail[i - cyc * G], None, f"{name} {i}")
+
     put(model.embed, tree["embed"], "embed")
-    put(model.final_norm.scale, tree["final_norm"]["scale"], "final_norm")
-    if model.unembed is not None:
-        put(model.unembed, tree["unembed"], "unembed")
-    for i, blk in enumerate(model.layers):
-        if i < cyc * G:
-            layer = {k: {n: a[i // cyc] for n, a in sub.items()}
-                     for k, sub in tree["blocks"][i % cyc].items()}
-        else:
-            layer = tree["tail"][i - cyc * G]
-        for part, leaves in layer.items():
-            mod = getattr(blk, part, None)
-            if mod is None:
-                raise ValueError(f"layer {i}: no {part!r} in the port's "
-                                 f"{blk.kind} block")
-            for name, arr in leaves.items():
-                put(getattr(mod, name), arr, f"layer {i} {part}/{name}")
+    fill(model.final_norm, tree["final_norm"], None, "final_norm")
+    for key in ("unembed", "frontend_proj"):
+        if key in tree:
+            put(getattr(model, key), tree[key], key)
+    fill_layers(model.layers, tree["blocks"], tree["tail"], len(cfg.cycle),
+                "layer")
+    if "enc_blocks" in tree or "enc_norm" in tree:
+        if model.enc_norm is None:
+            raise ValueError(f"{cfg.name} has no encoder for the tree's "
+                             f"enc_blocks and enc_norm")
+        fill_layers(model.enc_layers, tree["enc_blocks"], (), 1,
+                    "encoder layer")
+        fill(model.enc_norm, tree["enc_norm"], None, "enc_norm")
     missing = [n for n, p in model.named_parameters()
                if id(p) not in filled]
     if missing:

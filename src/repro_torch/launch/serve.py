@@ -4,9 +4,13 @@
         --batch 4 --prompt-len 64 --gen 32 [--requests 3] [--device cpu]
 
 Runs the architecture's smoke config with random weights from seed 0, as
-the JAX launcher does; on CUDA unless ``--device`` says otherwise.  The
-port serves the dense and RG-LRU configs and falcon-mamba-7b.
-``chip_smoke.py`` drives the full config on the card.
+the JAX launcher does (MoE through its dense path; the VLM gets random
+patches and the encoder–decoder random frames of the prompt's length);
+on CUDA unless ``--device`` says otherwise.  Every config the repo ships
+serves.  The caches hold n_patches + prompt + gen positions: the JAX
+launcher sizes them at prompt + gen and drops the VLM's last writes,
+which the port refuses.  ``chip_smoke.py`` drives the full configs on
+the card.
 """
 from __future__ import annotations
 
@@ -35,10 +39,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=True)
+    if cfg.moe:
+        cfg = cfg.replace(moe_impl="dense")
     dev = resolve_device(args.device)
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                         device=dev)
-    eng = ServeEngine(model=model, max_len=args.prompt_len + args.gen,
+    n_prefix = cfg.n_patches if cfg.family == "vlm" else 0
+    eng = ServeEngine(model=model,
+                      max_len=n_prefix + args.prompt_len + args.gen,
                       temperature=args.temperature)
 
     rng = np.random.default_rng(0)
@@ -46,6 +54,12 @@ def main(argv=None):
     for r in range(args.requests):
         batch = {"tokens": rng.integers(
             2, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)}
+        if cfg.family == "vlm":
+            batch["patches"] = rng.standard_normal(
+                (args.batch, cfg.n_patches, cfg.patch_dim)).astype(np.float32)
+        if cfg.encoder_decoder:
+            batch["frames"] = rng.standard_normal(
+                (args.batch, args.prompt_len, cfg.patch_dim)).astype(np.float32)
         t0 = time.perf_counter()
         out = eng.generate(batch, args.gen)
         dt = time.perf_counter() - t0

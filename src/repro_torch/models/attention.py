@@ -2,7 +2,9 @@
 QKV bias.  Full-sequence attention goes through the flash attention op
 (``kernels/flash_attention``: the CUDA kernel on the card, its plain
 version on the CPU); single-token decode over the KV cache is plain
-PyTorch, as in the JAX package.
+PyTorch, as in the JAX package.  Decoder cross-attention reads encoder
+K/V computed once a layer (``cross_kv``): full-sequence through the same
+op (not causal, T = the encoder's length), at decode plain PyTorch.
 """
 from __future__ import annotations
 
@@ -20,6 +22,9 @@ __all__ = [
     "attn_init",
     "qkv",
     "attention",
+    "cross_kv",
+    "cross_attention",
+    "cross_decode_attention",
     "prefill_attention",
     "init_kv_cache",
     "cache_slots",
@@ -103,6 +108,35 @@ def attention(m: Attention, x, cfg, kind, positions):
     return _attend(m, x, cfg, kind, positions)[0]
 
 
+def _cross_q(m: Attention, x, cfg):
+    """Cross-attention queries: no rope, pre-scaled, (B, S, H, hd)."""
+    B, S, _ = x.shape
+    q = x @ m.wq
+    if m.bq is not None:
+        q = q + m.bq
+    return q.view(B, S, -1, cfg.head_dim) * (cfg.head_dim ** -0.5)
+
+
+def cross_kv(m: Attention, enc_out, cfg):
+    """Encoder K/V of a decoder layer's cross-attention, (B, T, K, hd)
+    each, with the biases and no rope."""
+    B, T, _ = enc_out.shape
+    k, v = enc_out @ m.wk, enc_out @ m.wv
+    if m.bk is not None:
+        k, v = k + m.bk, v + m.bv
+    return k.view(B, T, -1, cfg.head_dim), v.view(B, T, -1, cfg.head_dim)
+
+
+def cross_attention(m: Attention, x, cfg, kv):
+    """Full-sequence decoder cross-attention of x (B, S, d) over the
+    encoder's ``kv`` (``cross_kv``): every key visible, the config's
+    softcap."""
+    k, v = kv
+    o = flash_attention_op(_cross_q(m, x, cfg), k, v, causal=False,
+                           window=None, cap=cfg.attn_softcap)
+    return _out(m, o)
+
+
 def prefill_attention(m: Attention, x, cfg, kind, positions, max_len,
                       cache_dtype=torch.bfloat16):
     """Full-sequence attention that also returns a populated KV cache.
@@ -176,6 +210,21 @@ def decode_attention(m: Attention, x, cfg, kind, cache, pos: int):
     else:
         valid = t_idx <= pos
     s = torch.where(valid, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = matmul_f32acc("bkgqt,btkd->bqkgd", w.to(v.dtype), v)
+    return _out(m, o.reshape(B, 1, H, hd).to(x.dtype))
+
+
+def cross_decode_attention(m: Attention, x, cfg, kv):
+    """Cross-attention of one decoder token x (B, 1, d) over the encoder's
+    ``kv``: no mask and no softcap, as in the JAX package."""
+    B = x.shape[0]
+    q = _cross_q(m, x, cfg)
+    k, v = kv
+    K, hd = k.shape[2], k.shape[3]
+    H = q.shape[2]
+    qg = q.reshape(B, 1, K, H // K, hd)
+    s = matmul_f32acc("bqkgd,btkd->bkgqt", qg, k.to(qg.dtype))
     w = torch.softmax(s, dim=-1)
     o = matmul_f32acc("bkgqt,btkd->bqkgd", w.to(v.dtype), v)
     return _out(m, o.reshape(B, 1, H, hd).to(x.dtype))

@@ -3,10 +3,12 @@
 cycle groups; the port keeps layer order and loops), full-sequence
 prefill that fills the decode state, and single-token decode.
 
-Carries the decoder-only kinds of the serving path: global ('attn') and
-sliding-window ('local') attention blocks, RG-LRU blocks, dense MLPs and
-Mamba blocks (mixer only, no MLP).  MoE, the VLM prefix and the
-encoder–decoder raise NotImplementedError when the model is built.
+Carries every kind the configs use: global ('attn') and sliding-window
+('local') attention blocks with a dense MLP or a Mixture-of-Experts
+layer, RG-LRU blocks, Mamba blocks (mixer only, no MLP), the VLM's
+patch-embedding prefix (``frontend_proj``), and the encoder–decoder: a
+stack of bidirectional encoder layers over ``batch["frames"]`` and
+decoder layers with cross-attention (``norm_x``, ``cross``).
 """
 from __future__ import annotations
 
@@ -16,12 +18,14 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
-from .attention import (Attention, attention, attn_init, decode_attention,
+from .attention import (Attention, attention, attn_init, cross_attention,
+                        cross_decode_attention, cross_kv, decode_attention,
                         init_kv_cache, prefill_attention)
-from .common import RMSNorm, embed_init, softcap
+from .common import RMSNorm, dense_init, embed_init, softcap
 from .mamba import (Mamba, init_mamba_state, mamba_apply, mamba_decode,
                     mamba_init, mamba_prefill)
 from .mlp import MLP, mlp, mlp_init
+from .moe import MoE, moe_apply, moe_init
 from .rglru import (RGLRU, init_rglru_state, rglru_apply, rglru_decode,
                     rglru_init, rglru_prefill)
 
@@ -32,54 +36,56 @@ __all__ = [
 ]
 
 _ATTN = ("attn", "local")
+_SELF_ATTN = ("attn", "local", "bidir")
 
 
 def check_supported(cfg) -> None:
-    """Raise NotImplementedError for what this slice of the port lacks."""
-    later = None
-    if cfg.moe:
-        later = "MoE layers (models/moe.py) come with a later slice"
-    elif cfg.family == "vlm":
-        later = "the VLM patch-embedding prefix comes with a later slice"
-    elif cfg.encoder_decoder:
-        later = ("the encoder–decoder with cross-attention comes with a "
-                 "later slice")
-    elif not set(cfg.cycle) <= {"attn", "local", "rglru", "mamba"}:
-        later = f"block kinds {cfg.cycle} are not ported"
-    if later:
-        raise NotImplementedError(f"{cfg.name}: {later}")
+    """Raise NotImplementedError for a block kind the port lacks."""
+    if not set(cfg.cycle) <= {"attn", "local", "rglru", "mamba"}:
+        raise NotImplementedError(
+            f"{cfg.name}: block kinds {cfg.cycle} are not ported")
 
 
 class Block(nn.Module):
     """One layer: pre-norm mixer (attention, RG-LRU or Mamba) and, except
-    for Mamba, a pre-norm MLP residual, with gemma2's post-norms where the
-    config has them."""
+    for Mamba, a pre-norm MLP residual (a MoE in an attention block of a
+    MoE config), with gemma2's post-norms where the config has them.  A
+    ``decoder`` layer of the encoder–decoder also holds ``norm_x`` and
+    the cross-attention ``cross``."""
 
-    def __init__(self, cfg, kind, device=None, dtype=None):
+    def __init__(self, cfg, kind, device=None, dtype=None, decoder=False):
         super().__init__()
         d = cfg.d_model
         self.kind = kind
         self.norm1 = RMSNorm(d, device)
-        if kind in _ATTN:
+        if kind in _SELF_ATTN:
             self.mixer = Attention(cfg, kind, device, dtype)
         elif kind == "mamba":
             self.mixer = Mamba(cfg, device, dtype)
         else:
             self.mixer = RGLRU(cfg, device, dtype)
-        post = cfg.post_norm and kind in _ATTN
+        post = cfg.post_norm and kind in _SELF_ATTN
         self.post1 = RMSNorm(d, device) if post else None
         has_mlp = kind != "mamba"
         self.norm2 = RMSNorm(d, device) if has_mlp else None
-        self.mlp = MLP(d, cfg.d_ff, device, dtype) if has_mlp else None
+        if cfg.moe and kind in _SELF_ATTN:
+            self.mlp = MoE(cfg, device, dtype)
+        else:
+            self.mlp = MLP(d, cfg.d_ff, device, dtype) if has_mlp else None
         self.post2 = RMSNorm(d, device) if post else None
+        self.norm_x = RMSNorm(d, device) if decoder else None
+        self.cross = Attention(cfg, "attn", device, dtype) if decoder else None
 
 
 class Transformer(nn.Module):
-    """embed (vocab, d), the layers, final_norm, and unembed unless tied.
+    """embed (vocab, d), the layers, final_norm, and unembed unless tied;
+    ``frontend_proj`` (patch_dim, d) with a frontend; the encoder's
+    ``enc_layers`` and ``enc_norm`` in an encoder–decoder.
 
     Matrices are stored in ``dtype`` (default ``cfg.compute_dtype``; see
-    ``models/common.py``), norm scales, ``lam`` and Mamba's vectors and
-    ``A_log`` in f32.  Serving only: no parameter takes a gradient.
+    ``models/common.py``); norm scales, ``lam``, Mamba's vectors and
+    ``A_log``, and the MoE router in f32.  Serving only: no parameter
+    takes a gradient.
     """
 
     def __init__(self, cfg, device=None, dtype=None):
@@ -88,27 +94,37 @@ class Transformer(nn.Module):
         dtype = dtype or cfg.compute_dtype
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
+        dec = cfg.encoder_decoder
         self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model, **kw))
-        self.layers = nn.ModuleList(Block(cfg, kind, device, dtype)
+        self.layers = nn.ModuleList(Block(cfg, kind, device, dtype, dec)
                                     for kind in cfg.layer_kinds())
         self.final_norm = RMSNorm(cfg.d_model, device)
         self.unembed = (None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(cfg.vocab, cfg.d_model, **kw)))
+        self.frontend_proj = (nn.Parameter(
+            torch.empty(cfg.patch_dim, cfg.d_model, **kw))
+            if cfg.frontend else None)
+        self.enc_layers = nn.ModuleList(
+            Block(cfg, "bidir", device, dtype)
+            for _ in range(cfg.n_enc_layers if dec else 0))
+        self.enc_norm = RMSNorm(cfg.d_model, device) if dec else None
         self.requires_grad_(False)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
-    def forward(self, tokens):
-        """Logits at every position, (B, S, vocab): the blocks run
-        full-sequence with no cache."""
+    def forward(self, tokens, patches=None, frames=None):
+        """Logits at every position, (B, St, vocab), St = the VLM's
+        n_patches (with ``patches``) + S: the blocks run full-sequence
+        with no cache.  An encoder–decoder needs ``frames``."""
         cfg = self.cfg
-        tokens = _tokens(tokens, self.device)
-        h = embed_tokens(self, tokens)
-        positions = _positions(tokens)
+        h, positions = _embed_input(self, tokens, patches)
+        enc_out = _encode(self, frames) if cfg.encoder_decoder else None
         for blk in self.layers:
-            h = block_fwd(blk, h, cfg, positions)
+            kv = None if enc_out is None else cross_kv(blk.cross, enc_out,
+                                                       cfg)
+            h = block_fwd(blk, h, cfg, positions, enc_kv=kv)
         return logits_of(self, self.final_norm(h, cfg.norm_eps))
 
 
@@ -116,21 +132,28 @@ def init_params(cfg, generator, device=None, dtype=None) -> Transformer:
     """A model of ``cfg`` with random weights from ``generator`` (a
     ``torch.Generator`` on ``device``): truncated normals as in the JAX
     package's initialisers, zero norm scales and biases, ``lam`` as in the
-    RG-LRU init, Mamba's A, Δ bias and D as in its init.  The numbers
-    differ from JAX's for the same seed; the distributions are the same."""
+    RG-LRU init, Mamba's A, Δ bias and D as in its init, the MoE's as in
+    ``moe_init``.  The numbers differ from JAX's for the same seed; the
+    distributions are the same."""
     model = Transformer(cfg, device=resolve_device(device), dtype=dtype)
     embed_init(model.embed, generator)
-    for blk in model.layers:
-        if blk.kind in _ATTN:
+    for blk in (*model.layers, *model.enc_layers):
+        if blk.kind in _SELF_ATTN:
             attn_init(blk.mixer, cfg, generator)
         elif blk.kind == "mamba":
             mamba_init(blk.mixer, generator)
         else:
             rglru_init(blk.mixer, generator)
-        if blk.mlp is not None:
+        if isinstance(blk.mlp, MoE):
+            moe_init(blk.mlp, cfg, generator)
+        elif blk.mlp is not None:
             mlp_init(blk.mlp, generator)
+        if blk.cross is not None:
+            attn_init(blk.cross, cfg, generator)
     if model.unembed is not None:
         embed_init(model.unembed, generator)
+    if model.frontend_proj is not None:
+        dense_init(model.frontend_proj, cfg.patch_dim, generator)
     return model
 
 
@@ -138,9 +161,38 @@ def _tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=device).long()
 
 
-def _positions(tokens):
-    B, S = tokens.shape
-    return torch.arange(S, device=tokens.device).expand(B, S)
+def _positions(B, S, device):
+    return torch.arange(S, device=device).expand(B, S)
+
+
+def _project(model: Transformer, x):
+    """Patches or frames (B, n, patch_dim), any float dtype, through
+    ``frontend_proj`` in the compute dtype."""
+    w = model.frontend_proj
+    return torch.as_tensor(x, device=model.device).to(w.dtype) @ w
+
+
+def _embed_input(model: Transformer, tokens, patches=None):
+    """(h (B, St, d), positions (B, St)): the token embeddings, after the
+    projected patches when the VLM is given them (without, it serves
+    text only, as the JAX package does)."""
+    h = embed_tokens(model, _tokens(tokens, model.device))
+    if model.cfg.family == "vlm" and patches is not None:
+        h = torch.cat([_project(model, patches), h], dim=1)
+    return h, _positions(h.shape[0], h.shape[1], h.device)
+
+
+def _encode(model: Transformer, frames):
+    """The encoder: frames (B, S_src, patch_dim) → enc_out (B, S_src, d)."""
+    if frames is None:
+        raise ValueError(f"{model.cfg.name} is an encoder–decoder: the "
+                         f"batch needs 'frames'")
+    cfg = model.cfg
+    h = _project(model, frames)
+    positions = _positions(h.shape[0], h.shape[1], h.device)
+    for blk in model.enc_layers:
+        h = block_fwd(blk, h, cfg, positions)
+    return model.enc_norm(h, cfg.norm_eps)
 
 
 def _post(blk, name, y, cfg):
@@ -148,18 +200,34 @@ def _post(blk, name, y, cfg):
     return y if norm is None else norm(y, cfg.norm_eps)
 
 
-def block_fwd(blk: Block, h, cfg, positions):
-    """One block, full sequence, no cache."""
+def _ffn(blk, h, cfg):
+    """The block's second residual branch on its pre-norm input: the MLP,
+    or the MoE with its aux losses dropped, as the serving path does."""
+    hn = blk.norm2(h, cfg.norm_eps)
+    if isinstance(blk.mlp, MoE):
+        return moe_apply(blk.mlp, hn, cfg)[0]
+    return mlp(blk.mlp, hn, cfg.mlp)
+
+
+def _cross(blk, h, cfg, kv):
+    if kv is None:
+        return h
+    return h + cross_attention(blk.cross, blk.norm_x(h, cfg.norm_eps), cfg,
+                               kv)
+
+
+def block_fwd(blk: Block, h, cfg, positions, enc_kv=None):
+    """One block, full sequence, no cache; ``enc_kv`` the encoder K/V of
+    a decoder layer's cross-attention."""
     hn = blk.norm1(h, cfg.norm_eps)
     if blk.kind == "mamba":
         return h + mamba_apply(blk.mixer, hn, cfg)
-    if blk.kind in _ATTN:
+    if blk.kind in _SELF_ATTN:
         y = attention(blk.mixer, hn, cfg, blk.kind, positions)
-        h = h + _post(blk, "post1", y, cfg)
+        h = _cross(blk, h + _post(blk, "post1", y, cfg), cfg, enc_kv)
     else:
         h = h + rglru_apply(blk.mixer, hn, cfg)
-    y2 = mlp(blk.mlp, blk.norm2(h, cfg.norm_eps), cfg.mlp)
-    return h + _post(blk, "post2", y2, cfg)
+    return h + _post(blk, "post2", _ffn(blk, h, cfg), cfg)
 
 
 def embed_tokens(model: Transformer, tokens):
@@ -191,19 +259,24 @@ def _check_cache_room(pos: int, n: int, max_len: int) -> None:
 
 def prefill(model: Transformer, batch, max_len: int,
             cache_dtype=torch.bfloat16):
-    """Full forward over batch['tokens'] (B, S) that returns the last
-    position's logits (B, vocab) and the decode state: ``pos`` (an int)
-    and one cache per layer — KV (a ring buffer for local layers) or the
-    RG-LRU's or Mamba's (h, conv window).  ``cache_dtype`` defaults to
-    bf16 even for an f32 model, as in the JAX package.  Raises ValueError
-    when S > ``max_len`` and the model has a global attention layer."""
+    """Full forward over batch['tokens'] (B, S), after the VLM's
+    batch['patches'] (B, n_patches, patch_dim) when given, and over an
+    encoder–decoder's batch['frames'] (B, S_src, patch_dim).  Returns the
+    last position's logits (B, vocab) and the decode state: ``pos`` (St =
+    n_patches + S), one cache per layer — KV (a ring buffer for local
+    layers) or the RG-LRU's or Mamba's (h, conv window) — and for an
+    encoder–decoder ``cross``, each decoder layer's encoder (k, v) in the
+    compute dtype.  ``cache_dtype`` defaults to bf16 even for an f32
+    model, as in the JAX package.  Raises ValueError when St > ``max_len``
+    and the model has a global attention layer."""
     cfg = model.cfg
-    tokens = _tokens(batch["tokens"], model.device)
+    h, positions = _embed_input(model, batch["tokens"], batch.get("patches"))
+    St = h.shape[1]
     if any(blk.kind == "attn" for blk in model.layers):
-        _check_cache_room(0, tokens.shape[1], max_len)
-    h = embed_tokens(model, tokens)
-    positions = _positions(tokens)
-    caches = []
+        _check_cache_room(0, St, max_len)
+    enc_out = (_encode(model, batch.get("frames"))
+               if cfg.encoder_decoder else None)
+    caches, cross = [], []
     for blk in model.layers:
         hn = blk.norm1(h, cfg.norm_eps)
         if blk.kind == "mamba":
@@ -215,20 +288,26 @@ def prefill(model: Transformer, batch, max_len: int,
             y, cache = prefill_attention(blk.mixer, hn, cfg, blk.kind,
                                          positions, max_len, cache_dtype)
             h = h + _post(blk, "post1", y, cfg)
+            if enc_out is not None:
+                cross.append(cross_kv(blk.cross, enc_out, cfg))
+                h = _cross(blk, h, cfg, cross[-1])
         else:
             y, cache = rglru_prefill(blk.mixer, hn, cfg, cache_dtype)
             h = h + y
-        y2 = mlp(blk.mlp, blk.norm2(h, cfg.norm_eps), cfg.mlp)
-        h = h + _post(blk, "post2", y2, cfg)
+        h = h + _post(blk, "post2", _ffn(blk, h, cfg), cfg)
         caches.append(cache)
     h = model.final_norm(h[:, -1:], cfg.norm_eps)
-    return logits_of(model, h)[:, 0], {"pos": tokens.shape[1],
-                                       "layers": caches}
+    state = {"pos": St, "layers": caches}
+    if cfg.encoder_decoder:
+        state["cross"] = cross
+    return logits_of(model, h)[:, 0], state
 
 
-def init_decode_state(cfg, B, max_len, cache_dtype=torch.bfloat16,
+def init_decode_state(cfg, B, max_len, src_len=0, cache_dtype=torch.bfloat16,
                       device=None):
-    """Zeroed decode state, one cache per layer in layer order."""
+    """Zeroed decode state, one cache per layer in layer order; for an
+    encoder–decoder also ``cross``, each layer's (k, v) (B, src_len, K,
+    hd), zeros in ``cache_dtype``."""
     dev = resolve_device(device)
     layers = [init_kv_cache(cfg, B, max_len, kind, cache_dtype, device=dev)
               if kind in _ATTN else
@@ -236,11 +315,18 @@ def init_decode_state(cfg, B, max_len, cache_dtype=torch.bfloat16,
               if kind == "mamba" else
               init_rglru_state(cfg, B, cache_dtype, device=dev)
               for kind in cfg.layer_kinds()]
-    return {"pos": 0, "layers": layers}
+    state = {"pos": 0, "layers": layers}
+    if cfg.encoder_decoder:
+        shape = (B, src_len, cfg.n_kv_heads, cfg.head_dim)
+        state["cross"] = [
+            tuple(torch.zeros(shape, dtype=cache_dtype, device=dev)
+                  for _ in range(2)) for _ in range(cfg.n_layers)]
+    return state
 
 
-def block_decode(blk: Block, h, cfg, cache, pos):
-    """One block, one token. Returns (h, the layer's new cache)."""
+def block_decode(blk: Block, h, cfg, cache, pos, cross=None):
+    """One block, one token; ``cross`` a decoder layer's encoder (k, v).
+    Returns (h, the layer's new cache)."""
     hn = blk.norm1(h, cfg.norm_eps)
     if blk.kind == "mamba":
         y, cache = mamba_decode(blk.mixer, hn, cfg, cache)
@@ -248,11 +334,13 @@ def block_decode(blk: Block, h, cfg, cache, pos):
     if blk.kind in _ATTN:
         y = decode_attention(blk.mixer, hn, cfg, blk.kind, cache, pos)
         h = h + _post(blk, "post1", y, cfg)
+        if cross is not None:
+            h = h + cross_decode_attention(
+                blk.cross, blk.norm_x(h, cfg.norm_eps), cfg, cross)
     else:
         y, cache = rglru_decode(blk.mixer, hn, cfg, cache)
         h = h + y
-    y2 = mlp(blk.mlp, blk.norm2(h, cfg.norm_eps), cfg.mlp)
-    return h + _post(blk, "post2", y2, cfg), cache
+    return h + _post(blk, "post2", _ffn(blk, h, cfg), cfg), cache
 
 
 def decode_step(model: Transformer, tokens, state):
@@ -268,9 +356,13 @@ def decode_step(model: Transformer, tokens, state):
             _check_cache_room(pos, 1, cache["k"].shape[1])
             break
     h = embed_tokens(model, _tokens(tokens, model.device))
+    cross = state.get("cross") or [None] * len(model.layers)
     caches = []
-    for blk, cache in zip(model.layers, state["layers"]):
-        h, cache = block_decode(blk, h, cfg, cache, pos)
+    for blk, cache, kv in zip(model.layers, state["layers"], cross):
+        h, cache = block_decode(blk, h, cfg, cache, pos, kv)
         caches.append(cache)
     h = model.final_norm(h, cfg.norm_eps)
-    return logits_of(model, h)[:, 0], {"pos": pos + 1, "layers": caches}
+    new = {"pos": pos + 1, "layers": caches}
+    if "cross" in state:
+        new["cross"] = state["cross"]
+    return logits_of(model, h)[:, 0], new

@@ -60,8 +60,10 @@ class ServeEngine:
 
     @torch.inference_mode()
     def generate(self, batch: dict, n_tokens: int) -> np.ndarray:
-        """Prefill on batch['tokens'] (B, S), then decode: n_tokens in all,
-        the first from the prefill's logits.  Returns (B, n_tokens) int32."""
+        """Prefill on batch['tokens'] (B, S), with the VLM's
+        batch['patches'] or the encoder–decoder's batch['frames'] where
+        given, then decode: n_tokens in all, the first from the prefill's
+        logits.  Returns (B, n_tokens) int32."""
         logits, state = self._prefill(batch)
         B = logits.shape[0]
         gen = torch.Generator(device=logits.device).manual_seed(self.seed)
