@@ -104,7 +104,7 @@ Phases (each one is a check; any failure exits non-zero):
      kernels and busy share); (b) ``plan_classes`` against
      ``smartfill_hetero`` at one job per class, bit for bit; (c) (a)'s
      plan drained by the pinned, cached ``ClassSmartFillPolicy``
-     through ``simulate_fluid_classes``, card against CPU; (d) 64 class
+     through ``simulate_fluid_classes``, card against CPU; (d) 32 class
      instances through ``plan_classes_batched``, card against CPU; (e)
      ``examples/hetero_fleet.py``: the ten configs' roofline speedups
      on one 256-GPU pod, card against CPU, WMR not below the plan; no
@@ -171,8 +171,9 @@ Phases (each one is a check; any failure exits non-zero):
      the same allocation changes, their times and allocations to 1e-7:
      SmartFill's schedule off the pure-power path; the event counts are
      printed, and may differ by the host loop's ghost events,
-     ``schedule_of``); the ten configs'
-     roofline speedups as one 256-GPU pod (the plan against
+     ``schedule_of``); six of the ten configs'
+     roofline speedups as one 256-GPU pod (ten until phase 18 needed the
+     room; the plan against
      ``smartfill_hetero``, the device path against the host loop to
      1e-5); 256 fleets under a one-card fleet mesh, bit for bit to the
      call without one; no K1–K5 launch.  (b) falcon-mamba-7b at full
@@ -208,19 +209,41 @@ Phases (each one is a check; any failure exits non-zero):
      non-causal over the frames, 12 causal over 512, 12 cross S 512, T
      4096), K5 against its plain version on the first encoder layer's
      and the first cross-attention's inputs, end to end.
-     ``tools/phase17_count.py`` counts its device operations.
+     ``tools/phase17_count.py`` counts its device operations;
+ 18. training (``train_*`` lines): (a) K5's backward kernel
+     (``flash_attention_bwd.cu``) against autograd through its plain
+     version on llama's path shape at one layer (4, 4096, 32:8, 64)
+     causal and on every ``K5_OPTIONS`` case, in f32 and bf16, with
+     planted faults of the backward (dK/dV of one head a GQA group, the
+     causal mask flipped, the softcap dropped, the window one wider); its
+     op, device, plain and SDPA-backward ms and its bound; (b)
+     llama3.2-1b at full width and depth (1.236 B parameters, f32
+     masters, bf16 compute, remat "full") trains 8 steps of 8 × 4096
+     tokens in 2 micro-batches through ``make_train_step``/
+     ``train_loop``: every loss finite and falling from ≈ ln V, step ms,
+     tokens/s, peak memory, and exactly 64 K5 forward and 32 backward
+     launches a step; (c) one step at 1 × 4096 through the kernels and
+     through the plain versions, loss, gradient norm and the largest
+     per-leaf gradient distance within twice a floor (the plain run
+     against itself with noise of (a)'s readings, two seeds); (d) on a
+     two-layer cut of the full width: the NaN guard (bit for bit),
+     save-and-resume and ``RetryableStep`` (the uninterrupted run's
+     losses to the spread of two uninterrupted runs), ``adamw_update``
+     on the card against its CPU run, and ``python -m
+     repro_torch.launch.train`` at the smoke config.
 
 Launch counters are reset before phases 3–4 drive the planning path,
 before phases 7, 16(b) and each part of 17 drive the serving paths, before phases 11,
-13, 14, 15 and 16(a) and before each float32 run of phase 12, and read
-right after each;
+13, 14, 15 and 16(a), before each float32 run of phase 12 and before
+phase 18(b)'s training run, and read right after each;
 the comparisons and timings come later and do not count.  Prints one
 JSON line per measurement, the kernel summary line ``{"kernels": [...]}``
-(five kernels, each with its device ms; K1 and K2 also with their
+(six kernels, each with its device ms; K1 and K2 also with their
 launches inside the engine, ``engine_launches``; K4 also with its Mamba
 path's launches and times, ``mamba_path``; K5 also with phase 17's
-launches, ``new_paths_launches``, and its times at qwen2-moe's shape,
-``moe_shape``), the card line, and last
+launches, ``new_paths_launches``, its times at qwen2-moe's shape,
+``moe_shape``, and its training figures, ``train``; K5's backward with
+its launches in phase 18(b)), the card line, and last
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -809,6 +832,13 @@ def rms_err(out, ref):
     """max |out − ref| over the RMS of ref."""
     ref = ref.double()
     return float((out.double() - ref).abs().max() / ref.pow(2).mean().sqrt())
+
+
+def rel_rms(out, ref):
+    """RMS of out − ref over the RMS of ref."""
+    ref = ref.double()
+    return float((out.double() - ref).pow(2).mean().sqrt()
+                 / ref.pow(2).mean().sqrt())
 
 
 def rel_err(out, ref):
@@ -2208,7 +2238,7 @@ def engine_phase(torch, np, dev):
 # anchor at one job per class, plan_classes against smartfill_hetero
 # with the class knobs, bit for bit; (c) (a)'s plan drained by the
 # pinned, cached ClassSmartFillPolicy through simulate_fluid_classes,
-# against the port's CPU run of the same drain; (d) 64 class instances
+# against the port's CPU run of the same drain; (d) 32 class instances
 # through plan_classes_batched against the port's CPU run; (e) the ten
 # configs' roofline speedups on one 256-GPU pod.
 #
@@ -2228,13 +2258,17 @@ CLASS_KNOBS = dict(coarse=64, descent_iters=96, cap_iters=64,
                    exchange_passes=2, exchange_window=1, stol_rel=1e-10)
 J_CLASS_REF = 13375083293911.18
 J_CLASS_PORT_CPU = 13375083293911.186
-# (b)'s anchor plans 5 one-job classes twice (plan_classes and
+# (b)'s anchor plans 4 one-job classes twice (plan_classes and
 # smartfill_hetero, each with its exchange search): 8 took ~86 s on the
 # card, 5 about half as many device operations (aten operations counted
-# on the CPU: 3.55 M against 1.63 M), which keeps the whole script
-# within its time once phase 15 runs too.
-ANCHOR_SEED, ANCHOR_C = 5, 5
-BATCH_SEED, BATCH_K, BATCH_C, BATCH_COUNTS = 7, 64, 16, (0, 50_000)
+# on the CPU: 3.55 M against 1.63 M) and 40.6–50.1 s; 4 (5 until phase
+# 18 needed the room) keeps the whole script within its time.  One job
+# a class makes the aggregation the identity whatever the instance.
+ANCHOR_SEED, ANCHOR_C = 5, 4
+# (d)'s batch: the first 32 of the sampler's 64 instances at this seed
+# (64 until phase 18 needed the room; the sampler draws instance by
+# instance, so these are the same 32)
+BATCH_SEED, BATCH_K, BATCH_C, BATCH_COUNTS = 7, 32, 16, (0, 50_000)
 # (d)'s aggregates are stiff (up to 50,000 jobs a class, 58 of 64
 # heuristic orders unrealized): μ* sits where F is flat and moves with
 # the rounding, c and with it J_linear follow, and on unrealized orders
@@ -3239,12 +3273,15 @@ def _stream_checks(torch, np, dev, reference):
 # under job_speedup's analytic roofline: the repo holds no dry-run JSON)
 # through the cost-free device path (SmartFill ≤ heSRPT), the host loop
 # with a 30 s reallocation cost and 2-chip merging, and integer chips;
-# the ten configs' roofline speedups as the jobs of one 256-GPU pod (the
-# plan, and the device and host paths against each other at the
-# reference's 1e-5, tests/sched/test_cluster.py:213-221); and 256 fleets
+# the roofline speedups of CLUSTER_POD_JOBS of the ten configs (all ten
+# until phase 18 needed the room: the pod's device path took 58.7 s and
+# its host loop 28.5 s at ten) as the jobs of one 256-GPU pod (the plan,
+# and the device and host paths against each other at the reference's
+# 1e-5, tests/sched/test_cluster.py:213-221); and 256 fleets
 # under a one-card fleet mesh, bit for bit to the call without one.  The
 # float64 CAP takes the closed form: no K1–K5 launch.
 CLUSTER_GPUS, CLUSTER_M, CLUSTER_FLEETS = 256.0, 12, 256
+CLUSTER_POD_JOBS = 6       # the first six configs in name order
 CLUSTER_RTOL = 1e-9        # card vs CPU: J; Σθ = B
 # card vs CPU: allocations (over B) and event times (relative).  Off the
 # pure-power path SmartFill's schedule is determined only to ~1e-7 (μ*
@@ -3310,8 +3347,8 @@ def cluster_call(job, d):
                     weight=float(1.0 / sizes[i])) for i in range(CLUSTER_M)]
         return ClusterScheduler(sp, CLUSTER_GPUS,
                                 **CLUSTER_SIMS[job]).simulate(jobs)
-    # the ten configs' roofline speedups on one 256-GPU pod
-    names = sorted(list_archs())
+    # the roofline speedups of CLUSTER_POD_JOBS configs on one 256-GPU pod
+    names = sorted(list_archs())[:CLUSTER_POD_JOBS]
     members = [job_speedup(
         step_flops=6.0 * get_config(a).active_param_count() * POD_TOKENS,
         grad_bytes=2.0 * get_config(a).param_count(),
@@ -3474,7 +3511,7 @@ def _cluster_checks(torch, np, dev, reference):
     check(J_sf <= he.J * (1 + 1e-9), f"cluster: SmartFill J above heSRPT's: "
                                      f"{r}")
 
-    # the ten configs' roofline speedups on one 256-GPU pod
+    # the roofline speedups of CLUSTER_POD_JOBS configs on one pod
     (order, J, J_lin), wall = run("pod_plan")
     (order_c, J_c, _), cpu_s = reference("pod_plan")
     (ref_order, ref_J), _ = reference("pod_ref")
@@ -3642,11 +3679,6 @@ def k5_path_check(torch, label, qkv, kw):
     out32 = fk.flash_attention(q32, k32, v32, **kw)
     out16 = fk.flash_attention(q, k, v, **kw)
     plain16 = attention_ref(q, k, v, **kw)
-
-    def rel_rms(out, ref):
-        ref = ref.double()
-        return float((out.double() - ref).pow(2).mean().sqrt()
-                     / ref.pow(2).mean().sqrt())
 
     def causal_flip(q_, k_, v_, **w):
         return fk.flash_attention(q_, k_, v_, **dict(w, causal=not w["causal"]))
@@ -3829,6 +3861,636 @@ def new_paths_phase(torch, np, dev):
     del model, cap
     torch.cuda.empty_cache()
     return launches, rec
+
+
+# ---- phase 18: training llama3.2-1b at full width --------------------------
+# The train step (``train/loop.py``) on the full config: 16 layers, d 2048,
+# 32:8 heads of 64, vocab 128256 tied, bf16 compute on f32 masters, remat
+# "full", the launcher's AdamW (lr 3e-3, 20 warm-up steps); TRAIN_STEPS
+# steps of SyntheticTokens at TRAIN_BATCH × TRAIN_SEQ in TRAIN_MICRO
+# micro-batches (the reference's train_4k global batch of 256 cut to 8).
+# Under remat "full" K5's forward runs twice a layer and micro-batch (the
+# checkpoint recomputes it in the backward pass), its backward once.
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 8, 4096, 2
+TRAIN_OPT = {"lr": 3e-3, "warmup_steps": 20}
+CU_K5_BWD = ("src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention_bwd.cu")
+# K5's backward replaces no Pallas kernel: the JAX package trains through
+# autodiff of this function
+XLA_ATTN = "src/repro/models/attention.py:61"
+# K5's backward against autograd through its plain version: f32 in units
+# of the plain gradient's RMS (max |Δ|; sound 4e-6–3.9e-4 in the first
+# H100 runs, the most at the path shape, where the first keys' dk and dv
+# sum 4096 rows and stand ~50 RMS above the rest),
+# bf16 relative as phase 8 reads the forward (max |Δ| / (|plain| + RMS)),
+# and bf16 as the RMS of the difference over the RMS of the f32 plain
+# gradient of the same bf16 inputs (sound ~4e-3; the plain version's own
+# bf16 rounding reads ~1.7e-3).  The max-in-RMS-units reading is not held
+# in bf16: with the softcap's scores of std 60 the plain version's own
+# bf16 rounding of its largest gradient reads 0.23 there.  The planted
+# faults of the backward (dK/dV of one head of each GQA group, the causal
+# mask flipped, the softcap dropped, the window one wider) must read over
+# the f32 limit in f32 and, but for the window, over the bf16 RMS limit
+# in bf16.  A fault whose gradients overflow (the softcap dropped, the
+# causal mask flipped under a softcap: exp(s − L) past f32) reads NaN,
+# which counts as over the limit.
+BWD_F32_LIMIT = 2e-3
+BWD_BF16_LIMIT = 1e-1
+BWD_BF16_RMS_LIMIT = 2e-2
+# (c): one step at B 1 × 4096 through the kernels and through the plain
+# versions; the floor is the plain run against itself with noise of (a)'s
+# relative readings, the largest over TRAIN_FLOOR_SEEDS seeds, and the
+# limit twice the floor.  The loss and the global gradient norm are
+# aggregates whose floor readings spread 1.6× between two seeds (the
+# first H100 run: grad norm 1.23e-4 and 7.7e-5 against the kernel's
+# 2.54e-4), so the floor takes four.
+TRAIN_E2E_SEQ = 4096
+TRAIN_FLOOR_SEEDS = (1, 2, 3, 4)
+# (d): the substrate on a cut of the full width to SUBSTRATE_LAYERS
+# layers, at SUBSTRATE_BATCH × SUBSTRATE_SEQ
+SUBSTRATE_LAYERS, SUBSTRATE_BATCH, SUBSTRATE_SEQ = 2, 2, 512
+ADAMW_RTOL = 1e-6          # card vs CPU, over each leaf's largest |value|
+
+
+def attn_grads_plain(torch, q, k, v, do, kw):
+    """dq, dk, dv of autograd through ``attention_ref`` (in the inputs'
+    dtype) and its output."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = attention_ref(*leaves, **kw)
+    out.backward(do)
+    return [x.grad for x in leaves], out.detach()
+
+
+def attn_grads_kernel(q, k, v, do, kw, bwd=None, heads=None):
+    """K5 forward with its log-sum-exp, then K5's backward, with the
+    backward's options changed by ``bwd`` and, with ``heads``, run on the
+    query heads ``heads`` only (a planted fault)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    _, lse = fk.flash_attention(q, k, v, return_lse=True, **kw)
+    if heads is not None:
+        q, do = (x[:, :, heads].contiguous() for x in (q, do))
+        lse = lse[:, heads].contiguous()
+    return fk.flash_attention_bwd(q, k, v, do, lse,
+                                  **dict(kw, **(bwd or {})))
+
+
+def bwd_faults(kw, G):
+    """The planted faults of K5's backward that apply to options ``kw``
+    with G query heads a kv head: name → (bwd options, heads)."""
+    faults = {"causal_flipped_in_bwd": ({"causal": not kw["causal"]}, None)}
+    if G > 1:
+        faults["dkdv_one_head_of_group"] = ({}, "one")
+    if kw.get("cap"):
+        faults["softcap_dropped_in_bwd"] = ({"cap": None}, None)
+    if kw.get("window"):
+        faults["window_plus_1_in_bwd"] = ({"window": kw["window"] + 1},
+                                          None)
+    return faults
+
+
+def bwd_readings(torch, q, k, v, do, kw):
+    """K5's backward against its plain version on one set of f32 inputs
+    (rounded to bf16 for the bf16 readings): f32 in RMS units, bf16
+    relative, and bf16 as relative RMS against the f32 plain gradients of
+    the same bf16 inputs (also the floor's noise in (c), with the
+    forward's), each the largest over dq, dk, dv; and the planted faults,
+    f32 in RMS units, bf16 as relative RMS (a fault's dq, dk, dv against
+    the plain's; the one-head fault reads dk and dv)."""
+    H, K_ = q.shape[2], k.shape[2]
+    G = H // K_
+    ins32 = (q.float(), k.float(), v.float(), do.float())
+    ins16 = tuple(x.bfloat16() for x in ins32)
+    plain32, _ = attn_grads_plain(torch, *ins32, kw)
+    plain16, out_p16 = attn_grads_plain(torch, *ins16, kw)
+    plain16f, _ = attn_grads_plain(torch, *(x.float() for x in ins16), kw)
+    k32 = attn_grads_kernel(*ins32, kw)
+    k16 = attn_grads_kernel(*ins16, kw)
+    from repro_torch.kernels.flash_attention import kernel as fk
+    out16 = fk.flash_attention(*ins16[:3], **kw)
+    r = {"f32_rms_units": max(rms_err(a, b) for a, b in zip(k32, plain32)),
+         "bf16_rel": max(rel_err(a, b) for a, b in zip(k16, plain16)),
+         "bf16_rms_units": max(rms_err(a, b)
+                               for a, b in zip(k16, plain16f)),
+         "bf16_rel_rms": max(rel_rms(a, b) for a, b in zip(k16, plain16f)),
+         "bf16_max_abs": max(float((a.float() - b.float()).abs().max())
+                             for a, b in zip(k16, plain16)),
+         "fwd_bf16_rel_rms": rel_rms(out16, out_p16),
+         "same_bits_twice": all(torch.equal(a, b) for a, b in zip(
+             k16, attn_grads_kernel(*ins16, kw)))}
+    one = torch.arange(0, H, G, device=q.device)
+    for name, (bwd, heads) in bwd_faults(kw, G).items():
+        for dt, ins, plain in (("f32", ins32, plain32),
+                               ("bf16", ins16, plain16f)):
+            got = attn_grads_kernel(*ins, kw, bwd=bwd,
+                                    heads=one if heads else None)
+            pairs = zip(got[1:], plain[1:]) if heads else zip(got, plain)
+            read = rms_err if dt == "f32" else rel_rms
+            r[f"{dt}_fault_{name}"] = max(read(a, b) for a, b in pairs)
+    return r
+
+
+def check_bwd(label, r):
+    check(r["f32_rms_units"] <= BWD_F32_LIMIT,
+          f"{label}: K5 bwd vs plain in f32: {r['f32_rms_units']:.3e}")
+    check(r["bf16_rel"] <= BWD_BF16_LIMIT,
+          f"{label}: K5 bwd vs plain in bf16: {r['bf16_rel']:.3e}")
+    check(r["bf16_rel_rms"] <= BWD_BF16_RMS_LIMIT,
+          f"{label}: K5 bwd bf16 vs f32 plain: {r['bf16_rel_rms']:.3e}")
+    check(r["same_bits_twice"], f"{label}: K5 bwd gave other bits twice")
+    # every fault over the f32 limit in f32; in bf16 over the bf16 RMS
+    # limit, except the window one wider (one more key a row, read only)
+    for key, val in r.items():
+        if key.startswith("f32_fault_"):
+            check(not val <= BWD_F32_LIMIT,
+                  f"{label}: K5 bwd's planted fault {key} reads {val:.3e}")
+        if key.startswith("bf16_fault_") and "window" not in key:
+            check(not val <= BWD_BF16_RMS_LIMIT,
+                  f"{label}: K5 bwd's planted fault {key} reads {val:.3e}")
+
+
+def k5_bwd_phase(torch, dev, B_):
+    """Phase 18(a): K5's backward against autograd through its plain
+    version on llama's path shape at one layer, (B_, TRAIN_SEQ, 32:8, 64)
+    causal, and on every case of ``K5_OPTIONS``, inputs from a seed;
+    then its times at the path shape in bf16: op and device ms, the
+    plain version (forward and backward through ``attention_ref``),
+    SDPA's backward (the flash backend, ``is_causal``, ``enable_gqa``;
+    timed here, off the path) and the bound, 10·hd operations a valid
+    (q, k) pair (QKᵀ and dO·Vᵀ again, dV, dK, dQ) at the bf16 peak.
+    Returns (the path's readings, the record for the kernels line)."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    H, K_, hd = 32, 8, 64
+    shape_q = (B_, TRAIN_SEQ, H, hd)
+    q = randn(*shape_q) * hd ** -0.5
+    k, v = randn(B_, TRAIN_SEQ, K_, hd), randn(B_, TRAIN_SEQ, K_, hd)
+    do = randn(*shape_q)
+    kw = {"causal": True, "window": None, "cap": None}
+    path = bwd_readings(torch, q, k, v, do, kw)
+    emit({"phase": "train_k5_bwd_path", "q": list(shape_q),
+          "kv": list(k.shape), **kw,
+          "limits": {"f32": BWD_F32_LIMIT, "bf16": BWD_BF16_LIMIT,
+                     "bf16_rms": BWD_BF16_RMS_LIMIT}, **path})
+    check_bwd("K5 bwd at the path shape", path)
+    got = {}
+    for name, ((b, S, T, h, kk, d), causal, window, cap) in \
+            K5_OPTIONS.items():
+        qo = randn(b, S, h, d) * (60.0 if cap else 1.0) * d ** -0.5
+        ko, vo, doo = randn(b, T, kk, d), randn(b, T, kk, d), \
+            randn(b, S, h, d)
+        got[name] = bwd_readings(torch, qo, ko, vo, doo,
+                                 {"causal": causal, "window": window,
+                                  "cap": cap})
+    torch.cuda.synchronize()
+    emit({"phase": "train_k5_bwd_options", "readings": got})
+    for name, r in got.items():
+        check_bwd(f"K5 bwd {name}", r)
+
+    # times at the path shape, bf16
+    q16, k16, v16, do16 = (x.bfloat16() for x in (q, k, v, do))
+    _, lse = fk.flash_attention(q16, k16, v16, return_lse=True)
+
+    def op():
+        return fk.flash_attention_bwd(q16, k16, v16, do16, lse)
+
+    def plain():
+        return attn_grads_plain(torch, q16, k16, v16, do16, kw)
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q16, k16, v16))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            scale=1.0, enable_gqa=True)
+    dot = do16.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o_sdpa, (qt, kt, vt), dot,
+                                   retain_graph=True)
+
+    sdpa_err = max(rel_err(a.transpose(1, 2), b) for a, b in zip(
+        sdpa_bwd(), attn_grads_plain(torch, q16, k16, v16, do16, kw)[0]))
+    ms = timed(torch, op)
+    ms_plain = timed(torch, plain, runs=5)
+    ms_lib = timed(torch, sdpa_bwd)
+    ms_fwd = timed(torch, lambda: fk.flash_attention(q16, k16, v16))
+    ms_fwd_lse = timed(torch, lambda: fk.flash_attention(
+        q16, k16, v16, return_lse=True))
+    # device time a call: the sum of the two kernels' mean durations
+    by_kind = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(256):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            for _ in range(5):
+                op()
+            torch.cuda.synchronize()
+            for _ in range(256):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        for e in prof.profiler.kineto_results.events():
+            if (e.device_type() == DeviceType.CUDA
+                    and "flash_attention_bwd" in e.name()):
+                kind = e.name().split("flash_attention_bwd_")[1].split(
+                    "_")[0]             # dq or dkdv (the FMA or mma one)
+                by_kind.setdefault(kind, []).append(e.duration_ns())
+        if len(by_kind) == 3:
+            break
+    check(sorted(by_kind) == ["dkdv", "dq"],
+          f"the profiler saw K5 bwd's kernels {sorted(by_kind)}")
+    dev_ms = {kind: sum(d) / len(d) / 1e6 for kind, d in by_kind.items()}
+    pairs = B_ * H * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    nbytes = (2 * (2 * q16.numel() + 2 * k16.numel()) + 4 * lse.numel()
+              + 2 * (q16.numel() + 2 * k16.numel()))
+    rec = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": CU_K5_BWD, "replaces": XLA_ATTN, "launches": None,
+           "max_abs_err": path["bf16_max_abs"], "ms": ms, "plain_ms": ms_plain,
+           **dict(zip(("bound_ms", "bound_by"),
+                      bound(nbytes, 10 * hd * pairs, BF16_TC_OPS))),
+           "library_ms": ms_lib, "kernel_device_ms": sum(dev_ms.values()),
+           "kernel_device_ms_by_kernel": dev_ms,
+           "shape": {"q": list(shape_q), "kv": list(k.shape), **kw}}
+    emit({"phase": "train_k5_bwd_time", **rec,
+          "sdpa_bwd_vs_plain_bf16_rel": sdpa_err,
+          "k5_fwd_ms": ms_fwd, "k5_fwd_with_lse_ms": ms_fwd_lse})
+    del lse, o_sdpa, qt, kt, vt
+    return path, rec, {"fwd_ms": ms_fwd, "fwd_with_lse_ms": ms_fwd_lse}
+
+
+def perturbed_train_attention(torch, rel_fwd, rel_bwd, seed, dev):
+    """The plain attention for training with noise in both directions:
+    the output gets ``rel_fwd`` of its RMS, each of dq, dk, dv
+    ``rel_bwd`` of theirs (generators seeded ``seed``): a plain run as far
+    from the plain one as K5 and its backward read."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    class GradNoise(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            g32 = g.float()
+            noise = torch.randn(g.shape, generator=gen, device=g.device)
+            return (g32 + noise * (rel_bwd * g32.pow(2).mean().sqrt())
+                    ).to(g.dtype)
+
+    def run(q, k, v, causal=True, window=None, cap=None):
+        q, k, v = (GradNoise.apply(x) for x in (q, k, v))
+        out = attention_ref(q, k, v, causal=causal, window=window, cap=cap)
+        o = out.float()
+        noise = torch.randn(o.shape, generator=gen, device=dev)
+        scale = rel_fwd * o.detach().pow(2).mean().sqrt()
+        return (o + noise * scale).to(out.dtype)
+    return run
+
+
+def grad_readings(torch, run, ref):
+    """Loss (relative), global gradient norm (relative) and the largest
+    per-leaf relative gradient distance (‖Δg‖ / ‖g‖) of ``run`` against
+    ``ref``, each (total, metrics, grads)."""
+    def norm(gs):
+        return float(torch.sqrt(sum(g.double().pow(2).sum()
+                                    for g in gs.values())))
+    n_ref = norm(ref[2])
+    leaf = 0.0
+    for name, g in ref[2].items():
+        gn = float(g.double().norm())
+        if gn > 0:
+            leaf = max(leaf, float((run[2][name].double() - g.double()
+                                    ).norm()) / gn)
+    return {"loss": abs(float(run[0]) - float(ref[0])) / abs(float(ref[0])),
+            "grad_norm": abs(norm(run[2]) - n_ref) / n_ref,
+            "leaf_max": leaf}
+
+
+def train_end_to_end(torch, dev, model, cfg, path):
+    """Phase 18(c): one step's loss and gradients at B 1 × TRAIN_E2E_SEQ
+    through the kernels and through the plain versions (``attention_ref``
+    with autograd, patched into the model's call site), held to twice
+    the floor: the plain run against itself with noise of (a)'s relative
+    readings, the largest over ``TRAIN_FLOOR_SEEDS``."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.train.loop import loss_and_grads
+
+    batch = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_E2E_SEQ,
+                            global_batch=1, seed=1).batch_at(0)
+    L = cfg.n_layers
+    reset_all_launches()
+    kern = loss_and_grads(model, batch)
+    torch.cuda.synchronize()
+    n_k = all_launches()
+    check(n_k["flash_attention"] == 2 * L and
+          n_k["flash_attention_bwd"] == L,
+          f"(c)'s kernel run launched {n_k}")
+
+    def plain_run(fn):
+        reset_all_launches()
+        with mock.patch.object(attn_mod, "flash_attention_op", fn):
+            out = loss_and_grads(model, batch)
+        torch.cuda.synchronize()
+        n = all_launches()
+        check(n["flash_attention"] == 0 and n["flash_attention_bwd"] == 0,
+              f"a plain run of (c) launched K5: {n}")
+        return out
+
+    plain = plain_run(lambda q, k, v, causal=True, window=None, cap=None,
+                      impl="auto": attention_ref(q, k, v, causal=causal,
+                                                 window=window, cap=cap))
+    got = {"kernel": grad_readings(torch, kern, plain)}
+    del kern
+    for seed in TRAIN_FLOOR_SEEDS:
+        noisy = plain_run(perturbed_train_attention(
+            torch, path["fwd_bf16_rel_rms"], path["bf16_rel_rms"], seed,
+            dev))
+        got[f"floor_seed{seed}"] = grad_readings(torch, noisy, plain)
+        del noisy
+    floor = {k: max(got[f"floor_seed{s}"][k] for s in TRAIN_FLOOR_SEEDS)
+             for k in got["kernel"]}
+    limits = {k: 2 * v for k, v in floor.items()}
+    emit({"phase": "train_end_to_end", "tokens": TRAIN_E2E_SEQ,
+          "loss_plain": float(plain[0]), "limits": limits,
+          "noise": {"fwd_rel_rms": path["fwd_bf16_rel_rms"],
+                    "bwd_rel_rms": path["bf16_rel_rms"]}, **got})
+    for k, lim in limits.items():
+        check(got["kernel"][k] <= lim,
+              f"(c): the kernel step's {k} reads {got['kernel'][k]:.3e} "
+              f"over twice the floor, {lim:.3e}")
+
+
+def _bits(state):
+    """Clones of the parameters and moments, and the step."""
+    return ({k: v.detach().clone() for k, v in
+             state.params.named_parameters()},
+            {k: v.clone() for k, v in state.opt_state.mu.items()},
+            {k: v.clone() for k, v in state.opt_state.nu.items()},
+            int(state.opt_state.step))
+
+
+def _same_bits(torch, state, bits):
+    p, mu, nu, step = bits
+    return (all(torch.equal(v, p[k]) for k, v in
+                state.params.named_parameters())
+            and all(torch.equal(v, mu[k]) for k, v in
+                    state.opt_state.mu.items())
+            and all(torch.equal(v, nu[k]) for k, v in
+                    state.opt_state.nu.items())
+            and int(state.opt_state.step) == step)
+
+
+def train_substrate(torch, np, dev):
+    """Phase 18(d) on llama's full width cut to SUBSTRATE_LAYERS layers:
+    the NaN guard, save and resume, ``RetryableStep``, ``adamw_update``
+    on the card against its CPU run, and the launcher at the smoke
+    config."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens, host_batch_iterator
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, CheckpointHook,
+                                   RetryableStep, TrainState, adamw_init,
+                                   adamw_update, checkpoint as ckpt,
+                                   make_train_step, train_loop)
+
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=SUBSTRATE_LAYERS)
+    opt = AdamWConfig(**TRAIN_OPT)
+    step = make_train_step(cfg, opt)
+    src = SyntheticTokens(vocab=cfg.vocab, seq_len=SUBSTRATE_SEQ,
+                          global_batch=SUBSTRATE_BATCH)
+
+    def fresh(seed=0):
+        return TrainState.create(init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), device=dev,
+            dtype=torch.float32, trainable=True))
+
+    def run(state, start, n, hooks=()):
+        return [h["loss"] for h in train_loop(
+            cfg, opt, state, host_batch_iterator(src, cfg, start), n,
+            train_step=step, hooks=hooks, log_every=0)]
+
+    out = {}
+    # the NaN guard: a poisoned step leaves every bit
+    st = fresh()
+    run(st, 0, 1)
+    with torch.no_grad():
+        st.params.embed[0, 0] = float("inf")
+    bits = _bits(st)
+    _, _, m = step(st.params, st.opt_state, src.batch_at(1))
+    out["nan_guard"] = {"skipped": float(m["skipped"]),
+                        "loss": float(m["loss"]),
+                        "same_bits": _same_bits(torch, st, bits)}
+    check(out["nan_guard"]["skipped"] == 1.0
+          and out["nan_guard"]["same_bits"],
+          f"(d) the NaN guard: {out['nan_guard']}")
+    del st, bits
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # save at step 2 and resume: two uninterrupted runs give the spread
+        # (one checkpoint only: the three leaves a parameter take 4.6 GB)
+        d1 = f"{tmp}/run1"
+        st = fresh()
+        a = run(st, 0, 2, [CheckpointHook(d1, every=2, asynchronous=False)])
+        a += run(st, 2, 2)
+        b = run(fresh(), 0, 4)
+        st = fresh(seed=5)
+        tree, man = ckpt.restore(f"{d1}/step_00000002",
+                                 {"params": st.params,
+                                  "opt": st.opt_state})
+        st.params, st.opt_state, st.step = tree["params"], tree["opt"], \
+            man["step"]
+        r = run(st, 2, 2)
+        spread = max(abs(x - y) for x, y in zip(a[2:], b[2:]))
+        out["resume"] = {"uninterrupted": a, "again": b, "resumed": r,
+                         "spread": spread,
+                         "resumed_vs_uninterrupted": [
+                             abs(x - y) for x, y in zip(r, a[2:])]}
+        check(all(d <= spread for d in
+                  out["resume"]["resumed_vs_uninterrupted"]),
+              f"(d) resume: {out['resume']}")
+
+        # RetryableStep: a step made to raise restores step 2 and replays
+        d2 = d1
+        calls = {"n": 0}
+
+        def flaky(*args):
+            calls["n"] += 1
+            if calls["n"] == 2:
+                raise RuntimeError("CUDA error: a planted failure")
+            return step(*args)
+
+        st = fresh(seed=6)
+        tree, man = ckpt.restore(f"{d2}/step_00000002",
+                                 {"params": st.params, "opt": st.opt_state})
+        st.params, st.opt_state, st.step = tree["params"], tree["opt"], \
+            man["step"]
+        rs = RetryableStep(flaky, d2, max_retries=1)
+        losses, restored = [], []
+        while st.step < 4:
+            res, nxt = rs(st, src.batch_at(st.step))
+            if res is None:
+                restored.append(nxt)
+                continue
+            st.params, st.opt_state, m = res
+            st.step = nxt
+            losses.append(float(m["loss"]))
+        out["retry"] = {"calls": calls["n"], "restored_to": restored,
+                        "losses": losses, "uninterrupted": a}
+        check(restored == [2] and calls["n"] == 4
+              and abs(losses[0] - a[2]) <= spread
+              and abs(losses[1] - a[2]) <= spread
+              and abs(losses[2] - a[3]) <= spread,
+              f"(d) RetryableStep: {out['retry']}")
+        del st, tree
+
+        # adamw_update on the card against its CPU run on the same grads
+        model = fresh().params
+        names = ["layers.0.norm1.scale", "layers.0.mixer.wq",
+                 "layers.0.mlp.w_gate"]
+        params = {n: p.detach().clone() for n, p in
+                  model.named_parameters() if n in names}
+        del model
+        gen = torch.Generator(device=dev).manual_seed(7)
+        grads = [{n: torch.randn(p.shape, generator=gen, device=dev) * s
+                  for n, p in params.items()} for s in (1e-3, 1e-2, 1.0)]
+        cpu = {n: p.cpu() for n, p in params.items()}
+        sc, ss = adamw_init(params), adamw_init(cpu)
+        for g in grads:
+            params, sc, _ = adamw_update(opt, g, sc, params)
+            cpu, ss, _ = adamw_update(opt, {n: x.cpu() for n, x in
+                                            g.items()}, ss, cpu)
+        err = {}
+        for n in names:
+            for what, x, y in (("p", params[n], cpu[n]),
+                               ("mu", sc.mu[n], ss.mu[n]),
+                               ("nu", sc.nu[n], ss.nu[n])):
+                y = y.to(dev)
+                err[f"{n}/{what}"] = float((x - y).abs().max()
+                                           / y.abs().max())
+        out["adamw_card_vs_cpu"] = {"rtol": ADAMW_RTOL, "readings": err}
+        check(max(err.values()) <= ADAMW_RTOL,
+              f"(d) adamw_update card vs CPU: {err}")
+        del params, cpu, sc, ss, grads
+
+        # the launcher at the smoke config, on the card by default
+        reset_all_launches()
+        t0 = time.perf_counter()
+        hist = launch_train.main(["--steps", "4", "--seq", "128",
+                                  "--global-batch", "8",
+                                  "--ckpt-dir", f"{tmp}/launcher"])
+        torch.cuda.synchronize()
+        n = all_launches()
+        out["launcher"] = {"losses": [h["loss"] for h in hist],
+                           "launches": n,
+                           "wall_s": time.perf_counter() - t0}
+        check(len(hist) == 4 and all(np.isfinite(h["loss"]) for h in hist)
+              and n["flash_attention"] > 0
+              and n["flash_attention_bwd"] > 0,
+              f"(d) the launcher: {out['launcher']}")
+    emit({"phase": "train_substrate", **out})
+
+
+def train_phase(torch, np, dev):
+    """Phase 18: (a) K5's backward against its plain version and its
+    times; (b) llama3.2-1b at full width and depth trains TRAIN_STEPS
+    steps through ``make_train_step``/``train_loop``, counted; (c) one
+    step through the kernels against the plain versions; (d) the
+    substrate.  Returns (launches of (b), K5 bwd's record, K5's training
+    figures)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens, host_batch_iterator
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, TrainState, make_train_step,
+                                   train_loop)
+
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16"
+          and cfg.tie_embeddings, f"{TRAIN_ARCH}'s training config changed")
+    mb = TRAIN_BATCH // TRAIN_MICRO
+    t0 = time.perf_counter()
+    path, rec, fwd = k5_bwd_phase(torch, dev, mb)
+    emit({"phase": "train_k5_bwd", "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+    # (b) the main path, counted
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev, dtype=torch.float32, trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    state = TrainState.create(model)
+    opt = AdamWConfig(**TRAIN_OPT)
+    step = make_train_step(cfg, opt, microbatches=TRAIN_MICRO)
+    src = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    hist = train_loop(cfg, opt, state, host_batch_iterator(src, cfg),
+                      TRAIN_STEPS, train_step=step, log_every=0)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    step_ms = [h["step_time_s"] * 1e3 for h in hist]
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    L = cfg.n_layers
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    emit({"phase": "train_main_path", "arch": TRAIN_ARCH,
+          "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "microbatches": TRAIN_MICRO, "remat": cfg.remat,
+          "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+          "lr": [h["lr"] for h in hist],
+          "skipped": [h["skipped"] for h in hist], "step_ms": step_ms,
+          "step_ms_median_after_first": steady,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (steady / 1e3),
+          "peak_memory_gb": peak / 1e9, "launches": launches,
+          "launches_per_step": per_step,
+          "wall_s": time.perf_counter() - t0})
+    check(all(np.isfinite(losses)), f"training loss not finite: {losses}")
+    check(losses[-1] < losses[0] and abs(losses[0] - np.log(cfg.vocab)) < 1,
+          f"the training loss does not fall from ln V: {losses}")
+    check(not any(h["skipped"] for h in hist), "a training step was skipped")
+    check(per_step["flash_attention"] == 2 * L * TRAIN_MICRO
+          and per_step["flash_attention_bwd"] == L * TRAIN_MICRO,
+          f"K5 launches a step: {per_step}")
+    check(all(launches[k] == 0 for k in launches
+              if not k.startswith("flash_attention")),
+          f"training launched other kernels: {launches}")
+
+    # (c) kernel against plain, end to end
+    t0 = time.perf_counter()
+    train_end_to_end(torch, dev, state.params, cfg, path)
+    emit({"phase": "train_end_to_end_wall", "wall_s":
+          time.perf_counter() - t0})
+    del state, model, step
+    torch.cuda.empty_cache()
+
+    # (d) the substrate
+    t0 = time.perf_counter()
+    train_substrate(torch, np, dev)
+    emit({"phase": "train_substrate_wall",
+          "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    rec["launches"] = launches["flash_attention_bwd"]
+    rec["launches_per_step"] = per_step["flash_attention_bwd"]
+    return launches, rec, {"launches_per_step":
+                           per_step["flash_attention"], **fwd,
+                           "step_ms": steady, "peak_memory_gb": peak / 1e9}
 
 
 def main():
@@ -4224,6 +4886,16 @@ def main():
             rec["moe_shape"] = {k: moe_k5[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "kernel_device_ms", "max_abs_err", "shape")}
+
+    # ---- 18. training llama3.2-1b through K5 and K5's backward ------------
+    t0 = time.perf_counter()
+    launches18, bwd_rec, k5_train = train_phase(torch, np, dev)
+    emit({"phase": "train", "launches": launches18,
+          "wall_s": time.perf_counter() - t0})
+    for rec in kernels:
+        if rec["name"] == "flash_attention":
+            rec["train"] = k5_train
+    kernels.append(bwd_rec)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -5,7 +5,10 @@ over as numpy arrays (``np.asarray(sp.A)`` and so on) with ``sigma`` and
 ``B``, and ``speedup_from_arrays`` builds the port's object from exactly
 those numbers on the device asked for.  A JAX model's parameter tree,
 turned to numpy leaf by leaf, goes through ``params_from_arrays`` the
-same way.  This module reads plain arrays only; it knows nothing of JAX.
+same way, and ``arrays_from_params`` gives the port's parameters, or any
+tensors keyed by parameter name (gradients, optimizer moments), back in
+that tree's layout.  This module reads plain arrays only; it knows
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -14,9 +17,10 @@ import torch
 
 from ._device import as_tensor, resolve_device
 from .core.speedup import GenericSpeedup, RegularSpeedup, StackedSpeedup
+from .models.attention import Attention
 from .models.transformer import Transformer
 
-__all__ = ["speedup_from_arrays", "params_from_arrays"]
+__all__ = ["speedup_from_arrays", "params_from_arrays", "arrays_from_params"]
 
 
 def speedup_from_arrays(kind: str, *, B: float, A=None, w=None, gamma=None,
@@ -52,7 +56,8 @@ def speedup_from_arrays(kind: str, *, B: float, A=None, w=None, gamma=None,
     raise ValueError(f"unknown speedup kind {kind!r}")
 
 
-def params_from_arrays(cfg, tree, device=None, dtype=None) -> Transformer:
+def params_from_arrays(cfg, tree, device=None, dtype=None,
+                       trainable=False) -> Transformer:
     """The port's model of ``cfg`` holding exactly the numbers of ``tree``.
 
     ``tree`` is the JAX package's ``init_params`` result with numpy
@@ -69,10 +74,12 @@ def params_from_arrays(cfg, tree, device=None, dtype=None) -> Transformer:
     ``mixer/A_log``); attention projections are flattened from (d, H, hd)
     and (H, hd, d).  Matrices are stored in ``dtype`` (default
     ``cfg.compute_dtype``); norm scales, ``lam``, Mamba's vectors and
-    ``A_log``, and the MoE router in f32.  Raises ValueError unless every
-    parameter is filled and every leaf is used.
+    ``A_log``, and the MoE router in f32.  ``trainable`` as in
+    ``Transformer``.  Raises ValueError unless every parameter is filled
+    and every leaf is used.
     """
-    model = Transformer(cfg, device=resolve_device(device), dtype=dtype)
+    model = Transformer(cfg, device=resolve_device(device), dtype=dtype,
+                        trainable=trainable)
     known = {"embed", "blocks", "tail", "final_norm", "unembed",
              "frontend_proj", "enc_blocks", "enc_norm"}
     if set(tree) - known:
@@ -130,3 +137,74 @@ def params_from_arrays(cfg, tree, device=None, dtype=None) -> Transformer:
     if missing:
         raise ValueError(f"parameters not in the tree: {missing}")
     return model
+
+
+def _jax_shape(parent, leaf, x, hd):
+    """A leaf's shape in the JAX tree: attention projections unflattened
+    to (d, heads, hd), (heads, hd, d) and biases (heads, hd); the rest as
+    the port stores them."""
+    if not isinstance(parent, Attention):
+        return x
+    if leaf in ("wq", "wk", "wv"):
+        return x.reshape(x.shape[0], -1, hd)
+    if leaf == "wo":
+        return x.reshape(-1, hd, x.shape[-1])
+    return x.reshape(-1, hd)
+
+
+def _stack(trees):
+    """Nested dicts with equal structure → one dict of stacked leaves."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return np.stack(trees)
+
+
+def arrays_from_params(cfg, model: Transformer, values=None) -> dict:
+    """The inverse of ``params_from_arrays``: a JAX ``init_params``-shaped
+    tree of numpy arrays (``embed``, ``blocks`` stacked per cycle
+    position over the groups, ``tail``, ``final_norm``, and ``unembed``,
+    ``frontend_proj``, ``enc_blocks``, ``enc_norm`` where the config has
+    them).  The leaves are ``values[name]`` for each of the model's
+    parameter names (gradients, optimizer moments …), or the parameters
+    themselves when ``values`` is None; bf16 comes back as float32."""
+    vals = dict(model.named_parameters()) if values is None else values
+
+    def np_of(name):
+        t = vals[name].detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+
+    def layer_tree(prefix, mod):
+        out = {}
+        for name, _ in mod.named_parameters():
+            parts = name.split(".")
+            parent = mod.get_submodule(".".join(parts[:-1]))
+            node = out
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = _jax_shape(parent, parts[-1],
+                                         np_of(prefix + name), cfg.head_dim)
+        return out
+
+    def stack_layers(prefix, layers, cyc):
+        G = len(layers) // cyc
+        trees = [layer_tree(f"{prefix}.{i}.", blk)
+                 for i, blk in enumerate(layers)]
+        blocks = tuple(_stack([trees[g * cyc + j] for g in range(G)])
+                       for j in range(cyc)) if G else ()
+        return blocks, tuple(trees[cyc * G:])
+
+    tree = {"embed": np_of("embed"),
+            "final_norm": layer_tree("final_norm.", model.final_norm)}
+    tree["blocks"], tree["tail"] = stack_layers("layers", model.layers,
+                                                len(cfg.cycle))
+    for key in ("unembed", "frontend_proj"):
+        if getattr(model, key) is not None:
+            tree[key] = np_of(key)
+    if model.enc_norm is not None:
+        tree["enc_blocks"], _ = stack_layers("enc_layers", model.enc_layers,
+                                             1)
+        tree["enc_norm"] = layer_tree("enc_norm.", model.enc_norm)
+    return tree

@@ -55,6 +55,8 @@ SOURCES = {
     "gwf_waterfill": _PKG / "gwf_waterfill" / "csrc" / "gwf_waterfill.cu",
     "flash_attention": (_PKG / "flash_attention" / "csrc"
                         / "flash_attention.cu"),
+    "flash_attention_bwd": (_PKG / "flash_attention" / "csrc"
+                            / "flash_attention_bwd.cu"),
     "linear_scan": _PKG / "linear_scan" / "csrc" / "linear_scan.cu",
 }
 DEFAULT_CUDA_HOME = "/usr/local/cuda"

@@ -96,7 +96,10 @@
 //   - 1) has, in the plain version, the uniform softmax over all T keys.
 //   A q tile holding such a row visits every kv tile, so that row sums
 //   exp(0) over exactly the T keys and divides by T.
-// - The end divides by max(l, 1e-30).
+// - The end divides by max(l, 1e-30).  When the caller asks for it
+//   (training), the kernel also writes each row's log-sum-exp
+//   m + log max(l, 1e-30) in f32, (B, H, S), for the backward
+//   (flash_attention_bwd.cu); serving passes null and writes none.
 // - 16-byte copies (TMA, cp.async) need hd to be a multiple of 16 bytes'
 //   worth of elements and 16-byte-aligned base pointers; the wrapper
 //   checks both and otherwise asks for element copies (`vec`).
@@ -743,7 +746,8 @@ struct TmaMaps {
 template <typename T, int HD>
 __global__ void __launch_bounds__(Cfg<T>::kWarps * 32, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int S,
                        int T_len, int H, int K, int hd, int causal,
                        int window, float cap, int vec, int n_qt,
                        const __grid_constant__ TmaMaps maps) {
@@ -867,6 +871,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_wait<0>();
   __syncthreads();
 
+  // the row log-sum-exp m + log l for the backward, when asked for: one
+  // lane of each quad holds its two rows' m and l (a row with no
+  // unmasked key writes -1e30 + log T, which rounds to -1e30)
+  if (lse != nullptr && (lane & 3) == 0) {
+    const long lrow = (static_cast<long>(b) * H + h) * S;
+    if (qr < S) lse[lrow + qr] = m[0] + logf(fmaxf(l[0], 1e-30f));
+    if (qr + 8 < S) lse[lrow + qr + 8] = m[1] + logf(fmaxf(l[1], 1e-30f));
+  }
+
   // normalise into the warp's own Q rows, then store whole rows
   const float inv0 = 1.0f / fmaxf(l[0], 1e-30f);
   const float inv1 = 1.0f / fmaxf(l[1], 1e-30f);
@@ -955,9 +968,10 @@ bool encode_map(CUtensorMap* map, const void* x, int B, int L, int NH,
 }
 
 template <typename T, int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int T_len, int H, int K, int hd, int causal, int window,
-              float cap, int vec, cudaStream_t stream) {
+int launch_hd(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int S, int T_len, int H, int K, int hd,
+              int causal, int window, float cap, int vec,
+              cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<T, HD>();
   constexpr int kBQ = Cfg<T>::kWarps * 16;
   auto kernel = flash_attention_kernel<T, HD>;
@@ -976,26 +990,27 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
     return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), Cfg<T>::kWarps * 32, bytes,
            stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                     static_cast<const T*>(v), static_cast<T*>(o), S, T_len,
-                     H, K, hd, causal, window, cap, vec, n_qt, maps);
+                     static_cast<const T*>(v), static_cast<T*>(o), lse, S,
+                     T_len, H, K, hd, causal, window, cap, vec, n_qt, maps);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int T_len, int H, int K, int hd, int causal, int window,
-           float cap, int vec, void* stream_ptr) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse_ptr,
+           int B, int S, int T_len, int H, int K, int hd, int causal,
+           int window, float cap, int vec, void* stream_ptr) {
+  float* lse = static_cast<float*>(lse_ptr);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (B == 0 || S == 0 || H == 0) return static_cast<int>(cudaGetLastError());
   if (hd <= 64)
-    return launch_hd<T, 64>(q, k, v, o, B, S, T_len, H, K, hd, causal,
-                            window, cap, vec, stream);
+    return launch_hd<T, 64>(q, k, v, o, lse, B, S, T_len, H, K, hd,
+                            causal, window, cap, vec, stream);
   if (hd <= 128)
-    return launch_hd<T, 128>(q, k, v, o, B, S, T_len, H, K, hd, causal,
-                             window, cap, vec, stream);
+    return launch_hd<T, 128>(q, k, v, o, lse, B, S, T_len, H, K, hd,
+                             causal, window, cap, vec, stream);
   if (hd <= 256)
-    return launch_hd<T, 256>(q, k, v, o, B, S, T_len, H, K, hd, causal,
-                             window, cap, vec, stream);
+    return launch_hd<T, 256>(q, k, v, o, lse, B, S, T_len, H, K, hd,
+                             causal, window, cap, vec, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1005,20 +1020,21 @@ extern "C" {
 
 // window <= 0: no window; cap <= 0: no softcap; vec != 0: 16-byte copies
 // (hd a multiple of 16 bytes' worth of elements, q, k, v and o 16-byte
-// aligned).
+// aligned); lse: null, or an f32 (B, H, S) output of the row log-sum-exp.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int T, int H, int K, int hd, int causal,
-                        int window, float cap, int vec, void* stream) {
-  return launch<float>(q, k, v, o, B, S, T, H, K, hd, causal, window, cap,
-                       vec, stream);
+                        void* lse, int B, int S, int T, int H, int K, int hd,
+                        int causal, int window, float cap, int vec,
+                        void* stream) {
+  return launch<float>(q, k, v, o, lse, B, S, T, H, K, hd, causal, window,
+                       cap, vec, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* o, int B, int S, int T, int H, int K, int hd,
-                         int causal, int window, float cap, int vec,
-                         void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, S, T, H, K, hd, causal, window,
-                               cap, vec, stream);
+                         void* o, void* lse, int B, int S, int T, int H,
+                         int K, int hd, int causal, int window, float cap,
+                         int vec, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, lse, B, S, T, H, K, hd, causal,
+                               window, cap, vec, stream);
 }
 
 }  // extern "C"

@@ -5,14 +5,24 @@ q (B, S, H, hd) and k/v (B, T, K, hd), H a multiple of K (query head h
 reads kv head h // (H/K)), with a causal mask, a sliding window and a
 logit softcap; hd ≤ 256; f32 or bf16 in, q's dtype out, f32 inside.
 bf16 runs both products on the tensor cores (``mma.sync``); f32 keeps
-exact f32 FMAs.
+exact f32 FMAs.  With ``return_lse`` it also returns each row's f32
+log-sum-exp (B, H, S), which training saves for the backward.
+
+``flash_attention_bwd``  K5's backward (``csrc/flash_attention_bwd.cu``):
+dq, dk, dv from q, k, v, the forward's log-sum-exp and the output's
+gradient, f32 inside, the inputs' dtype out; bf16 at hd ≤ 64 on the
+tensor cores (``mma.sync``), f32 and wider heads in f32 FMAs;
+deterministic (no atomics).  ``ops.py`` puts it behind a
+``torch.autograd.Function``.
 
 The wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates the output with ``torch.empty``, launches on the
 current stream, raises if the launch is refused, and adds one to
-``LAUNCHES["flash_attention"]``.  The library is built from the repo's
-sources on first use (``kernels/_build.py``).  The plain version lives in
-``ref.py``; ``ops.py`` chooses between the two.
+``LAUNCHES["flash_attention"]`` (the backward
+``LAUNCHES["flash_attention_bwd"]``, once a call of its two kernels).
+The library is built from the repo's sources on first use
+(``kernels/_build.py``).  The plain version lives in ``ref.py``;
+``ops.py`` chooses between the two.
 """
 from __future__ import annotations
 
@@ -22,22 +32,27 @@ import torch
 
 from .._build import launch
 
-__all__ = ["LAUNCHES", "flash_attention", "reset_launches", "MAX_HEAD_DIM",
-           "copies_16_bytes"]
+__all__ = ["LAUNCHES", "flash_attention", "flash_attention_bwd",
+           "reset_launches", "MAX_HEAD_DIM", "copies_16_bytes"]
 
 # Launches since the last reset, counted where the kernel is launched.
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 MAX_HEAD_DIM = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I]
+_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+         ctypes.c_float, _I]
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
+_BWD_ARGS = [_P] * 9 + [_I] * 8 + [ctypes.c_float]
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def copies_16_bytes(hd, element_size, *tensors) -> bool:
@@ -48,9 +63,10 @@ def copies_16_bytes(hd, element_size, *tensors) -> bool:
         t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, cap=None):
-    """K5 on the card: q (B, S, H, hd), k/v (B, T, K, hd) → (B, S, H, hd)."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check(q, k, v, window, cap, **more):
+    """Device, dtype, shape and contiguity of K5's inputs (and of the
+    backward's ``more``, each shaped as q): (B, S, H, hd, T, K)."""
+    for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if not isinstance(t, torch.Tensor) or not t.is_cuda:
             raise ValueError("the CUDA flash attention kernel takes CUDA "
                              "tensors; use ops.py for CPU tensors")
@@ -77,12 +93,54 @@ def flash_attention(q, k, v, *, causal=True, window=None, cap=None):
         raise ValueError(f"window must be positive, got {window}")
     if cap is not None and cap <= 0:
         raise ValueError(f"cap must be positive, got {cap}")
+    for name, t in more.items():
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} does not "
+                             f"match q {tuple(q.shape)} {q.dtype}")
+    return B, S, H, hd, T, K
+
+
+def _opts(causal, window, cap):
+    return (_I(int(bool(causal))), _I(int(window or 0)),
+            ctypes.c_float(float(cap or 0.0)))
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, cap=None,
+                    return_lse=False):
+    """K5 on the card: q (B, S, H, hd), k/v (B, T, K, hd) → (B, S, H, hd),
+    and with ``return_lse`` also the rows' f32 log-sum-exp (B, H, S)."""
+    B, S, H, hd, T, K = _check(q, k, v, window, cap)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     vec = copies_16_bytes(hd, q.element_size(), q, k, v, out)
     launch("flash_attention", _ENTRY[q.dtype], _ARGS, q.device,
            _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
-           _P(out.data_ptr()), _I(B), _I(S), _I(T), _I(H), _I(K), _I(hd),
-           _I(int(bool(causal))), _I(int(window or 0)),
-           ctypes.c_float(float(cap or 0.0)), _I(int(vec)))
+           _P(out.data_ptr()), _P(None if lse is None else lse.data_ptr()),
+           _I(B), _I(S), _I(T), _I(H), _I(K), _I(hd),
+           *_opts(causal, window, cap), _I(int(vec)))
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, dout, lse, *, causal=True, window=None,
+                        cap=None):
+    """K5's backward on the card: (dq, dk, dv) shaped and typed as q, k, v
+    from the forward's row log-sum-exp ``lse`` and the output's gradient
+    ``dout``."""
+    B, S, H, hd, T, K = _check(q, k, v, window, cap, dout=dout)
+    if (not isinstance(lse, torch.Tensor) or lse.device != q.device
+            or lse.dtype != torch.float32 or lse.shape != (B, H, S)
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous f32 (B, H, S) = "
+                         f"{(B, H, S)} tensor on {q.device}")
+    if q.numel() == 0:                    # no rows: nothing flows back
+        return tuple(torch.zeros_like(t) for t in (q, k, v))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dd = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    launch("flash_attention_bwd", _BWD_ENTRY[q.dtype], _BWD_ARGS, q.device,
+           *(_P(t.data_ptr()) for t in (q, k, v, dout, lse, dd, dq, dk, dv)),
+           _I(B), _I(S), _I(T), _I(H), _I(K), _I(hd),
+           *_opts(causal, window, cap))
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -18,6 +18,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "trunc_normal",
@@ -29,6 +30,8 @@ __all__ = [
     "softcap",
     "matmul_f32acc",
     "causal_conv",
+    "cross_entropy",
+    "chunked_cross_entropy",
 ]
 
 
@@ -122,3 +125,54 @@ def causal_conv(m, x, init=None):
     out = sum(xp[:, i:i + S] * w[i] for i in range(K))
     tail = xp[:, -(K - 1):] if K > 1 else None
     return out + m.conv_b.to(x.dtype), tail
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy over logits (B, S, V) in f32; labels < 0
+    (and positions where ``mask`` is 0) are ignored."""
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & (torch.as_tensor(mask, device=logits.device) > 0)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    nll = (lse - gold) * valid
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+def _chunk_nll(hc, table, lc, final_softcap):
+    """Summed NLL and valid count of one chunk: hc (B, c, d), lc (B, c)."""
+    logits = softcap(hc @ table.to(hc.dtype).T, final_softcap).float()
+    valid = lc >= 0
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
+    return ((lse - gold) * valid).sum(), valid.sum().float()
+
+
+def chunked_cross_entropy(h, table, labels, cfg, chunk: int = 512):
+    """Fused unembed + cross-entropy over sequence chunks of ``chunk``.
+
+    h (B, S, d), table (V, d), labels (B, S) with < 0 ignored.  Each
+    chunk's (B, c, V) logits exist only inside one non-reentrant
+    ``torch.utils.checkpoint``, which recomputes them in the backward
+    pass (the JAX package's ``jax.checkpoint`` scan); the last chunk is
+    padded with −1 labels.  Returns the mean NLL over valid labels.
+    """
+    labels = torch.as_tensor(labels, device=h.device).long()
+    B, S = labels.shape
+    c = min(chunk, S)
+    nc = -(-S // c)
+    pad = nc * c - S
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    n = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(nc):
+        sl = slice(i * c, (i + 1) * c)
+        part, cnt = checkpoint(_chunk_nll, h[:, sl], table, labels[:, sl],
+                               cfg.final_softcap, use_reentrant=False)
+        nll = nll + part
+        n = n + cnt
+    return nll / n.clamp_min(1.0)

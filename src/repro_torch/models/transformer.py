@@ -1,6 +1,7 @@
-"""The LM stack for serving: per-layer blocks in one flat ``nn.ModuleList``
-(the JAX package stacks parameters per cycle position and scans over
-cycle groups; the port keeps layer order and loops), full-sequence
+"""The LM stack: per-layer blocks in one flat ``nn.ModuleList`` (the JAX
+package stacks parameters per cycle position and scans over cycle
+groups; the port keeps layer order and loops), the training forward
+``model_apply`` (loss and metrics, remat per layer), full-sequence
 prefill that fills the decode state, and single-token decode.
 
 Carries every kind the configs use: global ('attn') and sliding-window
@@ -12,16 +13,20 @@ decoder layers with cross-attention (``norm_x``, ``cross``).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .._device import resolve_device
 from .attention import (Attention, attention, attn_init, cross_attention,
                         cross_decode_attention, cross_kv, decode_attention,
                         init_kv_cache, prefill_attention)
-from .common import RMSNorm, dense_init, embed_init, softcap
+from .common import (RMSNorm, chunked_cross_entropy, cross_entropy,
+                     dense_init, embed_init, softcap)
 from .mamba import (Mamba, init_mamba_state, mamba_apply, mamba_decode,
                     mamba_init, mamba_prefill)
 from .mlp import MLP, mlp, mlp_init
@@ -31,8 +36,8 @@ from .rglru import (RGLRU, init_rglru_state, rglru_apply, rglru_decode,
 
 __all__ = [
     "Block", "Transformer", "check_supported", "init_params", "block_fwd",
-    "embed_tokens", "logits_of", "prefill", "init_decode_state",
-    "block_decode", "decode_step",
+    "embed_tokens", "logits_of", "model_apply", "prefill",
+    "init_decode_state", "block_decode", "decode_step",
 ]
 
 _ATTN = ("attn", "local")
@@ -84,11 +89,12 @@ class Transformer(nn.Module):
 
     Matrices are stored in ``dtype`` (default ``cfg.compute_dtype``; see
     ``models/common.py``); norm scales, ``lam``, Mamba's vectors and
-    ``A_log``, and the MoE router in f32.  Serving only: no parameter
-    takes a gradient.
+    ``A_log``, and the MoE router in f32.  A serving model takes no
+    gradient; one built with ``trainable=True`` does (training builds it
+    in f32, the masters, and runs a cast copy: ``train/loop.py``).
     """
 
-    def __init__(self, cfg, device=None, dtype=None):
+    def __init__(self, cfg, device=None, dtype=None, trainable=False):
         super().__init__()
         check_supported(cfg)
         dtype = dtype or cfg.compute_dtype
@@ -108,7 +114,7 @@ class Transformer(nn.Module):
             Block(cfg, "bidir", device, dtype)
             for _ in range(cfg.n_enc_layers if dec else 0))
         self.enc_norm = RMSNorm(cfg.d_model, device) if dec else None
-        self.requires_grad_(False)
+        self.requires_grad_(trainable)
 
     @property
     def device(self) -> torch.device:
@@ -121,21 +127,20 @@ class Transformer(nn.Module):
         cfg = self.cfg
         h, positions = _embed_input(self, tokens, patches)
         enc_out = _encode(self, frames) if cfg.encoder_decoder else None
-        for blk in self.layers:
-            kv = None if enc_out is None else cross_kv(blk.cross, enc_out,
-                                                       cfg)
-            h = block_fwd(blk, h, cfg, positions, enc_kv=kv)
+        h, _ = _run_layers(self.layers, h, cfg, positions, enc_out)
         return logits_of(self, self.final_norm(h, cfg.norm_eps))
 
 
-def init_params(cfg, generator, device=None, dtype=None) -> Transformer:
+def init_params(cfg, generator, device=None, dtype=None,
+                trainable=False) -> Transformer:
     """A model of ``cfg`` with random weights from ``generator`` (a
     ``torch.Generator`` on ``device``): truncated normals as in the JAX
     package's initialisers, zero norm scales and biases, ``lam`` as in the
     RG-LRU init, Mamba's A, Δ bias and D as in its init, the MoE's as in
     ``moe_init``.  The numbers differ from JAX's for the same seed; the
-    distributions are the same."""
-    model = Transformer(cfg, device=resolve_device(device), dtype=dtype)
+    distributions are the same.  ``trainable``: see ``Transformer``."""
+    model = Transformer(cfg, device=resolve_device(device), dtype=dtype,
+                        trainable=trainable)
     embed_init(model.embed, generator)
     for blk in (*model.layers, *model.enc_layers):
         if blk.kind in _SELF_ATTN:
@@ -182,7 +187,7 @@ def _embed_input(model: Transformer, tokens, patches=None):
     return h, _positions(h.shape[0], h.shape[1], h.device)
 
 
-def _encode(model: Transformer, frames):
+def _encode(model: Transformer, frames, remat="none"):
     """The encoder: frames (B, S_src, patch_dim) → enc_out (B, S_src, d)."""
     if frames is None:
         raise ValueError(f"{model.cfg.name} is an encoder–decoder: the "
@@ -190,9 +195,50 @@ def _encode(model: Transformer, frames):
     cfg = model.cfg
     h = _project(model, frames)
     positions = _positions(h.shape[0], h.shape[1], h.device)
-    for blk in model.enc_layers:
-        h = block_fwd(blk, h, cfg, positions)
+    h, _ = _run_layers(model.enc_layers, h, cfg, positions, remat=remat)
     return model.enc_norm(h, cfg.norm_eps)
+
+
+# matrix products without a batch axis, which "dots" remat keeps (the
+# JAX package's dots_with_no_batch_dims_saveable)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _layer(blk, h, cfg, positions, enc_out):
+    """One layer of a stack; a decoder layer computes its cross K/V from
+    ``enc_out`` inside, so remat recomputes them too."""
+    kv = None if enc_out is None else cross_kv(blk.cross, enc_out, cfg)
+    return block_fwd(blk, h, cfg, positions, enc_kv=kv)
+
+
+def _run_layers(layers, h, cfg, positions, enc_out=None, remat="none"):
+    """The layers in order, each under ``remat``: "none"; "full" (a
+    non-reentrant ``torch.utils.checkpoint``: the layer's forward runs
+    again in the backward pass); "dots" (a selective checkpoint that
+    keeps the matrix products' outputs and recomputes the rest).
+    Returns (h, the layers' aux terms summed)."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {remat!r}")
+    aux = {}
+    for blk in layers:
+        args = (blk, h, cfg, positions, enc_out)
+        if remat == "none" or not torch.is_grad_enabled():
+            h, a = _layer(*args)
+        elif remat == "full":
+            h, a = checkpoint(_layer, *args, use_reentrant=False)
+        else:
+            h, a = checkpoint(_layer, *args, use_reentrant=False,
+                              context_fn=functools.partial(
+                                  create_selective_checkpoint_contexts,
+                                  _dots_policy))
+        for k, v in a.items():
+            aux[k] = aux[k] + v if k in aux else v
+    return h, aux
 
 
 def _post(blk, name, y, cfg):
@@ -202,11 +248,11 @@ def _post(blk, name, y, cfg):
 
 def _ffn(blk, h, cfg):
     """The block's second residual branch on its pre-norm input: the MLP,
-    or the MoE with its aux losses dropped, as the serving path does."""
+    or the MoE.  Returns (y, aux): the MoE's aux losses, else {}."""
     hn = blk.norm2(h, cfg.norm_eps)
     if isinstance(blk.mlp, MoE):
-        return moe_apply(blk.mlp, hn, cfg)[0]
-    return mlp(blk.mlp, hn, cfg.mlp)
+        return moe_apply(blk.mlp, hn, cfg)
+    return mlp(blk.mlp, hn, cfg.mlp), {}
 
 
 def _cross(blk, h, cfg, kv):
@@ -218,16 +264,18 @@ def _cross(blk, h, cfg, kv):
 
 def block_fwd(blk: Block, h, cfg, positions, enc_kv=None):
     """One block, full sequence, no cache; ``enc_kv`` the encoder K/V of
-    a decoder layer's cross-attention."""
+    a decoder layer's cross-attention.  Returns (h, aux): a MoE block's
+    aux losses (``moe_lb``, ``moe_z``), else {}."""
     hn = blk.norm1(h, cfg.norm_eps)
     if blk.kind == "mamba":
-        return h + mamba_apply(blk.mixer, hn, cfg)
+        return h + mamba_apply(blk.mixer, hn, cfg), {}
     if blk.kind in _SELF_ATTN:
         y = attention(blk.mixer, hn, cfg, blk.kind, positions)
         h = _cross(blk, h + _post(blk, "post1", y, cfg), cfg, enc_kv)
     else:
         h = h + rglru_apply(blk.mixer, hn, cfg)
-    return h + _post(blk, "post2", _ffn(blk, h, cfg), cfg)
+    y, aux = _ffn(blk, h, cfg)
+    return h + _post(blk, "post2", y, cfg), aux
 
 
 def embed_tokens(model: Transformer, tokens):
@@ -239,9 +287,68 @@ def embed_tokens(model: Transformer, tokens):
     return h
 
 
+def _table(model: Transformer):
+    return model.embed if model.unembed is None else model.unembed
+
+
 def logits_of(model: Transformer, h):
-    table = model.embed if model.unembed is None else model.unembed
-    return softcap(h @ table.T, model.cfg.final_softcap)
+    return softcap(h @ _table(model).T, model.cfg.final_softcap)
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+def model_apply(model: Transformer, batch, return_logits=False):
+    """Train/eval forward over batch['tokens'] and batch['labels'] (B, S),
+    the VLM's batch['patches'] and an encoder–decoder's batch['frames'].
+
+    The VLM's patch prefix gets labels of −1 (ignored); each decoder
+    layer of an encoder–decoder attends to the encoder's output through
+    its own cross K/V.  Layers are rematerialised by ``cfg.remat``
+    (``_run_layers``).  The loss is the chunked cross-entropy of the
+    final norm's output against the (tied) unembedding, or, with
+    ``return_logits``, the plain one over the full logits.  Returns
+    (total, metrics) or (total, metrics, logits): metrics = {"loss", the
+    summed aux terms} and total = loss + 0.01·moe_lb + 1e-3·moe_z.  The
+    parameters are used as they are stored (the train step hands over a
+    cast copy in the compute dtype).
+    """
+    cfg = model.cfg
+    dev = model.device
+    tokens = _tokens(batch["tokens"], dev)
+    labels = _tokens(batch["labels"], dev)
+    B = tokens.shape[0]
+    h = embed_tokens(model, tokens)
+    if cfg.family == "vlm":
+        pe = _project(model, batch["patches"])
+        h = torch.cat([pe, h], dim=1)
+        labels = torch.cat([torch.full((B, pe.shape[1]), -1,
+                                       dtype=labels.dtype, device=dev),
+                            labels], dim=1)
+    positions = _positions(B, h.shape[1], dev)
+    if cfg.encoder_decoder:
+        enc_out = _encode(model, batch.get("frames"), remat=cfg.remat)
+        h, aux = _run_layers(model.layers, h, cfg, positions, enc_out,
+                             remat=cfg.remat)
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        h, aux = _run_layers(model.layers, h, cfg, positions,
+                             remat=cfg.remat)
+        aux = {"moe_lb": aux.get("moe_lb", zero),
+               "moe_z": aux.get("moe_z", zero)}
+    h = model.final_norm(h, cfg.norm_eps)
+    if return_logits:
+        logits = logits_of(model, h)
+        loss = cross_entropy(logits, labels)
+    else:
+        loss = chunked_cross_entropy(h, _table(model), labels, cfg,
+                                     chunk=cfg.ce_chunk)
+    metrics = {"loss": loss, **aux}
+    total = loss + 0.01 * aux.get("moe_lb", 0.0) + 1e-3 * aux.get("moe_z",
+                                                                  0.0)
+    if return_logits:
+        return total, metrics, logits
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +401,7 @@ def prefill(model: Transformer, batch, max_len: int,
         else:
             y, cache = rglru_prefill(blk.mixer, hn, cfg, cache_dtype)
             h = h + y
-        h = h + _post(blk, "post2", _ffn(blk, h, cfg), cfg)
+        h = h + _post(blk, "post2", _ffn(blk, h, cfg)[0], cfg)
         caches.append(cache)
     h = model.final_norm(h[:, -1:], cfg.norm_eps)
     state = {"pos": St, "layers": caches}
@@ -340,7 +447,7 @@ def block_decode(blk: Block, h, cfg, cache, pos, cross=None):
     else:
         y, cache = rglru_decode(blk.mixer, hn, cfg, cache)
         h = h + y
-    return h + _post(blk, "post2", _ffn(blk, h, cfg), cfg), cache
+    return h + _post(blk, "post2", _ffn(blk, h, cfg)[0], cfg), cache
 
 
 def decode_step(model: Transformer, tokens, state):

@@ -29,7 +29,7 @@ from repro_torch.distributed import (FleetMesh, active_fleet_mesh,
                                      plan_classes_sharded, plan_sharded,
                                      simulate_ensemble_sharded)
 from repro_torch.distributed.fleet import _chunk_layout
-from torch_port_util import np_, port_speedup
+from torch_port_util import jax_sharded, np_, port_speedup
 
 B = 10.0
 K = 19          # deliberately not a multiple of any mesh size here
@@ -345,8 +345,8 @@ def test_plan_parity_class_aggregates():
                                           chunk_size=chunk(D, 8))
         np.testing.assert_array_equal(orders, ref_orders)
         _equal(sh, ref, PLAN_FIELDS)
-    j_orders, jref = JD.plan_classes_sharded(
-        counts, wl.sizes, wl.weights, wl.sp, B=B, mesh=JD.fleet_mesh(),
-        chunk_size=8)
+    j_orders, jref = jax_sharded(
+        JD.plan_classes_sharded, counts, wl.sizes, wl.weights, wl.sp, B=B,
+        mesh=JD.fleet_mesh(), chunk_size=8)
     np.testing.assert_array_equal(ref_orders, np.asarray(j_orders))
     np.testing.assert_allclose(np_(ref.J), np.asarray(jref.J), rtol=1e-6)

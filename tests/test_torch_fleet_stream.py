@@ -21,6 +21,7 @@ from repro_torch.core.speedup import map_leaves
 from repro_torch.distributed import (FleetStreamResult, fleet_mesh,
                                      serve_streams_sharded)
 from repro_torch.serve import StreamCascadePolicy, StreamController
+from torch_port_util import jax_sharded
 
 B = 10.0
 BUDGETS = [10.0, 8.0, 12.0]
@@ -80,9 +81,9 @@ def test_serve_streams_sharded_admission_view_matches_jax():
     fleet = serve_streams_sharded(SP(), streams, budgets=budgets,
                                   max_live=4, mesh=fleet_mesh(2,
                                                               device="cpu"))
-    ref = JD.serve_streams_sharded(J.power(1.0, 0.5, B), streams,
-                                   budgets=budgets, max_live=4,
-                                   mesh=JD.fleet_mesh())
+    ref = jax_sharded(JD.serve_streams_sharded, J.power(1.0, 0.5, B),
+                      streams, budgets=budgets, max_live=4,
+                      mesh=JD.fleet_mesh())
     np.testing.assert_array_equal(fleet.backlog, ref.backlog)
     np.testing.assert_allclose(fleet.unfinished_work, ref.unfinished_work,
                                rtol=1e-9)

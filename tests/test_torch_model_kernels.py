@@ -158,7 +158,8 @@ def test_ops_run_the_plain_version_on_cpu_tensors():
         FO.flash_attention_op(qt, kt, vt, impl="pallas")
     with pytest.raises(ValueError, match="unknown impl"):
         SO.linear_scan_op(at, bt, impl="interpret")
-    assert FK.LAUNCHES == {"flash_attention": 0}
+    assert FK.LAUNCHES == {"flash_attention": 0,
+                          "flash_attention_bwd": 0}
     assert SK.LAUNCHES == {"linear_scan": 0}
 
 
@@ -169,7 +170,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     (_, at), (_, bt) = ab(1, 8, 4, "f32")
     with pytest.raises(ValueError, match="CUDA tensors"):
         SK.linear_scan(at, bt)
-    assert FK.LAUNCHES == {"flash_attention": 0}
+    assert FK.LAUNCHES == {"flash_attention": 0,
+                          "flash_attention_bwd": 0}
     assert SK.LAUNCHES == {"linear_scan": 0}
 
 
@@ -191,12 +193,13 @@ def test_build_starts_one_nvcc_per_source_all_at_once(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
     with mock.patch.object(_build.subprocess, "Popen", FakeProc):
         reports = _build.build_all()
-    assert sorted(reports) == ["flash_attention", "gwf_waterfill",
-                               "linear_scan"]
+    assert sorted(reports) == ["flash_attention", "flash_attention_bwd",
+                               "gwf_waterfill", "linear_scan"]
     kinds = [e[0] for e in events]
-    assert kinds == ["start"] * 3 + ["wait"] * 3
+    assert kinds == ["start"] * 4 + ["wait"] * 4
     assert {e[1].rsplit("/", 1)[-1] for e in events} == {
-        "flash_attention.cu", "gwf_waterfill.cu", "linear_scan.cu"}
+        "flash_attention.cu", "flash_attention_bwd.cu", "gwf_waterfill.cu",
+        "linear_scan.cu"}
 
 
 # (B, S, D) of chip_smoke.py's K4_OPTIONS: one step, under one chunk,

@@ -335,8 +335,9 @@ def test_level_launch_passes_block_size_and_tile(monkeypatch):
 
 
 def test_build_command_targets_sm90a_into_build_dir():
-    assert sorted(_build.SOURCES) == ["flash_attention", "gwf_waterfill",
-                                      "linear_scan"]
+    assert sorted(_build.SOURCES) == ["flash_attention",
+                                      "flash_attention_bwd",
+                                      "gwf_waterfill", "linear_scan"]
     for name in _build.SOURCES:
         cmd = _build.nvcc_command(name)
         assert "arch=compute_90a,code=sm_90a" in cmd

@@ -21,6 +21,18 @@ def port_speedup(sp, s_fn=None, ds_fn=None):
                                B=sp.B, device="cpu")
 
 
+def jax_sharded(fn, *args, mesh, **kw):
+    """Call the JAX package's sharded ``fn`` with ``mesh`` installed as the
+    context mesh for the call.  On jax 0.9 ``set_mesh(None)`` raises, so
+    a mesh that another test in the process installed
+    (``tests/distributed/test_sharding.py``) stays installed, and
+    ``shard_map`` refuses a mesh other than the context's; the context
+    form works after such a leak."""
+    import jax
+    with jax.sharding.set_mesh(mesh):
+        return fn(*args, mesh=mesh, **kw)
+
+
 def t64(x):
     """numpy → CPU float64 tensor (bool arrays stay bool)."""
     x = np.array(x)
