@@ -7,9 +7,10 @@ Phases (each one is a check; any failure exits non-zero):
   1. the card: CUDA must be available; prints name and power limit;
   2. the build: nvcc builds the kernels from src/repro_torch/**/csrc;
      prints each instantiation's registers and spill bytes from the
-     ptxas report, fails if an instantiation of K1, K2 or K3 spills, and
-     fails unless the SASS of every bf16 instantiation of K5 holds
-     tensor-core instructions (HMMA or HGMMA);
+     ptxas report, fails if an instantiation of K1, K2, K3 or K5's
+     backward spills, and fails unless the SASS of every bf16
+     instantiation of K5 holds tensor-core instructions (HMMA or HGMMA)
+     and that of each of the backward's four wgmma instantiations HGMMA;
   3. the batched CAP front door at full width (N = 256 tenants ×
      k = 4096 jobs, float32): ``solve_cap_batched(impl="auto")`` with a
      shared shifted power (CUDA kernel generic_waterfill) and a per-job
@@ -215,8 +216,12 @@ Phases (each one is a check; any failure exits non-zero):
      version on llama's path shape at one layer (4, 4096, 32:8, 64)
      causal and on every ``K5_OPTIONS`` case, in f32 and bf16, with
      planted faults of the backward (dK/dV of one head a GQA group, the
-     causal mask flipped, the softcap dropped, the window one wider); its
-     op, device, plain and SDPA-backward ms and its bound; (b)
+     causal mask flipped, the softcap dropped, the window one wider), and
+     the backward kernels each bf16 case ran (the wgmma pair on its
+     ``bwd_geometry`` route, at hd 64, 96 and 128; the FMA pair at hd
+     33); its op, device (by kernel), plain and SDPA-backward ms and its
+     bound there and, but for the plain version, at qwen2-moe's hd-128
+     training shape (2, 4096, 16:16, 128); (b)
      llama3.2-1b at full width and depth (1.236 B parameters, f32
      masters, bf16 compute, remat "full") trains 8 steps of 8 × 4096
      tokens in 2 micro-batches through ``make_train_step``/
@@ -243,12 +248,14 @@ launches inside the engine, ``engine_launches``; K4 also with its Mamba
 path's launches and times, ``mamba_path``; K5 also with phase 17's
 launches, ``new_paths_launches``, its times at qwen2-moe's shape,
 ``moe_shape``, and its training figures, ``train``; K5's backward with
-its launches in phase 18(b)), the card line, and last
+its launches in phase 18(b) and its times at the hd-128 shape,
+``hd128_shape``), the card line, and last
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -319,8 +326,11 @@ def card_line():
 def build_report(_build):
     """Phase 2: registers and spill bytes of every kernel instantiation
     from the ptxas reports, and the tensor-core instructions (HMMA,
-    HGMMA) in the SASS of each K5 instantiation; fails if K1, K2 or K3
-    spills, or unless every bf16 instantiation of K5 holds some."""
+    HGMMA) in the SASS of each K5 instantiation and of each of K5's
+    backward; fails if K1, K2, K3 or any backward kernel spills, unless
+    every bf16 instantiation of K5 holds some, or unless each of the
+    backward's four wgmma instantiations (dQ and dK/dV at widths 64 and
+    128) holds HGMMA."""
     usage = {}
     for name in _build.SOURCES:
         report = _build.ptxas_report(name)
@@ -330,24 +340,36 @@ def build_report(_build):
     for label, u in usage.items():
         if label.split("<")[0] in ("generic_waterfill_kernel",
                                    "hetero_waterfill_kernel",
-                                   "gwf_waterfill_kernel"):
+                                   "gwf_waterfill_kernel") or \
+                label.startswith("flash_attention_bwd_"):
             check(u.get("spill_store_bytes", 0) == 0
                   and u.get("spill_load_bytes", 0) == 0,
                   f"{label} spills: {u}")
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
-    lib = _build.library_path("flash_attention")
-    out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                         capture_output=True, text=True, timeout=300)
-    check(out.returncode == 0, f"cuobjdump -sass {lib.name} failed: "
-                               f"{out.stderr.strip()[-500:]}")
-    counts = {_build.kernel_label(fn): c for fn, c in
-              _build.sass_counts(out.stdout, ("HMMA", "HGMMA")).items()
-              if "flash_attention_kernel" in fn}
-    bf16 = {k: c for k, c in counts.items() if "<bf16," in k}
+    counts = {}
+    for name, kernel in (("flash_attention", "flash_attention_kernel"),
+                         ("flash_attention_bwd", "flash_attention_bwd_")):
+        lib = _build.library_path(name)
+        out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                             capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0, f"cuobjdump -sass {lib.name} failed: "
+                                   f"{out.stderr.strip()[-500:]}")
+        counts.update({_build.kernel_label(fn): c for fn, c in
+                       _build.sass_counts(out.stdout,
+                                          ("HMMA", "HGMMA")).items()
+                       if kernel in fn})
+    bf16 = {k: c for k, c in counts.items()
+            if k.startswith("flash_attention_kernel<bf16,")}
     check(len(bf16) == 3, f"K5's SASS lacks bf16 instantiations: {counts}")
     for k, c in bf16.items():
         check(c["HMMA"] + c["HGMMA"] > 0,
               f"{k} holds no tensor-core instruction: {c}")
+    wg = {k: c for k, c in counts.items() if "_wgmma_kernel<" in k}
+    check(sorted(wg) == [f"flash_attention_bwd_{k}_wgmma_kernel<{w}>"
+                         for k in ("dkdv", "dq") for w in (128, 64)],
+          f"K5 bwd's SASS lacks wgmma instantiations: {sorted(counts)}")
+    for k, c in wg.items():
+        check(c["HGMMA"] > 0, f"{k} holds no HGMMA: {c}")
     return usage, counts
 
 
@@ -4010,21 +4032,103 @@ def check_bwd(label, r):
                   f"{label}: K5 bwd's planted fault {key} reads {val:.3e}")
 
 
+BWD_KERNELS = {route: [f"flash_attention_bwd_{k}{tag}_kernel"
+                       for k in ("dkdv", "dq")]
+               for route, tag in (("wgmma", "_wgmma"), ("fma", ""))}
+# K5's backward at qwen2-moe-a2.7b's training shape (B 2, S = T = 4096,
+# 16:16 heads, hd 128), causal, bf16: the wgmma route at hd 128
+BWD_HD128_SHAPE = (2, 4096, 16, 16, 128)
+
+
+def bwd_device_ms(torch, op, calls=5, pad=256, tries=3):
+    """Mean device ms of each backward kernel of ``op`` in a profiler
+    trace, by its name (``flash_attention_bwd_dq_wgmma_kernel`` ...);
+    padded with spin kernels as ``traced_kernel`` is."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    by_name = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                op()
+            torch.cuda.synchronize()
+            for _ in range(pad):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        for e in prof.profiler.kineto_results.events():
+            m = re.search(r"(flash_attention_bwd_\w+?_kernel)", e.name())
+            if e.device_type() == DeviceType.CUDA and m:
+                by_name.setdefault(m.group(1), []).append(e.duration_ns())
+        if len(by_name) >= 2:
+            break
+    return {k: sum(d) / len(d) / 1e6 for k, d in sorted(by_name.items())}
+
+
+def k5_bwd_time(torch, q, k, v, do, kw, plain=True):
+    """K5's backward at one shape in bf16 (inputs of f32 from a seed):
+    op and device ms by kernel, the plain version (forward and backward
+    through ``attention_ref``) unless ``plain`` is false, SDPA's
+    backward (the flash backend, ``is_causal``, ``enable_gqa``; timed
+    here, off the path) and the bound, 10·hd operations a valid (q, k)
+    pair (QKᵀ and dO·Vᵀ again, dV, dK, dQ) at the bf16 peak.  Fails
+    unless the profiler saw the wgmma kernels."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    B_, S, H, hd = q.shape
+    q16, k16, v16, do16 = (x.bfloat16() for x in (q, k, v, do))
+    _, lse = fk.flash_attention(q16, k16, v16, return_lse=True, **kw)
+
+    def op():
+        return fk.flash_attention_bwd(q16, k16, v16, do16, lse, **kw)
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q16, k16, v16))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            scale=1.0, enable_gqa=True)
+    dot = do16.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o_sdpa, (qt, kt, vt), dot,
+                                   retain_graph=True)
+
+    ms = timed(torch, op)
+    ms_lib = timed(torch, sdpa_bwd)
+    ms_plain = (timed(torch, lambda: attn_grads_plain(
+        torch, q16, k16, v16, do16, kw), runs=5) if plain else None)
+    dev_ms = bwd_device_ms(torch, op)
+    check(sorted(dev_ms) == BWD_KERNELS["wgmma"],
+          f"the profiler saw K5 bwd's kernels {sorted(dev_ms)} at "
+          f"{tuple(q.shape)}")
+    pairs = B_ * H * S * (S + 1) // 2
+    nbytes = (2 * (2 * q16.numel() + 2 * k16.numel()) + 4 * lse.numel()
+              + 2 * (q16.numel() + 2 * k16.numel()))
+    rec = {"ms": ms, "plain_ms": ms_plain,
+           **dict(zip(("bound_ms", "bound_by"),
+                      bound(nbytes, 10 * hd * pairs, BF16_TC_OPS))),
+           "library_ms": ms_lib, "kernel_device_ms": sum(dev_ms.values()),
+           "kernel_device_ms_by_kernel": dev_ms,
+           "shape": {"q": list(q.shape), "kv": list(k.shape), **kw}}
+    sdpa_err = max(rel_err(a.transpose(1, 2), b) for a, b in zip(
+        sdpa_bwd(), attn_grads_plain(torch, q16, k16, v16, do16, kw)[0]))
+    del lse, o_sdpa, qt, kt, vt
+    return rec, sdpa_err
+
+
 def k5_bwd_phase(torch, dev, B_):
     """Phase 18(a): K5's backward against autograd through its plain
     version on llama's path shape at one layer, (B_, TRAIN_SEQ, 32:8, 64)
-    causal, and on every case of ``K5_OPTIONS``, inputs from a seed;
-    then its times at the path shape in bf16: op and device ms, the
-    plain version (forward and backward through ``attention_ref``),
-    SDPA's backward (the flash backend, ``is_causal``, ``enable_gqa``;
-    timed here, off the path) and the bound, 10·hd operations a valid
-    (q, k) pair (QKᵀ and dO·Vᵀ again, dV, dK, dQ) at the bf16 peak.
-    Returns (the path's readings, the record for the kernels line)."""
-    import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    causal, and on every case of ``K5_OPTIONS``, inputs from a seed,
+    with the backward kernels each bf16 case ran (the wgmma pair on the
+    route ``bwd_geometry`` gives it, the FMA pair else); then its times
+    (``k5_bwd_time``) at the path shape and at qwen2-moe's hd-128
+    training shape ``BWD_HD128_SHAPE``.  Returns (the path's readings,
+    the record for the kernels line, K5's forward times)."""
     from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.flash_attention.ref import attention_ref
 
     gen = torch.Generator(device=dev).manual_seed(18)
 
@@ -4043,88 +4147,56 @@ def k5_bwd_phase(torch, dev, B_):
           "limits": {"f32": BWD_F32_LIMIT, "bf16": BWD_BF16_LIMIT,
                      "bf16_rms": BWD_BF16_RMS_LIMIT}, **path})
     check_bwd("K5 bwd at the path shape", path)
-    got = {}
+    got, ran = {}, {}
     for name, ((b, S, T, h, kk, d), causal, window, cap) in \
             K5_OPTIONS.items():
         qo = randn(b, S, h, d) * (60.0 if cap else 1.0) * d ** -0.5
         ko, vo, doo = randn(b, T, kk, d), randn(b, T, kk, d), \
             randn(b, S, h, d)
-        got[name] = bwd_readings(torch, qo, ko, vo, doo,
-                                 {"causal": causal, "window": window,
-                                  "cap": cap})
+        kwo = {"causal": causal, "window": window, "cap": cap}
+        got[name] = bwd_readings(torch, qo, ko, vo, doo, kwo)
+        ins16 = [x.bfloat16() for x in (qo, ko, vo, doo)]
+        route = fk.bwd_geometry(b, S, T, h, kk, d, torch.bfloat16,
+                                fk.copies_16_bytes(d, 2, *ins16)).route
+        ran[name] = {"route": route, "kernels": sorted(bwd_device_ms(
+            torch, lambda: attn_grads_kernel(*ins16, kwo), calls=1,
+            pad=64))}
     torch.cuda.synchronize()
-    emit({"phase": "train_k5_bwd_options", "readings": got})
+    emit({"phase": "train_k5_bwd_options", "readings": got,
+          "bf16_kernels": ran})
     for name, r in got.items():
         check_bwd(f"K5 bwd {name}", r)
+    for name, r in ran.items():
+        check(r["kernels"] == BWD_KERNELS[r["route"]],
+              f"K5 bwd {name} in bf16 ran {r['kernels']} on the "
+              f"{r['route']} route")
+        hd_ = K5_OPTIONS[name][0][5]
+        want = {33: "fma", 64: "wgmma", 96: "wgmma", 128: "wgmma"}
+        check(r["route"] == want.get(hd_, r["route"]),
+              f"K5 bwd {name} (hd {hd_}) took the {r['route']} route")
 
-    # times at the path shape, bf16
-    q16, k16, v16, do16 = (x.bfloat16() for x in (q, k, v, do))
-    _, lse = fk.flash_attention(q16, k16, v16, return_lse=True)
-
-    def op():
-        return fk.flash_attention_bwd(q16, k16, v16, do16, lse)
-
-    def plain():
-        return attn_grads_plain(torch, q16, k16, v16, do16, kw)
-
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q16, k16, v16))
-    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                            scale=1.0, enable_gqa=True)
-    dot = do16.transpose(1, 2)
-
-    def sdpa_bwd():
-        return torch.autograd.grad(o_sdpa, (qt, kt, vt), dot,
-                                   retain_graph=True)
-
-    sdpa_err = max(rel_err(a.transpose(1, 2), b) for a, b in zip(
-        sdpa_bwd(), attn_grads_plain(torch, q16, k16, v16, do16, kw)[0]))
-    ms = timed(torch, op)
-    ms_plain = timed(torch, plain, runs=5)
-    ms_lib = timed(torch, sdpa_bwd)
+    # times at the path shape and at the hd-128 shape, bf16
+    rec, sdpa_err = k5_bwd_time(torch, q, k, v, do, kw)
+    rec = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": CU_K5_BWD, "replaces": XLA_ATTN, "launches": None,
+           "max_abs_err": path["bf16_max_abs"], **rec}
+    q16, k16, v16 = (x.bfloat16() for x in (q, k, v))
     ms_fwd = timed(torch, lambda: fk.flash_attention(q16, k16, v16))
     ms_fwd_lse = timed(torch, lambda: fk.flash_attention(
         q16, k16, v16, return_lse=True))
-    # device time a call: the sum of the two kernels' mean durations
-    by_kind = {}
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(256):
-                torch.cuda._sleep(100)
-            torch.cuda.synchronize()
-            for _ in range(5):
-                op()
-            torch.cuda.synchronize()
-            for _ in range(256):
-                torch.cuda._sleep(100)
-            torch.cuda.synchronize()
-        for e in prof.profiler.kineto_results.events():
-            if (e.device_type() == DeviceType.CUDA
-                    and "flash_attention_bwd" in e.name()):
-                kind = e.name().split("flash_attention_bwd_")[1].split(
-                    "_")[0]             # dq or dkdv (the FMA or mma one)
-                by_kind.setdefault(kind, []).append(e.duration_ns())
-        if len(by_kind) == 3:
-            break
-    check(sorted(by_kind) == ["dkdv", "dq"],
-          f"the profiler saw K5 bwd's kernels {sorted(by_kind)}")
-    dev_ms = {kind: sum(d) / len(d) / 1e6 for kind, d in by_kind.items()}
-    pairs = B_ * H * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    nbytes = (2 * (2 * q16.numel() + 2 * k16.numel()) + 4 * lse.numel()
-              + 2 * (q16.numel() + 2 * k16.numel()))
-    rec = {"name": "flash_attention_bwd", "route": "cuda",
-           "source": CU_K5_BWD, "replaces": XLA_ATTN, "launches": None,
-           "max_abs_err": path["bf16_max_abs"], "ms": ms, "plain_ms": ms_plain,
-           **dict(zip(("bound_ms", "bound_by"),
-                      bound(nbytes, 10 * hd * pairs, BF16_TC_OPS))),
-           "library_ms": ms_lib, "kernel_device_ms": sum(dev_ms.values()),
-           "kernel_device_ms_by_kernel": dev_ms,
-           "shape": {"q": list(shape_q), "kv": list(k.shape), **kw}}
     emit({"phase": "train_k5_bwd_time", **rec,
           "sdpa_bwd_vs_plain_bf16_rel": sdpa_err,
           "k5_fwd_ms": ms_fwd, "k5_fwd_with_lse_ms": ms_fwd_lse})
-    del lse, o_sdpa, qt, kt, vt
+    del q16, k16, v16
+    b2, s2, h2, k2, d2 = BWD_HD128_SHAPE
+    q2 = randn(b2, s2, h2, d2) * d2 ** -0.5
+    k2_, v2 = randn(b2, s2, k2, d2), randn(b2, s2, k2, d2)
+    rec2, sdpa_err2 = k5_bwd_time(torch, q2, k2_, v2, randn(b2, s2, h2, d2),
+                                  kw, plain=False)
+    emit({"phase": "train_k5_bwd_time_hd128", **rec2,
+          "sdpa_bwd_vs_plain_bf16_rel": sdpa_err2})
+    rec["hd128_shape"] = rec2
+    del q2, k2_, v2
     return path, rec, {"fwd_ms": ms_fwd, "fwd_with_lse_ms": ms_fwd_lse}
 
 
@@ -4527,7 +4599,10 @@ def main():
     build_s = time.perf_counter() - t0
     usage, tensor_ops = build_report(_build)
     emit({"phase": "build", "seconds": build_s, "sources": sorted(reports),
-          "ptxas": usage, "K5_sass": tensor_ops})
+          "ptxas": usage, "K5_sass": tensor_ops,
+          "K5_bwd_registers": {k: u.get("registers") for k, u in
+                               usage.items()
+                               if k.startswith("flash_attention_bwd_")}})
 
     # ---- inputs, made from a seed -----------------------------------------
     rng = np.random.default_rng(0)

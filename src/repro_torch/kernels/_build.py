@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` has a plain C interface (no PyTorch headers), so one
 ``nvcc`` call per source builds a shared library in seconds.  Libraries
 land in ``build/repro_torch_kernels/`` at the root of the checkout the
-package runs from (``resolve_build_dir``), named by a hash of the source,
-so an edited source is never served a stale build; the compiler's
+package runs from (``resolve_build_dir``), named by a hash of the source
+and of the headers it includes (``source_files``), so an edited source
+or header is never served a stale build; the compiler's
 ``-Xptxas -v`` report is kept beside each library (``ptxas_report``), and
 ``ptxas_usage``, ``sass_counts`` and ``kernel_label`` read registers,
 spills and instruction counts per kernel out of such reports.  A missing
@@ -26,8 +27,8 @@ import torch
 
 __all__ = ["BUILD_DIR", "SOURCES", "resolve_build_dir", "find_nvcc",
            "nvcc_command", "build_all", "load", "launch", "use_cuda_for",
-           "library_path", "ptxas_report", "ptxas_usage", "sass_counts",
-           "kernel_label"]
+           "source_files", "library_path", "ptxas_report", "ptxas_usage",
+           "sass_counts", "kernel_label"]
 
 _PKG = Path(__file__).resolve().parent
 BUILD_ENV = "REPRO_TORCH_BUILD_DIR"
@@ -79,11 +80,31 @@ def find_nvcc() -> str:
         f"{DEFAULT_CUDA_HOME}/bin; the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list[Path]:
+    """Source ``name`` and, in the order they are first met, the headers
+    it includes with quotes, each found beside the file that includes
+    it, and theirs in turn."""
+    files, todo = [], [SOURCES[name]]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / inc
+                 for inc in _INCLUDE.findall(path.read_text())]
+    return files
+
+
 def library_path(name: str) -> Path:
     """The shared library built from source ``name``, named by a hash of
-    the source (it may not exist yet)."""
-    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    the source and its headers (it may not exist yet)."""
+    digest = hashlib.sha256()
+    for path in source_files(name):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def ptxas_report(name: str) -> str:

@@ -29,8 +29,10 @@
 // pairs take 10·hd flops each (QKᵀ and dO·Vᵀ recomputed once, dV, dK,
 // dQ: 2·hd each), 6.9e11 in all, 0.70 ms at the 989 TFLOP/s bf16
 // tensor-core peak; the bytes (q, k, v, dO, L in; dq, dk, dv out) take
-// 0.03 ms at 3.35 TB/s.  The kernels do 14·hd a pair (the products of
-// the D pass, and QKᵀ and dO·Vᵀ in both kernels).
+// 0.03 ms at 3.35 TB/s.  The kernels do 18·hd a pair: the D pass (QKᵀ
+// and dO·Vᵀ, 4·hd), the dQ pass (both again and dS·K, 6·hd) and dK/dV
+// (Sᵀ, dPᵀ, Pᵀ·dO and dSᵀ·Q, 8·hd); at the bf16 peak that floor is 1.25
+// ms at the path's shape.
 //
 // D is the softmax backward's row sum Σ_j P_ij dP_ij, as autograd through
 // the plain version computes it, and not FlashAttention's shortcut
@@ -40,46 +42,96 @@
 // (a first H100 run).  It costs a second pass of QKᵀ and dO·Vᵀ in the dQ
 // kernel, and the forward's output is not read.
 //
-// Design: right and deterministic first; no wgmma or TMA (a later
-// redesign's work).  bf16 at hd ≤ 64 (the training path) runs every
-// product on the tensor cores with mma.sync (below, "bf16 at hd ≤ 64");
-// f32, and bf16 at hd > 64, run f32 FMAs from shared memory.  Two kernels
-// a call either way, no atomics, so the same inputs give the same bits:
-// - flash_attention_bwd_dq_kernel (first): one block per (query tile,
-//   query head, batch); Q, dO and L stay in shared memory, dQ in
-//   registers.  It walks the key tiles the forward's tile_walk visits
-//   for its rows (rows with no unmasked key take nothing) twice: first
-//   summing D from P and dP (written to a (B, H, S) f32 scratch for the
-//   second kernel), then recomputing dS and accumulating dQ += dS K.
-// - flash_attention_bwd_dkdv_kernel: one block of 256 threads per (key
-//   tile of BK keys, kv head, batch).  K and V tiles stay in shared
-//   memory, dK and dV in registers (BK·HD / 256 = 16 of each a thread);
-//   the block walks the G query heads of its kv head and, for each, the
-//   query tiles of BQ rows that can see its keys (the mirror of the
-//   forward's tile_walk: from the tile's first key when causal, to its
-//   last key + window − 1 with a window, to S − 1 where rows with no
-//   unmasked key exist), loading Q, dO, L and D per tile, recomputing
-//   P and dS (BQ × BK) into shared memory and accumulating
-//   dV += Pᵀ dO and dK += dSᵀ Q.
-// The FMA kernels' products run on a 16 × 16 grid of threads, each
-// holding a register tile of rows 16 apart (thread (ty, tx) owns rows
-// ty + 16·r and columns tx + 16·c), so that reads of a shared row are
-// broadcasts and reads of 16 consecutive rows hit 16 banks (rows padded
-// by one word).  Tiles:
-// hd ≤ 64: BQ = BK = 64; hd ≤ 128: BQ 64, BK 32; hd ≤ 256: BQ 32, BK 16;
-// shared memory 84–114 KB a block.  Columns past hd and rows past S or T
-// load as zeros; every hd ≤ 256 runs on the instantiation of the next
-// width of 64, 128 or 256.
+// Routing, by shape (the wrapper's bwd_geometry, kernel.py, decides and
+// passes the route, tiles, grids and shared memory; the entry points
+// refuse a geometry that does not match their instantiations):
+// - bf16 with hd ≤ 128, rows of whole 16-byte pieces and 16-byte-aligned
+//   tensors: the wgmma kernels below (hd ≤ 64 on the instantiation of 64
+//   columns, else of 128; columns past hd read as zeros).
+// - f32, bf16 with 128 < hd ≤ 256, and rows that are not whole 16-byte
+//   pieces: the f32-FMA kernels (hd ≤ 64, 128, 256 on the instantiation
+//   of that width).
+// Two kernels a call either way, dQ first (it writes D to a (B, H, S) f32
+// scratch that dK/dV read), no atomics, so the same inputs give the same
+// bits.
 //
-// C interface: raw pointers, sizes, the mask options and the stream; each
-// entry point launches its two kernels on that stream and returns the
-// first cudaGetLastError() that is not cudaSuccess.
+// Design, wgmma (bf16, hd ≤ 128): FlashAttention-3's shape on K5's
+// forward's parts (hopper_ptx.cuh).  A block is three warpgroups: two
+// consumer warpgroups of 64 rows (or keys) each, and a producer
+// warpgroup of which one warp starts the copies; setmaxnreg moves
+// registers from the producer (24 a thread) to the consumers (240).
+// Tiles are TMA boxes of 64 columns in the 128-byte-swizzled layout that
+// wgmma reads; copies complete on full mbarriers, and the consumers hand
+// a stage back on its empty mbarrier (one arrival a consumer warp), a
+// ring of four stages.
+// - flash_attention_bwd_dq_wgmma_kernel: one block per (128 query rows,
+//   query head, batch), the longest causal walks first.  Q and dO are
+//   loaded once; the producer streams 64-key K and V tiles over the key
+//   tiles the forward's tile_walk visits for the block's rows, twice.
+//   Pass 1: S = Q·Kᵀ and dP = dO·Vᵀ by wgmma with both operands in
+//   shared memory (K-major), two tiles in flight (the next tile's
+//   products run while P ∘ dP of this one is summed); D summed in
+//   registers, reduced over the lanes of a row and written to the
+//   scratch.  Pass 2: S and dP again,
+//   dS in registers, packed to bf16 as the A operand of dQ += dS·K,
+//   with K read MN-major (the transpose bit) from the same tile: no
+//   transposed copy; that product runs on while the next tile's S and
+//   dP are started.
+// - flash_attention_bwd_dkdv_wgmma_kernel: one block per (128 keys, kv
+//   head, batch), the key tiles with the longest causal walks first.  K
+//   and V are loaded once; the producer warp streams 64-row Q and dO
+//   tiles, with their rows' L (times log2 e) and D written to the stage
+//   by its lanes, over the G query heads and the query tiles that can
+//   see the block's keys (from the first key when causal, to the last
+//   key + window − 1 with a window, to S − 1 where rows with no unmasked
+//   key exist).  Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (keys as rows) from shared
+//   memory; Pᵀ and dSᵀ stay in the accumulator layout, which is the A
+//   layout of wgmma with A in registers, and dV += Pᵀ·dO, dK += dSᵀ·Q
+//   read dO and Q MN-major.
+// - Inside a warpgroup the products overlap the exponentials: S and dP
+//   are two commit groups, so without a softcap P is formed while dP is
+//   still being multiplied, and in dK/dV the product dV += Pᵀ·dO runs
+//   while dS is formed.  With a softcap both are waited for first (dS
+//   needs tanh's derivative beside P).
+// - P and dS are rounded to bf16 where they are packed (as
+//   FlashAttention-2 rounds them); P = exp2(s_c·log2 e − L·log2 e) by
+//   ex2.approx.
+// - A warpgroup skips the products of a tile in which none of its pairs
+//   is seen and no row lacks an unmasked key (pairs_closed); a warp
+//   whose 16 rows (or keys) see the whole tile skips the mask
+//   (pairs_open).
+// - Registers at hd = 128: a dK/dV consumer thread holds dK and dV (64 +
+//   64 f32), Sᵀ and dPᵀ (32 + 32) and the packed Pᵀ and dSᵀ (16 + 16);
+//   none spills at 240.
+// - Shared memory (bytes, with 1 KB of alignment slack; 72 more of
+//   barriers), 4 stages: dQ kernel Q + dO + the stages' K + V 99,328 at
+//   hd 64, 197,632 at hd 128; dK/dV kernel K + V + the stages' Q + dO +
+//   L + D 101,376 at hd 64, 199,680 at hd 128.  The wrapper asks for at
+//   least 118,784, so that one block holds an SM and setmaxnreg finds
+//   the registers it moves.
+// - dQ, dK and dV are staged as bf16 in the warpgroup's own Q (or K and
+//   V) rows of shared memory and stored in 16-byte pieces.
+//
+// Design, FMA (f32 and the other bf16 shapes): the same two kernels and
+// walks in f32 FMAs from shared memory, 256 threads a block on a 16 × 16
+// grid of threads, each holding a register tile of rows 16 apart (thread
+// (ty, tx) owns rows ty + 16·r and columns tx + 16·c), so that reads of a
+// shared row are broadcasts and reads of 16 consecutive rows hit 16 banks
+// (rows padded by one word).  Tiles: hd ≤ 64: BQ = BK = 64; hd ≤ 128:
+// BQ 64, BK 32; hd ≤ 256: BQ 32, BK 16; shared memory 84–114 KB a block.
+// Columns past hd and rows past S or T load as zeros.
+//
+// C interface: raw pointers, sizes, the mask options, the geometry and
+// the stream; each entry point launches its two kernels on that stream
+// and returns the first cudaGetLastError() that is not cudaSuccess.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper_ptx.cuh"
 
 namespace {
 
@@ -221,26 +273,12 @@ __device__ __forceinline__ void p_ds(const Opts& o, int i, int j, float s,
 
 // True when every (row, key) pair of rows [i_lo, i_hi] and keys [j_lo,
 // j_hi] is one the forward saw and no row lacks an unmasked key: then
-// P and dS need no mask (p_ds_open).
+// P and dS need no mask.
 __device__ __forceinline__ bool pairs_open(const Opts& o, int i_lo, int i_hi,
                                            int j_lo, int j_hi) {
   if (i_hi >= o.S || j_hi >= o.T) return false;
   if (o.causal && j_hi > i_lo) return false;
   return o.window <= 0 || i_hi - j_lo < o.window;
-}
-
-// p_ds of a pair that pairs_open vouches for
-__device__ __forceinline__ void p_ds_open(const Opts& o, float s, float dp,
-                                          float L, float D, float& p,
-                                          float& ds) {
-  float sc = s, grad = 1.0f;
-  if (o.cap > 0.0f) {
-    const float t = tanhf(s / o.cap);
-    sc = o.cap * t;
-    grad = 1.0f - t * t;
-  }
-  p = expf(sc - L);
-  ds = p * (dp - D) * grad;
 }
 
 // ---- dK and dV ------------------------------------------------------------------
@@ -518,413 +556,747 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q,
     }
   }
 }
+// ---- bf16 at hd ≤ 128: wgmma fed by TMA --------------------------------------
 
-// ---- bf16 at hd ≤ 64: the products on the tensor cores ------------------
-// The same two kernels with every product an mma.sync.m16n8k16 (bf16 in,
-// f32 accumulate) on register fragments gathered from bf16 tiles in
-// shared memory.  Blocks of 4 warps own 64 query rows (dQ) or 64 keys
-// (dK/dV), 16 a warp, and walk tiles of 64 keys or rows as the f32 kernels
-// do.  Scores and dP stay in registers in the accumulator layout (row g
-// and g + 8 of the warp's 16, columns 2t and 2t + 1 of each 8-wide
-// n-tile, g = lane / 4, t = lane % 4), which is also the A layout of the
-// next product once two n-tiles are packed to bf16: P (for dV) and dS
-// (for dK and dQ) are rounded to bf16 there, as FlashAttention-2 rounds
-// them.  The dK/dV kernel computes Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, keys as
-// rows, so that Pᵀ and dSᵀ are A operands without a transpose; the B
-// operands of dV, dK and dQ read transposed copies (dOᵀ, Qᵀ, Kᵀ) written
-// beside the tiles when they are loaded.  Rows of the tiles are padded
-// by 16 bytes, so a fragment's 32 lanes read 32 banks.
+constexpr int kWgThreads = 384;     // consumer warpgroups 0 and 1, producer 2
+constexpr int kConsumerRegs = 240;  // setmaxnreg: 2·128·240 + 128·24 ≤ 64 K
+constexpr int kProducerRegs = 24;
+constexpr int kRowsDq = 128;        // query rows a dQ block
+constexpr int kKeysDq = 64;         // keys a streamed K/V tile of the dQ kernel
+constexpr int kKeysDkdv = 128;      // keys a dK/dV block
+constexpr int kRowsDkdv = 64;       // query rows a streamed Q/dO tile
+constexpr int kStages = 4;          // the ring's stages
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kMT = 64;        // query rows and keys of a tile; hd ≤ kMT
-constexpr int kLDB = kMT + 8;  // bf16 row stride of a shared tile
+// dynamic shared memory a wgmma kernel needs, from a 1 KB alignment slack
+template <int HD> struct WgSmem {
+  static constexpr size_t dq =
+      1024 + sizeof(__nv_bfloat16) * HD * (2 * kRowsDq + kStages * 2 * kKeysDq);
+  static constexpr size_t dkdv =
+      1024 +
+      sizeof(__nv_bfloat16) * HD * (2 * kKeysDkdv + kStages * 2 * kRowsDkdv) +
+      sizeof(float) * kStages * 2 * kRowsDkdv;
+};
 
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// TMA maps of q, k, v and dO
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+// The ring's position of the n-th tile: its stage, and the parity of the
+// stage's phases (the consumers wait for it on full, the producer for the
+// one before on empty).
+struct Ring {
+  int stage;
+  uint32_t parity;
+  __device__ __forceinline__ explicit Ring(int n)
+      : stage(n % kStages), parity((n / kStages) & 1) {}
+};
+
+// True when no (row, key) pair of rows [i_lo, i_hi] and keys [j_lo,
+// j_hi] is one the forward saw and no row of them lacks an unmasked key:
+// then P = dS = 0 over the whole tile.
+__device__ __forceinline__ bool pairs_closed(const Opts& o, int i_lo,
+                                             int i_hi, int j_lo, int j_hi) {
+  if (i_lo >= o.S || j_lo >= o.T) return true;
+  if (o.keyless(min(i_hi, o.S - 1))) return false;  // such rows come last
+  if (o.causal && j_lo > i_hi) return true;
+  return o.window > 0 && i_lo - j_hi >= o.window;
 }
 
-// two consecutive bf16 of shared memory as one register, the lower
-// address in the low half (mma's order within a register)
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Rows [row0, row0 + kMT) of head `head` of x (B, L, NH, hd ≤ kMT),
-// batch row offset row_base, into the bf16 tile dst (row r at r·kLDB) and,
-// unless dstT is null, its transpose (column c at c·kLDB); zeros past L
-// and hd.
-__device__ __forceinline__ void load_tile_mma(
-    __nv_bfloat16* dst, __nv_bfloat16* dstT,
-    const __nv_bfloat16* __restrict__ x, long row_base, int L, int NH,
-    int head, int hd, int row0) {
-  if (hd == kMT && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
-    // 16-byte copies: a row of hd = 64 is eight of them
-    for (int idx = threadIdx.x; idx < kMT * kMT / 8; idx += kMmaThreads) {
-      const int r = idx / (kMT / 8);
-      const int c = (idx - r * (kMT / 8)) * 8;
-      const int row = row0 + r;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (row < L)
-        val = *reinterpret_cast<const uint4*>(
-            x + ((row_base + row) * NH + head) * static_cast<long>(kMT) + c);
-      *reinterpret_cast<uint4*>(dst + r * kLDB + c) = val;
-      if (dstT != nullptr) {
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) dstT[(c + i) * kLDB + r] = e[i];
-      }
+// P of (row i, key j) from its score s without a softcap, L2 = L·log2 e
+// (see p_ds at the top for the masked cases)
+__device__ __forceinline__ float p_of(const Opts& o, int i, int j, float s,
+                                      float L2) {
+  if (i >= o.S || j >= o.T) return 0.0f;
+  if (o.keyless(i)) return 1.0f / static_cast<float>(o.T);
+  return o.allowed(i, j) ? ex2(fmaf(s, kLog2e, -L2)) : 0.0f;
+}
+// dS from P without a softcap: 0 for a row with no unmasked key (P = 0
+// already gives 0 where the mask bites)
+__device__ __forceinline__ float ds_of(const Opts& o, int i, float p,
+                                       float dp, float D) {
+  return o.keyless(i) ? 0.0f : p * (dp - D);
+}
+// p_ds with a softcap and L2 = L·log2 e; open: a pair pairs_open vouches
+// for
+__device__ __forceinline__ void p_ds_cap(const Opts& o, bool open, int i,
+                                         int j, float s, float dp, float L2,
+                                         float D, float& p, float& ds) {
+  p = 0.0f;
+  ds = 0.0f;
+  if (!open) {
+    if (i >= o.S || j >= o.T) return;
+    if (o.keyless(i)) {
+      p = 1.0f / static_cast<float>(o.T);
+      return;
     }
-    return;
+    if (!o.allowed(i, j)) return;
   }
-  for (int idx = threadIdx.x; idx < kMT * kMT; idx += kMmaThreads) {
-    const int r = idx / kMT;
-    const int c = idx - r * kMT;
+  const float t = tanhf(s / o.cap);
+  p = ex2(fmaf(o.cap * t, kLog2e, -L2));
+  ds = p * (dp - D) * (1.0f - t * t);
+}
+
+// Starts d = A · Bᵀ (64 × 64) over HD columns: A the warpgroup's 64 rows
+// at shared address a in a tile of RA rows, B a tile of 64 rows at b,
+// both K-major (swz_at).  The caller fences, commits and waits.
+template <int HD, int RA>
+__device__ __forceinline__ void wgmma_ss_tile(float (&d)[8][4], uint32_t a,
+                                              uint32_t b) {
+  using namespace hopper;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    // k16 step ks: 64-column block ks / 4, 32 bytes a step inside it
+    const uint32_t off = (ks & 3) * 32;
+    wgmma_ss_n64(d, gmma_desc(a + (ks >> 2) * RA * 128 + off, 16, 1024),
+                 gmma_desc(b + (ks >> 2) * 64 * 128 + off, 16, 1024), ks > 0);
+  }
+}
+
+// Starts s = A1 · B1ᵀ and t = A2 · B2ᵀ as two commit groups, in that
+// order (wgmma_ss_tile's operands).
+template <int HD, int RA>
+__device__ __forceinline__ void wgmma_ss_pair(float (&s)[8][4],
+                                              float (&t)[8][4], uint32_t a1,
+                                              uint32_t b1, uint32_t a2,
+                                              uint32_t b2) {
+  using namespace hopper;
+  hold(s);
+  hold(t);
+  wgmma_fence();
+  wgmma_ss_tile<HD, RA>(s, a1, b1);
+  wgmma_commit();
+  wgmma_ss_tile<HD, RA>(t, a2, b2);
+  wgmma_commit();
+  hold(s);
+  hold(t);
+}
+
+// Starts acc (64 × HD) += A · B over 64 k: A the packed fragments a
+// (pack_a), B the tile of 64 rows (the k) at shared address bt, read
+// MN-major: two groups of 8 rows a k16 step (sbo 1 KB), HD blocks of 64
+// columns 64 rows of 128 bytes apart (lbo).  The caller fences, commits
+// and waits.
+template <int HD>
+__device__ __forceinline__ void wgmma_rs_tile(float (&acc)[HD / 8][4],
+                                              const uint32_t (&a)[4][4],
+                                              uint32_t bt) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<HD>(acc, a[kk], gmma_desc(bt + kk * 16 * 128, 64 * 128, 1024));
+}
+
+// a consumer warp hands a stage back once its lanes are done with it
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(bar);
+}
+
+// The warp's 16 rows [tr, tr + 16) of a tile of R rows in shared memory
+// (swz_at, bf16) to rows row0 + r of head `head` of x (B, L, NH, hd):
+// 16-byte pieces, rows past L and columns past hd not stored.
+template <int HD, int R>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ x,
+                                           const __nv_bfloat16* tile, int tr,
+                                           long row_base, int row0, int L,
+                                           int NH, int head, int hd) {
+  constexpr int CPR = HD / 8;  // 16-byte pieces a row
+  for (int idx = threadIdx.x & 31; idx < 16 * CPR; idx += 32) {
+    const int r = idx / CPR;
+    const int c = (idx - r * CPR) * 8;
     const int row = row0 + r;
-    const __nv_bfloat16 val =
-        row < L && c < hd
-            ? x[((row_base + row) * NH + head) * static_cast<long>(hd) + c]
-            : __float2bfloat16(0.0f);
-    dst[r * kLDB + c] = val;
-    if (dstT != nullptr) dstT[c * kLDB + r] = val;
+    if (row < L && c < hd)
+      *reinterpret_cast<int4*>(
+          x + ((row_base + row) * NH + head) * static_cast<long>(hd) + c) =
+          *reinterpret_cast<const int4*>(tile + hopper::swz_at(R, tr + r, c));
   }
 }
 
-// acc (16 × 64) += A · Bᵀ over the tiles' 64 columns: A the warp's rows
-// arow .. arow + 15 of tile As, B the 64 rows of tile Bs (acc[j] holds
-// Bs rows 8j .. 8j + 7).
-__device__ __forceinline__ void mma_rows_by_rows(float (&acc)[kMT / 8][4],
-                                                 const __nv_bfloat16* As,
-                                                 int arow,
-                                                 const __nv_bfloat16* Bs,
-                                                 int lane) {
+// the lane's accumulator fragment (rows tr + g and tr + g + 8 of the warp,
+// columns 8n + 2t, + 1) as bf16 into a tile of R rows (swz_at)
+template <int HD, int R>
+__device__ __forceinline__ void stage_frags(__nv_bfloat16* tile,
+                                            const float (&acc)[HD / 8][4],
+                                            int tr, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int kk = 0; kk < kMT / 16; ++kk) {
-    const __nv_bfloat16* a0 = As + (arow + g) * kLDB + 16 * kk + 2 * t;
-    const uint32_t a[4] = {ld_pair(a0), ld_pair(a0 + 8 * kLDB),
-                           ld_pair(a0 + 8), ld_pair(a0 + 8 * kLDB + 8)};
-#pragma unroll
-    for (int j = 0; j < kMT / 8; ++j) {
-      const __nv_bfloat16* b = Bs + (8 * j + g) * kLDB + 16 * kk + 2 * t;
-      mma16816(acc[j], a, ld_pair(b), ld_pair(b + 8));
-    }
+  for (int n = 0; n < HD / 8; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(
+        tile + hopper::swz_at(R, tr + g, 8 * n + 2 * t)) =
+        __floats2bfloat162_rn(acc[n][0], acc[n][1]);
+    *reinterpret_cast<__nv_bfloat162*>(
+        tile + hopper::swz_at(R, tr + g + 8, 8 * n + 2 * t)) =
+        __floats2bfloat162_rn(acc[n][2], acc[n][3]);
   }
 }
 
-// acc (16 × 64) += C · Bᵀᵀ: A the bf16 rounding of the warp's 16 × 64
-// accumulator-layout tile c (its columns the product's k), B[k][n] =
-// BsT[n][k] (a transposed tile).
-__device__ __forceinline__ void mma_frags_by_cols(float (&acc)[kMT / 8][4],
-                                                  const float (&c)[kMT / 8][4],
-                                                  const __nv_bfloat16* BsT,
-                                                  int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < kMT / 16; ++kk) {
-    const uint32_t a[4] = {pack_pair(c[2 * kk][0], c[2 * kk][1]),
-                           pack_pair(c[2 * kk][2], c[2 * kk][3]),
-                           pack_pair(c[2 * kk + 1][0], c[2 * kk + 1][1]),
-                           pack_pair(c[2 * kk + 1][2], c[2 * kk + 1][3])};
-#pragma unroll
-    for (int n = 0; n < kMT / 8; ++n) {
-      const __nv_bfloat16* b = BsT + (8 * n + g) * kLDB + 16 * kk + 2 * t;
-      mma16816(acc[n], a, ld_pair(b), ld_pair(b + 8));
-    }
-  }
-}
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_bwd_dq_wgmma_kernel(const float* __restrict__ lse,
+                                    float* __restrict__ dd,
+                                    __nv_bfloat16* __restrict__ dq,
+                                    const Opts o, int n_qt,
+                                    const __grid_constant__ BwdMaps maps) {
+  using namespace hopper;
+  constexpr int kTileQ = kRowsDq * HD;  // elements of Q (and of dO)
+  constexpr int kTileK = kKeysDq * HD;  // of a stage's K (and V)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t mis = smem_addr(smem_raw) & 1023;
+  __nv_bfloat16* Qs =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + (mis ? 1024 - mis : 0));
+  __nv_bfloat16* dOs = Qs + kTileQ;
+  __nv_bfloat16* KVs = dOs + kTileQ;  // stage s: K at KVs + 2s·kTileK, V after
+  __shared__ alignas(8) uint64_t full[kStages], empty[kStages], qbar;
 
-__device__ __forceinline__ void zero_frags(float (&x)[kMT / 8][4]) {
-#pragma unroll
-  for (int j = 0; j < kMT / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[j][e] = 0.0f;
-}
-
-constexpr size_t kMmaDqSmem =
-    5 * kMT * kLDB * sizeof(__nv_bfloat16) + kMT * sizeof(float);
-constexpr size_t kMmaDkdvSmem =
-    6 * kMT * kLDB * sizeof(__nv_bfloat16) + 2 * kMT * sizeof(float);
-
-__global__ void __launch_bounds__(kMmaThreads)
-flash_attention_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                                  const __nv_bfloat16* __restrict__ k,
-                                  const __nv_bfloat16* __restrict__ v,
-                                  const __nv_bfloat16* __restrict__ dout,
-                                  const float* __restrict__ lse,
-                                  float* __restrict__ dd,
-                                  __nv_bfloat16* __restrict__ dq,
-                                  const Opts o, int n_qt) {
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);
-  __nv_bfloat16* dOs = Qs + kMT * kLDB;
-  __nv_bfloat16* Ks = dOs + kMT * kLDB;
-  __nv_bfloat16* Vs = Ks + kMT * kLDB;
-  __nv_bfloat16* KTs = Vs + kMT * kLDB;
-  float* Ls = reinterpret_cast<float*>(KTs + kMT * kLDB);
-
+  // block → (head fastest, then q tile from the last, then batch)
   const int h = blockIdx.x % o.H;
   const int rest = blockIdx.x / o.H;
-  const int q0 = (n_qt - 1 - rest % n_qt) * kMT;
+  const int q0 = (n_qt - 1 - rest % n_qt) * kRowsDq;
   const int b = rest / n_qt;
   const int kvh = h / (o.H / o.K);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16;            // the warp's first tile row
-  const int qa = q0 + r0 + g;          // the lane's two rows
-  const long stat = (static_cast<long>(b) * o.H + h) * o.S;
-
-  load_tile_mma(Qs, nullptr, q, static_cast<long>(b) * o.S, o.S, o.H, h,
-                o.hd, q0);
-  load_tile_mma(dOs, nullptr, dout, static_cast<long>(b) * o.S, o.S, o.H, h,
-                o.hd, q0);
-  for (int r = threadIdx.x; r < kMT; r += kMmaThreads)
-    Ls[r] = q0 + r < o.S ? lse[stat + q0 + r] : 0.0f;
-
-  const int q_hi = min(q0 + kMT, o.S) - 1;
+  // the key tiles that hold an unmasked key of rows q0 .. q_hi (the
+  // forward's tile_walk without its all-keys case: rows with no unmasked
+  // key take nothing here)
+  const int q_hi = min(q0 + kRowsDq, o.S) - 1;
   const int k_hi = o.causal ? min(q_hi, o.T - 1) : o.T - 1;
   const int k_lo = o.window > 0 ? max(0, q0 - o.window + 1) : 0;
-  auto load_kv = [&](int k0, bool transposed) {
-    __syncthreads();  // the previous tile is read
-    load_tile_mma(Ks, transposed ? KTs : nullptr, k,
-                  static_cast<long>(b) * o.T, o.T, o.K, kvh, o.hd, k0);
-    load_tile_mma(Vs, nullptr, v, static_cast<long>(b) * o.T, o.T, o.K, kvh,
-                  o.hd, k0);
-    __syncthreads();
-  };
+  const int kt_lo = k_lo / kKeysDq;
+  const int kt_hi = k_lo <= k_hi ? k_hi / kKeysDq : kt_lo - 1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival a consumer warp
+    }
+    mbar_init(&qbar, 1);
+    mbar_init_fence();
+  }
   __syncthreads();
-  const float La = Ls[r0 + g], Lb = Ls[r0 + g + 8];
 
-  // pass 1: D of the lane's two rows, summed over its quad
-  float da = 0.0f, db = 0.0f;
-  float s[kMT / 8][4], dp[kMT / 8][4];
-  if (k_lo <= k_hi) {
-    for (int kt = k_lo / kMT; kt <= k_hi / kMT; ++kt) {
-      const int k0 = kt * kMT;
-      load_kv(k0, false);
-      zero_frags(s);
-      zero_frags(dp);
-      mma_rows_by_rows(s, Qs, r0, Ks, lane);
-      mma_rows_by_rows(dp, dOs, r0, Vs, lane);
-      const bool open = pairs_open(o, q0 + r0, q0 + r0 + 15, k0, k0 + kMT - 1);
-#pragma unroll
-      for (int j = 0; j < kMT / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p, ds;
-          if (open)
-            p_ds_open(o, s[j][e], dp[j][e], e < 2 ? La : Lb, 0.0f, p, ds);
-          else
-            p_ds(o, e < 2 ? qa : qa + 8, k0 + 8 * j + 2 * t + (e & 1),
-                 s[j][e], dp[j][e], e < 2 ? La : Lb, 0.0f, p, ds);
-          if (e < 2)
-            da = fmaf(p, dp[j][e], da);
-          else
-            db = fmaf(p, dp[j][e], db);
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    // the producer: one thread copies Q and dO, then K and V tiles for
+    // both passes
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      mbar_expect(&qbar, 2 * kTileQ * sizeof(__nv_bfloat16));
+      for (int kb = 0; kb < HD / 64; ++kb) {
+        tma_load(Qs + kb * kRowsDq * 64, &maps.q, &qbar, kb * 64, h, q0, b);
+        tma_load(dOs + kb * kRowsDq * 64, &maps.dout, &qbar, kb * 64, h, q0,
+                 b);
+      }
+      int n = 0;
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int kt = kt_lo; kt <= kt_hi; ++kt, ++n) {
+          const Ring r(n);
+          mbar_wait(&empty[r.stage], r.parity ^ 1);
+          __nv_bfloat16* Ks = KVs + r.stage * 2 * kTileK;
+          mbar_expect(&full[r.stage], 2 * kTileK * sizeof(__nv_bfloat16));
+          for (int kb = 0; kb < HD / 64; ++kb) {
+            tma_load(Ks + kb * kKeysDq * 64, &maps.k, &full[r.stage],
+                     kb * 64, kvh, kt * kKeysDq, b);
+            tma_load(Ks + kTileK + kb * kKeysDq * 64, &maps.v,
+                     &full[r.stage], kb * 64, kvh, kt * kKeysDq, b);
+          }
         }
+      }
     }
-  }
-  da += __shfl_xor_sync(0xffffffffu, da, 1);
-  da += __shfl_xor_sync(0xffffffffu, da, 2);
-  db += __shfl_xor_sync(0xffffffffu, db, 1);
-  db += __shfl_xor_sync(0xffffffffu, db, 2);
-  if (t == 0) {
-    if (qa < o.S) dd[stat + qa] = da;
-    if (qa + 8 < o.S) dd[stat + qa + 8] = db;
-  }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_wg = q0 + wg * 64;       // the warpgroup's first query row
+    const int tr = wg * 64 + warp * 16;  // the warp's first row of the tile
+    const int qa = q0 + tr + g;          // the lane's rows qa and qa + 8
+    const long stat = (static_cast<long>(b) * o.H + h) * o.S;
+    const float La = qa < o.S ? lse[stat + qa] * kLog2e : 0.0f;
+    const float Lb = qa + 8 < o.S ? lse[stat + qa + 8] * kLog2e : 0.0f;
+    const uint32_t q_addr = smem_addr(Qs) + wg * 64 * 128;
+    const uint32_t o_addr = smem_addr(dOs) + wg * 64 * 128;
+    const bool cap = o.cap > 0.0f;
 
-  // pass 2: dQ += dS K
-  float acc[kMT / 8][4];
-  zero_frags(acc);
-  if (k_lo <= k_hi) {
-    for (int kt = k_lo / kMT; kt <= k_hi / kMT; ++kt) {
-      const int k0 = kt * kMT;
-      load_kv(k0, true);
-      zero_frags(s);
-      zero_frags(dp);
-      mma_rows_by_rows(s, Qs, r0, Ks, lane);
-      mma_rows_by_rows(dp, dOs, r0, Vs, lane);
-      const bool open = pairs_open(o, q0 + r0, q0 + r0 + 15, k0, k0 + kMT - 1);
+    // S = Q Kᵀ and dP = dO Vᵀ of the warpgroup's rows and the tile at
+    // stage st; without a softcap s becomes P while dP is multiplied.
+    // The lane's (row, key) of element (j, e): (qa + 8·(e >> 1), k0 + 8j
+    // + 2t + (e & 1)).
+    float s[8][4], dp[8][4];
+    auto scores = [&](int st, int k0, bool open) {
+      const uint32_t k_addr = smem_addr(KVs + st * 2 * kTileK);
+      wgmma_ss_pair<HD, kRowsDq>(s, dp, q_addr, k_addr, o_addr,
+                                 k_addr + kTileK * 2);
+      if (!cap) {
+        wgmma_wait<1>();
+        hold(s);
+        if (open) {
 #pragma unroll
-      for (int j = 0; j < kMT / 8; ++j)
+          for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p, ds;
-          if (open)
-            p_ds_open(o, s[j][e], dp[j][e], e < 2 ? La : Lb,
-                      e < 2 ? da : db, p, ds);
-          else
-            p_ds(o, e < 2 ? qa : qa + 8, k0 + 8 * j + 2 * t + (e & 1),
-                 s[j][e], dp[j][e], e < 2 ? La : Lb, e < 2 ? da : db, p,
-                 ds);
-          s[j][e] = ds;
+            for (int e = 0; e < 4; ++e)
+              s[j][e] = ex2(fmaf(s[j][e], kLog2e, e < 2 ? -La : -Lb));
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[j][e] = p_of(o, e < 2 ? qa : qa + 8,
+                             k0 + 8 * j + 2 * t + (e & 1), s[j][e],
+                             e < 2 ? La : Lb);
         }
-      mma_frags_by_cols(acc, s, KTs, lane);
-    }
-  }
+      }
+      wgmma_wait<0>();
+      hold(s);
+      hold(dp);
+    };
+    // s ← P and dp ← dS
+    auto probs = [&](int k0, bool open, float Da, float Db) {
+      if (!cap) {
+        if (open) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dp[j][e] = s[j][e] * (dp[j][e] - (e < 2 ? Da : Db));
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dp[j][e] = ds_of(o, e < 2 ? qa : qa + 8, s[j][e], dp[j][e],
+                               e < 2 ? Da : Db);
+        }
+        return;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p_ds_cap(o, open, e < 2 ? qa : qa + 8, k0 + 8 * j + 2 * t + (e & 1),
+                   s[j][e], dp[j][e], e < 2 ? La : Lb, e < 2 ? Da : Db,
+                   s[j][e], dp[j][e]);
+    };
+    mbar_wait(&qbar, 0);
 
-  const long base = static_cast<long>(b) * o.S;
+    int n = 0;
+    // pass 1: D of the lane's two rows, summed over its quad.  Two tiles
+    // are in flight: S and dP of the next tile are multiplied while the
+    // lanes form P and P ∘ dP of this one, in the other registers.
+    float da = 0.0f, db = 0.0f;
+    float s1[8][4], dp1[8][4];
+    // waits for tile i's stage and starts its S and dP as one commit
+    // group (an empty one where the warpgroup sees none of the tile's
+    // pairs); true when started
+    auto start = [&](int i, float (&sx)[8][4], float (&dpx)[8][4]) {
+      const Ring r(n + i);
+      mbar_wait(&full[r.stage], r.parity);
+      const int k0 = (kt_lo + i) * kKeysDq;
+      const bool go = !pairs_closed(o, r_wg, r_wg + 63, k0, k0 + kKeysDq - 1);
+      const uint32_t k_addr = smem_addr(KVs + r.stage * 2 * kTileK);
+      hold(sx);
+      hold(dpx);
+      wgmma_fence();
+      if (go) {
+        wgmma_ss_tile<HD, kRowsDq>(sx, q_addr, k_addr);
+        wgmma_ss_tile<HD, kRowsDq>(dpx, o_addr, k_addr + kTileK * 2);
+      }
+      wgmma_commit();
+      hold(sx);
+      hold(dpx);
+      return go;
+    };
+    // once tile i's group is in: hands its stage back and adds its P ∘ dP
+    auto finish = [&](int i, bool go, float (&sx)[8][4],
+                      float (&dpx)[8][4]) {
+      hold(sx);
+      hold(dpx);
+      release(&empty[Ring(n + i).stage]);
+      if (!go) return;
+      const int k0 = (kt_lo + i) * kKeysDq;
+      const bool open =
+          pairs_open(o, q0 + tr, q0 + tr + 15, k0, k0 + kKeysDq - 1);
+      if (cap) {
 #pragma unroll
-  for (int e = 0; e < 4; e += 2) {
-    const int row = e < 2 ? qa : qa + 8;
-    if (row >= o.S) continue;
-    const long off = ((base + row) * o.H + h) * static_cast<long>(o.hd);
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int n = 0; n < kMT / 8; ++n) {
-      const int col = 8 * n + 2 * t;
-      if (col < o.hd) dq[off + col] = __float2bfloat16(acc[n][e]);
-      if (col + 1 < o.hd) dq[off + col + 1] = __float2bfloat16(acc[n][e + 1]);
+          for (int e = 0; e < 4; ++e) {
+            float ds;
+            p_ds_cap(o, open, e < 2 ? qa : qa + 8,
+                     k0 + 8 * j + 2 * t + (e & 1), sx[j][e], dpx[j][e],
+                     e < 2 ? La : Lb, 0.0f, sx[j][e], ds);
+          }
+      } else if (open) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sx[j][e] = ex2(fmaf(sx[j][e], kLog2e, e < 2 ? -La : -Lb));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sx[j][e] = p_of(o, e < 2 ? qa : qa + 8,
+                            k0 + 8 * j + 2 * t + (e & 1), sx[j][e],
+                            e < 2 ? La : Lb);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        da = fmaf(sx[j][0], dpx[j][0], fmaf(sx[j][1], dpx[j][1], da));
+        db = fmaf(sx[j][2], dpx[j][2], fmaf(sx[j][3], dpx[j][3], db));
+      }
+    };
+    const int n_kv = kt_hi - kt_lo + 1;  // key tiles a pass (≥ 0)
+    if (n_kv > 0) {
+      bool go0 = start(0, s, dp), go1 = false;
+      for (int i = 0; i < n_kv; i += 2) {
+        if (i + 1 < n_kv) {
+          go1 = start(i + 1, s1, dp1);
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+        }
+        finish(i, go0, s, dp);
+        if (i + 1 == n_kv) break;
+        if (i + 2 < n_kv) {
+          go0 = start(i + 2, s, dp);
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+        }
+        finish(i + 1, go1, s1, dp1);
+      }
+      n += n_kv;
     }
+    da += __shfl_xor_sync(0xffffffffu, da, 1);
+    da += __shfl_xor_sync(0xffffffffu, da, 2);
+    db += __shfl_xor_sync(0xffffffffu, db, 1);
+    db += __shfl_xor_sync(0xffffffffu, db, 2);
+    if (t == 0) {
+      if (qa < o.S) dd[stat + qa] = da;
+      if (qa + 8 < o.S) dd[stat + qa + 8] = db;
+    }
+
+    // pass 2: dQ += dS K, K read MN-major from its tile.  A tile's dQ
+    // product runs on while the next tile's S and dP are started; their
+    // waits complete it, and then its stage is handed back.
+    float acc[HD / 8][4];
+    uint32_t a[4][4];     // dS of the tile whose dQ product is in flight
+    int in_flight = -1;   // that tile's stage
+    zero(acc);
+    for (int kt = kt_lo; kt <= kt_hi; ++kt, ++n) {
+      const Ring r(n);
+      mbar_wait(&full[r.stage], r.parity);
+      const int k0 = kt * kKeysDq;
+      if (pairs_closed(o, r_wg, r_wg + 63, k0, k0 + kKeysDq - 1)) {
+        release(&empty[r.stage]);
+        continue;
+      }
+      const bool open =
+          pairs_open(o, q0 + tr, q0 + tr + 15, k0, k0 + kKeysDq - 1);
+      scores(r.stage, k0, open);
+      hold(acc);
+      hold(a);
+      if (in_flight >= 0) release(&empty[in_flight]);
+      probs(k0, open, da, db);
+      pack_a(a, dp);
+      wgmma_fence();
+      wgmma_rs_tile<HD>(acc, a, smem_addr(KVs + r.stage * 2 * kTileK));
+      wgmma_commit();
+      in_flight = r.stage;
+    }
+    wgmma_wait<0>();
+    hold(acc);
+    hold(a);
+    if (in_flight >= 0) release(&empty[in_flight]);
+
+    // dQ through the warpgroup's own Q rows, then 16-byte stores
+    named_barrier(1 + wg, 128);
+    stage_frags<HD, kRowsDq>(Qs, acc, tr, lane);
+    __syncwarp();
+    store_rows<HD, kRowsDq>(dq, Qs, tr, static_cast<long>(b) * o.S, q0 + tr,
+                            o.S, o.H, h, o.hd);
   }
 }
 
-__global__ void __launch_bounds__(kMmaThreads)
-flash_attention_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                                    const __nv_bfloat16* __restrict__ k,
-                                    const __nv_bfloat16* __restrict__ v,
-                                    const __nv_bfloat16* __restrict__ dout,
-                                    const float* __restrict__ lse,
-                                    const float* __restrict__ dd,
-                                    __nv_bfloat16* __restrict__ dk,
-                                    __nv_bfloat16* __restrict__ dv,
-                                    const Opts o, int n_kt) {
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_mma);
-  __nv_bfloat16* Vs = Ks + kMT * kLDB;
-  __nv_bfloat16* Qs = Vs + kMT * kLDB;
-  __nv_bfloat16* dOs = Qs + kMT * kLDB;
-  __nv_bfloat16* QTs = dOs + kMT * kLDB;
-  __nv_bfloat16* dOTs = QTs + kMT * kLDB;
-  float* Ls = reinterpret_cast<float*>(dOTs + kMT * kLDB);
-  float* Ds = Ls + kMT;
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attention_bwd_dkdv_wgmma_kernel(const float* __restrict__ lse,
+                                      const float* __restrict__ dd,
+                                      __nv_bfloat16* __restrict__ dk,
+                                      __nv_bfloat16* __restrict__ dv,
+                                      const Opts o, int n_kt,
+                                      const __grid_constant__ BwdMaps maps) {
+  using namespace hopper;
+  constexpr int kTileK = kKeysDkdv * HD;  // elements of K (and of V)
+  constexpr int kTileQ = kRowsDkdv * HD;  // of a stage's Q (and dO)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t mis = smem_addr(smem_raw) & 1023;
+  __nv_bfloat16* Ks =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + (mis ? 1024 - mis : 0));
+  __nv_bfloat16* Vs = Ks + kTileK;
+  __nv_bfloat16* QOs = Vs + kTileK;  // stage s: Q at QOs + 2s·kTileQ, dO after
+  // stage s: L·log2 e of its rows at LDs + 2s·kRowsDkdv, D after
+  float* LDs = reinterpret_cast<float*>(QOs + kStages * 2 * kTileQ);
+  __shared__ alignas(8) uint64_t full[kStages], empty[kStages], kvbar;
 
-  const int kt = blockIdx.x % n_kt;
-  const int rest = blockIdx.x / n_kt;
-  const int kvh = rest % o.K;
-  const int b = rest / o.K;
+  // block → (kv head fastest, then key tile from the first, then batch)
+  const int kvh = blockIdx.x % o.K;
+  const int rest = blockIdx.x / o.K;
+  const int kt = rest % n_kt;
+  const int b = rest / n_kt;
   const int G = o.H / o.K;
-  const int k0 = kt * kMT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int kr0 = warp * 16;           // the warp's first key of the tile
-  const int ka = k0 + kr0 + g;         // the lane's two keys
-
-  load_tile_mma(Ks, nullptr, k, static_cast<long>(b) * o.T, o.T, o.K, kvh,
-                o.hd, k0);
-  load_tile_mma(Vs, nullptr, v, static_cast<long>(b) * o.T, o.T, o.K, kvh,
-                o.hd, k0);
-
-  const int k_hi = min(k0 + kMT, o.T) - 1;
+  const int k0 = kt * kKeysDkdv;
+  // the query rows that can see keys k0 .. k_hi (the mirror of the
+  // forward's tile_walk), and the rows with no unmasked key, which see
+  // every key uniformly
+  const int k_hi = min(k0 + kKeysDkdv, o.T) - 1;
   const int q_lo = o.causal ? k0 : 0;
   int q_hi = o.S - 1;
   if (o.window > 0 && !o.keyless(o.S - 1))
     q_hi = min(q_hi, k_hi + o.window - 1);
+  const int qt_lo = q_lo / kRowsDkdv;
+  const int qt_hi = q_lo <= q_hi ? q_hi / kRowsDkdv : qt_lo - 1;
 
-  float accK[kMT / 8][4], accV[kMT / 8][4];
-  zero_frags(accK);
-  zero_frags(accV);
-  float st[kMT / 8][4], dpt[kMT / 8][4];
-  if (q_lo <= q_hi) {
-    for (int gh = 0; gh < G; ++gh) {
-      const int h = kvh * G + gh;
-      const long stat = (static_cast<long>(b) * o.H + h) * o.S;
-      for (int qt = q_lo / kMT; qt <= q_hi / kMT; ++qt) {
-        const int q0 = qt * kMT;
-        __syncthreads();  // the previous tile is read
-        load_tile_mma(Qs, QTs, q, static_cast<long>(b) * o.S, o.S, o.H, h,
-                      o.hd, q0);
-        load_tile_mma(dOs, dOTs, dout, static_cast<long>(b) * o.S, o.S, o.H,
-                      h, o.hd, q0);
-        for (int r = threadIdx.x; r < kMT; r += kMmaThreads) {
-          Ls[r] = q0 + r < o.S ? lse[stat + q0 + r] : 0.0f;
-          Ds[r] = q0 + r < o.S ? dd[stat + q0 + r] : 0.0f;
-        }
-        __syncthreads();
-
-        zero_frags(st);
-        zero_frags(dpt);
-        mma_rows_by_rows(st, Ks, kr0, Qs, lane);   // Sᵀ: keys × rows
-        mma_rows_by_rows(dpt, Vs, kr0, dOs, lane); // dPᵀ
-        const bool open = pairs_open(o, q0, q0 + kMT - 1, k0 + kr0,
-                                     k0 + kr0 + 15);
-#pragma unroll
-        for (int j = 0; j < kMT / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = 8 * j + 2 * t + (e & 1);
-            float p, ds;
-            if (open)
-              p_ds_open(o, st[j][e], dpt[j][e], Ls[c], Ds[c], p, ds);
-            else
-              p_ds(o, q0 + c, e < 2 ? ka : ka + 8, st[j][e], dpt[j][e],
-                   Ls[c], Ds[c], p, ds);
-            st[j][e] = p;
-            dpt[j][e] = ds;
-          }
-        mma_frags_by_cols(accV, st, dOTs, lane);   // dV += Pᵀ dO
-        mma_frags_by_cols(accK, dpt, QTs, lane);   // dK += dSᵀ Q
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], 8);  // one arrival a consumer warp
     }
+    mbar_init(&kvbar, 1);
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  const long base = static_cast<long>(b) * o.T;
-#pragma unroll
-  for (int e = 0; e < 4; e += 2) {
-    const int key = e < 2 ? ka : ka + 8;
-    if (key >= o.T) continue;
-    const long off = ((base + key) * o.K + kvh) * static_cast<long>(o.hd);
-#pragma unroll
-    for (int n = 0; n < kMT / 8; ++n) {
-      const int col = 8 * n + 2 * t;
-      if (col < o.hd) {
-        dk[off + col] = __float2bfloat16(accK[n][e]);
-        dv[off + col] = __float2bfloat16(accV[n][e]);
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    // the producer warp: its lanes write each stage's L and D, one lane
+    // copies K and V once and each stage's Q and dO
+    setmaxnreg_dec<kProducerRegs>();
+    if ((threadIdx.x >> 5) == 8) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        mbar_expect(&kvbar, 2 * kTileK * sizeof(__nv_bfloat16));
+        for (int kb = 0; kb < HD / 64; ++kb) {
+          tma_load(Ks + kb * kKeysDkdv * 64, &maps.k, &kvbar, kb * 64, kvh, k0,
+                   b);
+          tma_load(Vs + kb * kKeysDkdv * 64, &maps.v, &kvbar, kb * 64, kvh, k0,
+                   b);
+        }
       }
-      if (col + 1 < o.hd) {
-        dk[off + col + 1] = __float2bfloat16(accK[n][e + 1]);
-        dv[off + col + 1] = __float2bfloat16(accV[n][e + 1]);
+      int n = 0;
+      for (int gh = 0; gh < G; ++gh) {
+        const int h = kvh * G + gh;
+        const long stat = (static_cast<long>(b) * o.H + h) * o.S;
+        for (int qt = qt_lo; qt <= qt_hi; ++qt, ++n) {
+          const Ring r(n);
+          const int q0 = qt * kRowsDkdv;
+          mbar_wait(&empty[r.stage], r.parity ^ 1);
+          float* Ls = LDs + r.stage * 2 * kRowsDkdv;
+          for (int i = lane; i < kRowsDkdv; i += 32) {
+            const bool in = q0 + i < o.S;
+            Ls[i] = in ? lse[stat + q0 + i] * kLog2e : 0.0f;
+            Ls[kRowsDkdv + i] = in ? dd[stat + q0 + i] : 0.0f;
+          }
+          if (lane == 0) {
+            __nv_bfloat16* Qs = QOs + r.stage * 2 * kTileQ;
+            mbar_expect(&full[r.stage], 2 * kTileQ * sizeof(__nv_bfloat16));
+            for (int kb = 0; kb < HD / 64; ++kb) {
+              tma_load(Qs + kb * kRowsDkdv * 64, &maps.q, &full[r.stage],
+                       kb * 64, h, q0, b);
+              tma_load(Qs + kTileQ + kb * kRowsDkdv * 64, &maps.dout,
+                       &full[r.stage], kb * 64, h, q0, b);
+            }
+          } else {
+            mbar_arrive(&full[r.stage]);
+          }
+        }
       }
     }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int k_wg = k0 + wg * 64;       // the warpgroup's first key
+    const int tr = wg * 64 + warp * 16;  // the warp's first key of the tile
+    const int kw = k0 + tr;
+    const int ka = kw + g;               // the lane's keys ka and ka + 8
+    const uint32_t k_addr = smem_addr(Ks) + wg * 64 * 128;
+    const uint32_t v_addr = smem_addr(Vs) + wg * 64 * 128;
+    const bool cap = o.cap > 0.0f;
+
+    float accK[HD / 8][4], accV[HD / 8][4];
+    zero(accK);
+    zero(accV);
+    mbar_wait(&kvbar, 0);
+    int n = 0;
+    for (int gh = 0; gh < G; ++gh) {
+      for (int qt = qt_lo; qt <= qt_hi; ++qt, ++n) {
+        const Ring r(n);
+        const int q0 = qt * kRowsDkdv;
+        mbar_wait(&full[r.stage], r.parity);
+        if (!pairs_closed(o, q0, q0 + kRowsDkdv - 1, k_wg, k_wg + 63)) {
+          const uint32_t q_addr = smem_addr(QOs + r.stage * 2 * kTileQ);
+          const uint32_t o_addr = q_addr + kTileQ * 2;
+          const float* Ls = LDs + r.stage * 2 * kRowsDkdv;
+          const float* Ds = Ls + kRowsDkdv;
+          const bool open =
+              pairs_open(o, q0, q0 + kRowsDkdv - 1, kw, kw + 15);
+          // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: keys as rows.  The lane's (row,
+          // key) of element (j, e): (q0 + 8j + 2t + (e & 1), ka + 8·(e >>
+          // 1)).
+          float sT[8][4], dpT[8][4];
+          uint32_t aP[4][4], aS[4][4];
+          wgmma_ss_pair<HD, kKeysDkdv>(sT, dpT, k_addr, q_addr, v_addr,
+                                       o_addr);
+          if (!cap) {
+            // Pᵀ while dPᵀ is multiplied, then dV += Pᵀ dO while dSᵀ is
+            // formed
+            wgmma_wait<1>();
+            hold(sT);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int c = 8 * j + 2 * t;
+              const float2 L2 = *reinterpret_cast<const float2*>(Ls + c);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float Lc = (e & 1) ? L2.y : L2.x;
+                sT[j][e] = open ? ex2(fmaf(sT[j][e], kLog2e, -Lc))
+                                : p_of(o, q0 + c + (e & 1),
+                                       e < 2 ? ka : ka + 8, sT[j][e], Lc);
+              }
+            }
+            pack_a(aP, sT);
+            hold(accV);
+            wgmma_fence();
+            wgmma_rs_tile<HD>(accV, aP, o_addr);  // dV += Pᵀ dO
+            wgmma_commit();
+            wgmma_wait<1>();                      // dPᵀ is in
+            hold(dpT);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int c = 8 * j + 2 * t;
+              const float2 D2 = *reinterpret_cast<const float2*>(Ds + c);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float Dc = (e & 1) ? D2.y : D2.x;
+                dpT[j][e] = open ? sT[j][e] * (dpT[j][e] - Dc)
+                                 : ds_of(o, q0 + c + (e & 1), sT[j][e],
+                                         dpT[j][e], Dc);
+              }
+            }
+          } else {
+            wgmma_wait<0>();
+            hold(sT);
+            hold(dpT);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int c = 8 * j + 2 * t;
+              const float2 L2 = *reinterpret_cast<const float2*>(Ls + c);
+              const float2 D2 = *reinterpret_cast<const float2*>(Ds + c);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                p_ds_cap(o, open, q0 + c + (e & 1), e < 2 ? ka : ka + 8,
+                         sT[j][e], dpT[j][e], (e & 1) ? L2.y : L2.x,
+                         (e & 1) ? D2.y : D2.x, sT[j][e], dpT[j][e]);
+            }
+            pack_a(aP, sT);
+            hold(accV);
+            wgmma_fence();
+            wgmma_rs_tile<HD>(accV, aP, o_addr);  // dV += Pᵀ dO
+            wgmma_commit();
+          }
+          pack_a(aS, dpT);
+          hold(accK);
+          wgmma_fence();
+          wgmma_rs_tile<HD>(accK, aS, q_addr);  // dK += dSᵀ Q
+          wgmma_commit();
+          wgmma_wait<0>();
+          hold(accV);
+          hold(accK);
+          hold(aP);
+          hold(aS);
+        }
+        release(&empty[r.stage]);
+      }
+    }
+
+    // dK and dV through the warpgroup's own K and V rows, then 16-byte
+    // stores
+    named_barrier(1 + wg, 128);
+    stage_frags<HD, kKeysDkdv>(Ks, accK, tr, lane);
+    stage_frags<HD, kKeysDkdv>(Vs, accV, tr, lane);
+    __syncwarp();
+    const long base = static_cast<long>(b) * o.T;
+    store_rows<HD, kKeysDkdv>(dk, Ks, tr, base, kw, o.T, o.K, kvh, o.hd);
+    store_rows<HD, kKeysDkdv>(dv, Vs, tr, base, kw, o.T, o.K, kvh, o.hd);
   }
 }
 
-int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-               const __nv_bfloat16* v, const __nv_bfloat16* dout,
-               const float* lse, float* dd, __nv_bfloat16* dq,
-               __nv_bfloat16* dk, __nv_bfloat16* dv, int B, const Opts& o,
-               cudaStream_t stream) {
+// ---- launches ------------------------------------------------------------------------
+
+// What the wrapper's bwd_geometry (kernel.py) decided for one call.
+struct Geometry {
+  int route;       // 1: the wgmma kernels, 0: the FMA kernels
+  int hd_tile;     // the instantiation's width
+  int dq_rows, dq_keys;      // a dQ block's query rows, a streamed tile's keys
+  int dkdv_keys, dkdv_rows;  // a dK/dV block's keys, a streamed tile's rows
+  int stages, threads;
+  int n_qt, n_kt;            // dQ blocks along S, dK/dV blocks along T
+  int dq_blocks, dkdv_blocks;
+  int dq_smem, dkdv_smem;    // dynamic shared memory, bytes
+};
+
+constexpr int kSmemLimit = 232448;
+
+template <typename KDq, typename KDkdv>
+int set_smem(KDq dqk, KDkdv dkdv, const Geometry& geo) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_bwd_dq_mma_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kMmaDqSmem));
+      dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.dq_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_mma_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kMmaDkdvSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_kt = (o.T + kMT - 1) / kMT;
-  const int n_qt = (o.S + kMT - 1) / kMT;
-  const long blocks1 = static_cast<long>(n_kt) * o.K * B;
-  const long blocks2 = static_cast<long>(n_qt) * o.H * B;
-  if (blocks1 > 0x7fffffffL || blocks2 > 0x7fffffffL)
+  return static_cast<int>(cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.dkdv_smem));
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, float* dd, void* dq,
+                 void* dk, void* dv, int B, const Opts& o,
+                 const Geometry& geo, cudaStream_t stream) {
+  if (geo.dq_rows != kRowsDq || geo.dq_keys != kKeysDq ||
+      geo.dkdv_keys != kKeysDkdv || geo.dkdv_rows != kRowsDkdv ||
+      geo.stages != kStages || geo.threads != kWgThreads ||
+      geo.dq_smem < static_cast<int>(WgSmem<HD>::dq) ||
+      geo.dkdv_smem < static_cast<int>(WgSmem<HD>::dkdv) ||
+      geo.dq_smem > kSmemLimit || geo.dkdv_smem > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_attention_bwd_dq_mma_kernel<<<static_cast<unsigned>(blocks2),
-                                      kMmaThreads, kMmaDqSmem, stream>>>(
-      q, k, v, dout, lse, dd, dq, o, n_qt);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || blocks1 == 0) return static_cast<int>(err);
-  flash_attention_bwd_dkdv_mma_kernel<<<static_cast<unsigned>(blocks1),
-                                        kMmaThreads, kMmaDkdvSmem, stream>>>(
-      q, k, v, dout, lse, dd, dk, dv, o, n_kt);
+  BwdMaps m1 = {}, m2 = {};  // boxes of the dQ kernel's and dK/dV's rows
+  if (!(hopper::encode_map(&m1.q, q, B, o.S, o.H, o.hd, kRowsDq) &&
+        hopper::encode_map(&m1.dout, dout, B, o.S, o.H, o.hd, kRowsDq) &&
+        hopper::encode_map(&m1.k, k, B, o.T, o.K, o.hd, kKeysDq) &&
+        hopper::encode_map(&m1.v, v, B, o.T, o.K, o.hd, kKeysDq) &&
+        hopper::encode_map(&m2.q, q, B, o.S, o.H, o.hd, kRowsDkdv) &&
+        hopper::encode_map(&m2.dout, dout, B, o.S, o.H, o.hd, kRowsDkdv) &&
+        hopper::encode_map(&m2.k, k, B, o.T, o.K, o.hd, kKeysDkdv) &&
+        hopper::encode_map(&m2.v, v, B, o.T, o.K, o.hd, kKeysDkdv)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto dqk = flash_attention_bwd_dq_wgmma_kernel<HD>;
+  auto dkdv = flash_attention_bwd_dkdv_wgmma_kernel<HD>;
+  int err = set_smem(dqk, dkdv, geo);
+  if (err != 0) return err;
+  dqk<<<static_cast<unsigned>(geo.dq_blocks), kWgThreads, geo.dq_smem,
+        stream>>>(lse, dd, static_cast<__nv_bfloat16*>(dq), o, geo.n_qt, m1);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || geo.dkdv_blocks == 0) return err;
+  dkdv<<<static_cast<unsigned>(geo.dkdv_blocks), kWgThreads, geo.dkdv_smem,
+         stream>>>(lse, dd, static_cast<__nv_bfloat16*>(dk),
+                   static_cast<__nv_bfloat16*>(dv), o, geo.n_kt, m2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -942,66 +1314,69 @@ constexpr size_t dq_smem() {
 }
 
 template <typename T, int HD>
-int launch_hd(const T* q, const T* k, const T* v, const T* dout,
-              const float* lse, float* dd, T* dq, T* dk, T* dv, int B,
-              const Opts& o, cudaStream_t stream) {
+int launch_fma(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, float* dd, void* dq, void* dk, void* dv,
+               const Opts& o, const Geometry& geo, cudaStream_t stream) {
   constexpr int BQ = Tiles<HD>::BQ, BK = Tiles<HD>::BK;
-  auto dkdv = flash_attention_bwd_dkdv_kernel<T, HD>;
-  auto dqk = flash_attention_bwd_dq_kernel<T, HD>;
-  constexpr size_t b1 = dkdv_smem<HD>(), b2 = dq_smem<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(b1));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(b2));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_kt = (o.T + BK - 1) / BK;
-  const int n_qt = (o.S + BQ - 1) / BQ;
-  const long blocks1 = static_cast<long>(n_kt) * o.K * B;
-  const long blocks2 = static_cast<long>(n_qt) * o.H * B;
-  if (blocks1 > 0x7fffffffL || blocks2 > 0x7fffffffL)
+  if (geo.dq_rows != BQ || geo.dq_keys != BK || geo.dkdv_keys != BK ||
+      geo.dkdv_rows != BQ || geo.stages != 1 || geo.threads != kThreads ||
+      geo.dq_smem < static_cast<int>(dq_smem<HD>()) ||
+      geo.dkdv_smem < static_cast<int>(dkdv_smem<HD>()) ||
+      geo.dq_smem > kSmemLimit || geo.dkdv_smem > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
+  auto dqk = flash_attention_bwd_dq_kernel<T, HD>;
+  auto dkdv = flash_attention_bwd_dkdv_kernel<T, HD>;
+  int err = set_smem(dqk, dkdv, geo);
+  if (err != 0) return err;
   // dQ first: it writes D, which dK/dV read
-  dqk<<<static_cast<unsigned>(blocks2), kThreads, b2, stream>>>(
-      q, k, v, dout, lse, dd, dq, o, n_qt);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || blocks1 == 0) return static_cast<int>(err);
-  dkdv<<<static_cast<unsigned>(blocks1), kThreads, b1, stream>>>(
-      q, k, v, dout, lse, dd, dk, dv, o, n_kt);
+  dqk<<<static_cast<unsigned>(geo.dq_blocks), kThreads, geo.dq_smem,
+        stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const T*>(dout), lse,
+                  dd, static_cast<T*>(dq), o, geo.n_qt);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || geo.dkdv_blocks == 0) return err;
+  dkdv<<<static_cast<unsigned>(geo.dkdv_blocks), kThreads, geo.dkdv_smem,
+         stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                   static_cast<const T*>(v), static_cast<const T*>(dout), lse,
+                   dd, static_cast<T*>(dk), static_cast<T*>(dv), o, geo.n_kt);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, void* dd, void* dq, void* dk, void* dv, int B,
-           int S, int T_len, int H, int K, int hd, int causal, int window,
-           float cap, void* stream_ptr) {
+           const void* lse_ptr, void* dd_ptr, void* dq, void* dk, void* dv,
+           int B, int S, int T_len, int H, int K, int hd, int causal,
+           int window, float cap, const Geometry& geo, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (B == 0 || S == 0 || H == 0) return static_cast<int>(cudaGetLastError());
-  if (K <= 0 || H % K != 0 || hd <= 0 || hd > 256 || T_len <= 0)
+  if (K <= 0 || H % K != 0 || hd <= 0 || hd > geo.hd_tile || T_len <= 0 ||
+      geo.dq_blocks <= 0 || geo.dkdv_blocks < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Opts o{S, T_len, H, K, hd, causal, window, cap};
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* gp = static_cast<const T*>(dout);
-  const float* lp = static_cast<const float*>(lse);
-  float* dp = static_cast<float*>(dd);
-  T* dqp = static_cast<T*>(dq);
-  T* dkp = static_cast<T*>(dk);
-  T* dvp = static_cast<T*>(dv);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (hd <= kMT)
-      return launch_mma(qp, kp, vp, gp, lp, dp, dqp, dkp, dvp, B, o, stream);
+  const float* lse = static_cast<const float*>(lse_ptr);
+  float* dd = static_cast<float*>(dd_ptr);
+  if (geo.route == 1) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (geo.hd_tile == 64)
+        return launch_wgmma<64>(q, k, v, dout, lse, dd, dq, dk, dv, B, o, geo,
+                                stream);
+      if (geo.hd_tile == 128)
+        return launch_wgmma<128>(q, k, v, dout, lse, dd, dq, dk, dv, B, o,
+                                 geo, stream);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (hd <= 64)
-    return launch_hd<T, 64>(qp, kp, vp, gp, lp, dp, dqp, dkp, dvp, B, o,
-                            stream);
-  if (hd <= 128)
-    return launch_hd<T, 128>(qp, kp, vp, gp, lp, dp, dqp, dkp, dvp, B, o,
+  if (geo.route != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (geo.hd_tile == 64)
+    return launch_fma<T, 64>(q, k, v, dout, lse, dd, dq, dk, dv, o, geo,
                              stream);
-  return launch_hd<T, 256>(qp, kp, vp, gp, lp, dp, dqp, dkp, dvp, B, o,
-                           stream);
+  if (geo.hd_tile == 128)
+    return launch_fma<T, 128>(q, k, v, dout, lse, dd, dq, dk, dv, o, geo,
+                              stream);
+  if (geo.hd_tile == 256)
+    return launch_fma<T, 256>(q, k, v, dout, lse, dd, dq, dk, dv, o, geo,
+                              stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -1011,23 +1386,31 @@ extern "C" {
 // q and dout (B, S, H, hd), k/v (B, T, K, hd) of one dtype; lse (B, H,
 // S) f32 from the forward; dd (B, H, S) f32 scratch for D; dq, dk, dv
 // outputs shaped as q, k, v.  window <= 0: no window; cap <= 0: no
-// softcap.
-int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse, void* dd,
-                            void* dq, void* dk, void* dv, int B, int S,
-                            int T, int H, int K, int hd, int causal,
-                            int window, float cap, void* stream) {
+// softcap.  The geometry (route .. dkdv_smem) is the wrapper's
+// bwd_geometry, in the order of struct Geometry.
+#define BWD_ARGS                                                            \
+  const void *q, const void *k, const void *v, const void *dout,            \
+      const void *lse, void *dd, void *dq, void *dk, void *dv, int B, int S, \
+      int T, int H, int K, int hd, int causal, int window, float cap,       \
+      int route, int hd_tile, int dq_rows, int dq_keys, int dkdv_keys,      \
+      int dkdv_rows, int stages, int threads, int n_qt, int n_kt,           \
+      int dq_blocks, int dkdv_blocks, int dq_smem, int dkdv_smem,           \
+      void *stream
+#define BWD_GEOMETRY                                                        \
+  Geometry {                                                                \
+    route, hd_tile, dq_rows, dq_keys, dkdv_keys, dkdv_rows, stages,         \
+        threads, n_qt, n_kt, dq_blocks, dkdv_blocks, dq_smem, dkdv_smem     \
+  }
+
+int flash_attention_bwd_f32(BWD_ARGS) {
   return launch<float>(q, k, v, dout, lse, dd, dq, dk, dv, B, S, T, H, K, hd,
-                       causal, window, cap, stream);
+                       causal, window, cap, BWD_GEOMETRY, stream);
 }
 
-int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse, void* dd,
-                             void* dq, void* dk, void* dv, int B, int S,
-                             int T, int H, int K, int hd, int causal,
-                             int window, float cap, void* stream) {
+int flash_attention_bwd_bf16(BWD_ARGS) {
   return launch<__nv_bfloat16>(q, k, v, dout, lse, dd, dq, dk, dv, B, S, T,
-                               H, K, hd, causal, window, cap, stream);
+                               H, K, hd, causal, window, cap, BWD_GEOMETRY,
+                               stream);
 }
 
 }  // extern "C"

@@ -4,15 +4,24 @@
 q (B, S, H, hd) and k/v (B, T, K, hd), H a multiple of K (query head h
 reads kv head h // (H/K)), with a causal mask, a sliding window and a
 logit softcap; hd ≤ 256; f32 or bf16 in, q's dtype out, f32 inside.
-bf16 runs both products on the tensor cores (``mma.sync``); f32 keeps
+bf16 runs both products on the tensor cores (``wgmma``); f32 keeps
 exact f32 FMAs.  With ``return_lse`` it also returns each row's f32
 log-sum-exp (B, H, S), which training saves for the backward.
 
 ``flash_attention_bwd``  K5's backward (``csrc/flash_attention_bwd.cu``):
 dq, dk, dv from q, k, v, the forward's log-sum-exp and the output's
-gradient, f32 inside, the inputs' dtype out; bf16 at hd ≤ 64 on the
-tensor cores (``mma.sync``), f32 and wider heads in f32 FMAs;
-deterministic (no atomics).  ``ops.py`` puts it behind a
+gradient, f32 inside, the inputs' dtype out; deterministic (no
+atomics).  ``bwd_geometry`` routes a call by its shape, and passes the
+route, the tiles, the grids and the shared memory to the kernels:
+
+  * bf16 with hd ≤ 128, rows of whole 16-byte pieces and 16-byte-aligned
+    tensors (``copies_16_bytes``): the ``wgmma`` kernels, every product
+    on the tensor cores, tiles copied by TMA;
+  * f32, bf16 with 128 < hd ≤ 256, and rows that are not whole 16-byte
+    pieces: the f32-FMA kernels.
+
+The route is decided by shape alone: a launch that the card refuses
+raises, whatever the route.  ``ops.py`` puts the backward behind a
 ``torch.autograd.Function``.
 
 The wrapper takes CUDA tensors only: it checks device, dtype, shape and
@@ -27,13 +36,16 @@ The library is built from the repo's sources on first use
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .._build import launch
 
 __all__ = ["LAUNCHES", "flash_attention", "flash_attention_bwd",
-           "reset_launches", "MAX_HEAD_DIM", "copies_16_bytes"]
+           "reset_launches", "MAX_HEAD_DIM", "copies_16_bytes",
+           "BwdGeometry", "bwd_geometry", "WGMMA_MAX_HEAD_DIM",
+           "WGMMA_STAGES", "SMEM_LIMIT", "ONE_BLOCK_SMEM"]
 
 # Launches since the last reset, counted where the kernel is launched.
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
@@ -45,7 +57,7 @@ _ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
          ctypes.c_float, _I]
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
-_BWD_ARGS = [_P] * 9 + [_I] * 8 + [ctypes.c_float]
+_BWD_ARGS = [_P] * 9 + [_I] * 8 + [ctypes.c_float] + [_I] * 14
 _BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
               torch.bfloat16: "flash_attention_bwd_bf16"}
 
@@ -61,6 +73,89 @@ def copies_16_bytes(hd, element_size, *tensors) -> bool:
     aligned.  Otherwise it copies element by element."""
     return (hd * element_size) % 16 == 0 and all(
         t.data_ptr() % 16 == 0 for t in tensors)
+
+
+# The backward's geometry.  The wgmma kernels: a block of three
+# warpgroups (two consumers, one producer), 128 query rows a dQ block
+# over streamed tiles of 64 keys, 128 keys a dK/dV block over streamed
+# tiles of 64 query rows, a ring of WGMMA_STAGES stages.  The FMA
+# kernels: 256 threads, tiles by width.  csrc/flash_attention_bwd.cu
+# checks what it is passed against its instantiations and refuses a
+# mismatch.
+WGMMA_MAX_HEAD_DIM = 128
+SMEM_LIMIT = 232_448            # dynamic shared memory a block may use
+# At least half of an SM's 233,472 bytes less the 1 KB it keeps for each
+# block, so that one wgmma block holds an SM: setmaxnreg then finds the
+# registers it moves from the producer to the consumers.
+ONE_BLOCK_SMEM = 116 * 1024
+_ALIGN_SLACK = 1024             # the 128-byte swizzle repeats every 1 KB
+_FMA_TILES = {64: (64, 64), 128: (64, 32), 256: (32, 16)}  # hd: (BQ, BK)
+WGMMA_STAGES = 4                # the ring's stages (kStages)
+
+
+class BwdGeometry(NamedTuple):
+    """One backward call's launch, in the order of the C entry's
+    arguments: ``route`` "wgmma" or "fma"; ``hd_tile`` the instantiation's
+    width; a dQ block owns ``dq_rows`` query rows and walks tiles of
+    ``dq_keys`` keys, a dK/dV block owns ``dkdv_keys`` keys and walks
+    tiles of ``dkdv_rows`` query rows, through ``stages`` buffers, with
+    ``threads`` threads; ``n_qt`` dQ blocks along S and ``n_kt`` dK/dV
+    blocks along T, ``dq_blocks`` and ``dkdv_blocks`` in all (× heads ×
+    batch); ``dq_smem`` and ``dkdv_smem`` bytes of dynamic shared
+    memory."""
+    route: str
+    hd_tile: int
+    dq_rows: int
+    dq_keys: int
+    dkdv_keys: int
+    dkdv_rows: int
+    stages: int
+    threads: int
+    n_qt: int
+    n_kt: int
+    dq_blocks: int
+    dkdv_blocks: int
+    dq_smem: int
+    dkdv_smem: int
+
+
+def bwd_geometry(B: int, S: int, T: int, H: int, K: int, hd: int, dtype,
+                 vec: bool) -> BwdGeometry:
+    """The route, tiles, grids and shared memory of K5's backward on q
+    (B, S, H, hd) and k/v (B, T, K, hd) of ``dtype``; ``vec``: rows of
+    whole 16-byte pieces and 16-byte-aligned tensors
+    (``copies_16_bytes``)."""
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} outside 1..{MAX_HEAD_DIM}")
+    if dtype == torch.bfloat16 and vec and hd <= WGMMA_MAX_HEAD_DIM:
+        hd_tile = 64 if hd <= 64 else 128
+        dq_rows, dq_keys, dkdv_keys, dkdv_rows = 128, 64, 128, 64
+        stages, threads = WGMMA_STAGES, 384
+
+        def tile(rows):                 # bytes of a bf16 tile
+            return rows * hd_tile * 2
+        dq_smem = (_ALIGN_SLACK + 2 * tile(dq_rows)
+                   + stages * 2 * tile(dq_keys))
+        dkdv_smem = (_ALIGN_SLACK + 2 * tile(dkdv_keys)
+                     + stages * (2 * tile(dkdv_rows) + 2 * dkdv_rows * 4))
+        dq_smem = max(dq_smem, ONE_BLOCK_SMEM)
+        dkdv_smem = max(dkdv_smem, ONE_BLOCK_SMEM)
+        route = "wgmma"
+    else:
+        hd_tile = 64 if hd <= 64 else 128 if hd <= 128 else 256
+        bq, bk = _FMA_TILES[hd_tile]
+        dq_rows, dq_keys, dkdv_keys, dkdv_rows = bq, bk, bk, bq
+        stages, threads = 1, 256
+        ld = hd_tile + 1                # f32 rows padded by one word
+        dq_smem = 4 * (2 * bq * ld + 2 * bk * ld + bq * (bk + 1) + 2 * bq)
+        dkdv_smem = 4 * (2 * bk * ld + 2 * bq * ld + 2 * bq * (bk + 1)
+                         + 2 * bq)
+        route = "fma"
+    n_qt = -(-S // dq_rows)
+    n_kt = -(-T // dkdv_keys)
+    return BwdGeometry(route, hd_tile, dq_rows, dq_keys, dkdv_keys,
+                       dkdv_rows, stages, threads, n_qt, n_kt,
+                       n_qt * H * B, n_kt * K * B, dq_smem, dkdv_smem)
 
 
 def _check(q, k, v, window, cap, **more):
@@ -138,9 +233,15 @@ def flash_attention_bwd(q, k, v, dout, lse, *, causal=True, window=None,
         return tuple(torch.zeros_like(t) for t in (q, k, v))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dd = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    geo = bwd_geometry(B, S, T, H, K, hd, q.dtype, copies_16_bytes(
+        hd, q.element_size(), q, k, v, dout, dq, dk, dv))
+    if max(geo.dq_blocks, geo.dkdv_blocks) >= 2 ** 31:
+        raise ValueError(f"K5's backward grid {geo.dq_blocks}, "
+                         f"{geo.dkdv_blocks} blocks is past 2**31 - 1")
     launch("flash_attention_bwd", _BWD_ENTRY[q.dtype], _BWD_ARGS, q.device,
            *(_P(t.data_ptr()) for t in (q, k, v, dout, lse, dd, dq, dk, dv)),
            _I(B), _I(S), _I(T), _I(H), _I(K), _I(hd),
-           *_opts(causal, window, cap))
+           *_opts(causal, window, cap), _I(int(geo.route == "wgmma")),
+           *(_I(x) for x in geo[1:]))
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of K5 (flash attention, bf16), K4 (linear scan, f32),
-K1 and K2 (the batched CAP water-fills, f32) and K3 (the level WFP, f32)
-goes on the card, at the main path's shapes.
+"""Where the time of K5 (flash attention, bf16), K5's backward (bf16, the
+wgmma kernels), K4 (linear scan, f32), K1 and K2 (the batched CAP
+water-fills, f32) and K3 (the level WFP, f32) goes on the card, at the
+main path's shapes.
 
 Run from the root of a checkout on a machine with one CUDA card and nvcc:
 
     python3 tools/ablate_kernels.py [GROUP ...]
 
-where a GROUP (a key of ``VARIANTS``: flash_attention, linear_scan,
-gwf_waterfill for K1/K2, K3) limits the run to those kernels' variants.
+where a GROUP (a key of ``VARIANTS``: flash_attention,
+flash_attention_bwd, linear_scan, gwf_waterfill for K1/K2, K3) limits the
+run to those kernels' variants.
 
 It needs no hardware profiler: it takes parts out instead.  Each
 variant is a kernel's source with one statement replaced (``VARIANTS``),
@@ -35,6 +37,15 @@ a round and with the bottles in shared memory must give the whole
 kernel's bits at each block size, or the tool fails.
 K3's rows also carry the kernel's device time from the profiler
 (``device_ms``): an event-timed call of K3 is mostly the host's launch.
+K5's backward runs at llama3.2-1b's training shape (4, 4096, 32:8, 64),
+causal, with the geometry ``kernel.bwd_geometry`` gives it, and its rows
+carry each kernel's device time (``device_ms_dq``, ``device_ms_dkdv``):
+whole, without the exponentials (ex2 replaced by a copy), without the
+dQ kernel's D pass (its tiles waited for and handed back, nothing
+computed), and with the products of a warpgroup serialised against the
+elementwise work (P formed after both S and dP are in; in dK/dV also
+dS after dV += Pᵀ·dO is in; the dQ product kept in flight over the
+next tile's start as in the whole kernel).
 Prints one JSON line per variant and round, then the card's name and
 power limit.
 """
@@ -54,6 +65,7 @@ import numpy as np  # noqa: E402
 from chip_smoke import (ITERS, alloc_err, cap_instance, card_line,  # noqa: E402
                         kkt_residual, level_bottles, timed)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fk  # noqa: E402
 from repro_torch.kernels.gwf_waterfill import kernel as wk  # noqa: E402
 from repro_torch.kernels.gwf_waterfill import ref as wr  # noqa: E402
 from repro_torch.kernels.linear_scan.kernel import scan_geometry  # noqa: E402
@@ -97,6 +109,21 @@ VARIANTS = {
             ("        acc[n][0] *= alpha[0];\n        acc[n][1] *= alpha[0];\n"
              "        acc[n][2] *= alpha[1];\n        acc[n][3] *= alpha[1];",
              "")],
+    },
+    "flash_attention_bwd": {
+        "whole": [],
+        "no_exp2": [('  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
+                     "  y = x;")],
+        "no_d_pass": [("      const bool go = !pairs_closed(o, r_wg, r_wg + 63, "
+                       "k0, k0 + kKeysDq - 1);",
+                       "      const bool go = false;")],
+        "serial_products": [
+            ("      if (!cap) {\n        wgmma_wait<1>();",
+             "      if (!cap) {\n        wgmma_wait<0>();"),
+            ("            wgmma_wait<1>();\n            hold(sT);",
+             "            wgmma_wait<0>();\n            hold(sT);"),
+            ("            wgmma_wait<1>();                      // dPᵀ is in",
+             "            wgmma_wait<0>();")],
     },
     "linear_scan": {
         "whole": [],
@@ -204,9 +231,11 @@ def build(out: Path, groups) -> dict:
             cu = out / f"{kernel}-{name}.cu"
             cu.write_text(text)
             lib = cu.with_suffix(".so")
+            # the copy finds its quoted headers beside the original
             cmd = [nvcc, *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(lib),
-                   str(cu)]
+                   "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                   "-I", str(_build.SOURCES[SOURCE.get(kernel, kernel)].parent),
+                   "-o", str(lib), str(cu)]
             procs[kernel, name] = (lib, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
@@ -373,6 +402,18 @@ def main():
     flags = torch.zeros(geo.flag_ints, dtype=torch.int32, device=dev)
     carry = torch.empty(geo.carry_floats, device=dev)
 
+    # K5's backward at llama3.2-1b's training shape, bf16, causal
+    Bb, Sb, Hb, Kb, hdb = 4, 4096, 32, 8, 64
+    qb = (torch.randn(Bb, Sb, Hb, hdb, generator=gen, device=dev)
+          * hdb ** -0.5).bfloat16()
+    kb, vb = (torch.randn(Bb, Sb, Kb, hdb, generator=gen,
+                          device=dev).bfloat16() for _ in range(2))
+    dob = torch.randn(Bb, Sb, Hb, hdb, generator=gen, device=dev).bfloat16()
+    _, lseb = fk.flash_attention(qb, kb, vb, return_lse=True)
+    bwd_out = [torch.empty_like(x) for x in (qb, kb, vb)]
+    ddb = torch.empty_like(lseb)
+    geo_b = fk.bwd_geometry(Bb, Sb, Sb, Hb, Kb, hdb, torch.bfloat16, True)
+
     cap = CapCalls(dev)
     level = LevelCalls(dev)
     calls = {}
@@ -387,6 +428,14 @@ def main():
             args = (P(q.data_ptr()), P(k.data_ptr()), P(v.data_ptr()),
                     P(o.data_ptr()), 2, 4096, 4096, 10, 1, 256, 1, 2048,
                     ctypes.c_float(0.0), 1, stream)
+            calls[kernel, name] = (fn, args, None)
+        elif kernel == "flash_attention_bwd":
+            fn = ctypes.CDLL(str(lib)).flash_attention_bwd_bf16
+            fn.argtypes = [*fk._BWD_ARGS, P]
+            args = (*[P(t.data_ptr()) for t in (qb, kb, vb, dob, lseb, ddb,
+                                                 *bwd_out)],
+                    Bb, Sb, Sb, Hb, Kb, hdb, 1, 0, ctypes.c_float(0.0),
+                    int(geo_b.route == "wgmma"), *geo_b[1:], stream)
             calls[kernel, name] = (fn, args, None)
         else:  # linear_scan
             fn = ctypes.CDLL(str(lib)).linear_scan_f32
@@ -430,6 +479,11 @@ def main():
             dev_ms = ({"device_ms": device_ms(lambda: run(fn, args, scratch),
                                               "gwf_waterfill_kernel")}
                       if key[0] == "gwf_waterfill" else {})
+            if key[0] == "flash_attention_bwd":
+                dev_ms = {f"device_ms_{k}": device_ms(
+                    lambda: run(fn, args, scratch),
+                    f"flash_attention_bwd_{k}_wgmma_kernel")
+                    for k in ("dq", "dkdv")}
             print(json.dumps({"kernel": key[0], "variant": key[1],
                               **({"threads": key[2]} if len(key) > 2
                                  else {}),

@@ -8,7 +8,9 @@ and backward wrappers become their plain versions (autograd through
 ``LAUNCHES`` as the kernels are, and the ops dispatch to them as on the
 card; CUDA events, synchronisation, memory statistics and the profiler
 are faked; ``get_config`` gives the smoke config in bf16 for the full
-one, and the sequence lengths are cut to 64 (32 for the substrate).  It
+one, and the sequence lengths are cut to 64 (32 for the substrate; the
+hd-128 timing shape's too).  The faked profiler shows the backward
+kernels of the route ``bwd_geometry`` gave the last backward call.  It
 runs every check of the phase on that path, so it finds wrong paths,
 shapes, launch counts and control flow before a chip call; its numbers
 are no measurement of anything.  About 15 s on an 8-core CPU.
@@ -59,8 +61,15 @@ def forward(q, k, v, *, causal=True, window=None, cap=None,
     return out, lse.reshape(B, H, S)
 
 
+_LAST_ROUTE = ["wgmma"]   # the route of the last backward call
+
+
 def backward(q, k, v, dout, lse, *, causal=True, window=None, cap=None):
     fk.LAUNCHES["flash_attention_bwd"] += 1
+    B, S, H, hd = q.shape
+    _LAST_ROUTE[0] = fk.bwd_geometry(
+        B, S, k.shape[1], H, k.shape[2], hd, q.dtype,
+        fk.copies_16_bytes(hd, q.element_size(), q, k, v, dout)).route
     with torch.enable_grad():
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
         attention_ref(*leaves, causal=causal, window=window,
@@ -98,10 +107,12 @@ class _DeviceRecord:
 
 @contextlib.contextmanager
 def _profile(**kw):
-    events = [_DeviceRecord(f"flash_attention_bwd_{k}_mma_kernel")
-              for k in ("dkdv", "dq")]
+    """The backward's two kernels on the route of its last call."""
+    def events():
+        return [_DeviceRecord(name)
+                for name in cs.BWD_KERNELS[_LAST_ROUTE[0]]]
     yield types.SimpleNamespace(profiler=types.SimpleNamespace(
-        kineto_results=types.SimpleNamespace(events=lambda: events)))
+        kineto_results=types.SimpleNamespace(events=events)))
 
 
 def main():
@@ -123,6 +134,7 @@ def main():
     PC.get_config = get_config
     launch_train.resolve_device = lambda device=None: torch.device("cpu")
     cs.TRAIN_SEQ, cs.TRAIN_E2E_SEQ, cs.SUBSTRATE_SEQ = 64, 64, 32
+    cs.BWD_HD128_SHAPE = (2, 64, 16, 16, 128)
     launches, rec, k5 = cs.train_phase(torch, np, torch.device("cpu"))
     print({"launches": launches, "bwd_record": rec, "k5": k5})
 
