@@ -76,7 +76,7 @@ Phases (each one is a check; any failure exits non-zero):
      and at its largest instance to ``smartfill_hetero`` (1e-6), with
      its wall time (its profile, a reading of ~90 s, is gone: phase
      13(a)'s one-solve profile reads the same recursion's busy share);
-     the exchange search (windows 1 and 2) on ten mixed members, card
+     the exchange search (windows 1 and 2) on eight mixed members, card
      against CPU; ``smartfill_warm`` seeded by its own first run against
      a cold plan; no K1–K5 launch in the phase;
  12. the scenario engine (``engine_*`` lines), float64 unless said,
@@ -89,7 +89,7 @@ Phases (each one is a check; any failure exits non-zero):
      workload), with arrivals and with a fault trace per workload, with
      wall time, events/s, instances/s and, for the plain run, device
      kernels and busy share; (c) the per-job five-family
-     fleet (K = 256, M = 16) under the pinned heteroSF with its cached
+     fleet (K = 128, M = 16) under the pinned heteroSF with its cached
      plan (simulated J equal to the plan's on realized orders) and WMR,
      then a budget step that must invalidate the cached table (the
      host oracle on the moved workloads, the finished ones bit for
@@ -107,8 +107,9 @@ Phases (each one is a check; any failure exits non-zero):
      plan drained by the pinned, cached ``ClassSmartFillPolicy``
      through ``simulate_fluid_classes``, card against CPU; (d) 32 class
      instances through ``plan_classes_batched``, card against CPU; (e)
-     ``examples/hetero_fleet.py``: the ten configs' roofline speedups
-     on one 256-GPU pod, card against CPU, WMR not below the plan; no
+     ``examples/hetero_fleet.py``: six of the ten configs' roofline
+     speedups on one 256-GPU pod, card against CPU, WMR not below the
+     plan; no
      K1–K5 launch.  Rehearse on the CPU with ``classes_phase(torch, np,
      torch.device("cpu"))``;
  14. the robustness layer, fleet planning at D = 1 and admission
@@ -143,8 +144,9 @@ Phases (each one is a check; any failure exits non-zero):
      lines): (a) the committed trace
      ``benchmarks/traces/arrivals_sample.csv`` and (b) the quick day
      trace of ``benchmarks/perf_serve.py::bench_stream`` (seed 17, its
-     first hour of 2 h, M = 8), each through ``StreamController.run`` with
-     ``StreamCascadePolicy``, through ``run_device`` and through
+     first 45 minutes of 2 h, M = 8), each through
+     ``StreamController.run`` with ``StreamCascadePolicy``, through
+     ``run_device`` and through
      ``run_device`` in chunks of 17 events, bit for bit among the three
      on the card and held to the CPU's ``run_device`` (the same counters
      and finished set, completions and weighted J to 1e-9; (a) completes
@@ -236,20 +238,44 @@ Phases (each one is a check; any failure exits non-zero):
      losses to the spread of two uninterrupted runs), ``adamw_update``
      on the card against its CPU run, and ``python -m
      repro_torch.launch.train`` at the smoke config.
+ 19. training through K4's backward (``train_scan_*`` / ``train_k4_*``
+     lines): (a) K4's backward kernel (``linear_scan_bwd.cu``, behind
+     ``ops.LinearScan``) against autograd through its plain version on
+     RG-LRU's path shape (2, 4096, 2560), Mamba's chunk (2, 256,
+     131072) with a carry folded in, and every ``K4_OPTIONS`` case, in
+     f32 and bf16, the same bits twice, with planted faults (the carry
+     dropped at every chunk boundary, da reading h_t for h_{t−1}, the
+     coefficient a_t for a_{t+1}), and its times at both path shapes;
+     (a′) K5 at recurrentgemma's local layer (2, 4096, 10:1, 256),
+     window 2048: the forward's log-sum-exp and the backward (the FMA
+     pair) at phase 18(a)'s limits and faults, its times beside SDPA's
+     backward; (b) recurrentgemma-2b at full width and depth and (c)
+     falcon-mamba-7b at 16 of its 64 layers train 4 steps of 4 × 4096
+     tokens in 2 micro-batches, every loss finite, the first update
+     lowering it, exactly 72 K4 forward, 36 backward, 32 K5 forward and
+     16 backward launches a step (recurrentgemma) and 1,024 and 512 K4
+     launches (Mamba); (d) one step at 1 × 4096 through the kernels
+     against the plain versions at 3 recurrentgemma and 2 Mamba layers,
+     within twice a floor.  ``tools/phase19_rehearse.py`` rehearses it
+     on the CPU.
 
 Launch counters are reset before phases 3–4 drive the planning path,
 before phases 7, 16(b) and each part of 17 drive the serving paths, before phases 11,
 13, 14, 15 and 16(a), before each float32 run of phase 12 and before
-phase 18(b)'s training run, and read right after each;
+the training runs of phases 18(b), 19(b) and 19(c), and read right
+after each;
 the comparisons and timings come later and do not count.  Prints one
 JSON line per measurement, the kernel summary line ``{"kernels": [...]}``
-(six kernels, each with its device ms; K1 and K2 also with their
+(seven kernels, each with its device ms; K1 and K2 also with their
 launches inside the engine, ``engine_launches``; K4 also with its Mamba
 path's launches and times, ``mamba_path``; K5 also with phase 17's
 launches, ``new_paths_launches``, its times at qwen2-moe's shape,
 ``moe_shape``, and its training figures, ``train``; K5's backward with
 its launches in phase 18(b) and its times at the hd-128 shape,
-``hd128_shape``), the card line, and last
+``hd128_shape``, and at recurrentgemma's hd-256 local layer,
+``hd256_shape``; K4's backward with its launches in phase 19(b)–(c),
+its times at both path shapes and its training figures), the card
+line, and last
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -327,7 +353,8 @@ def build_report(_build):
     """Phase 2: registers and spill bytes of every kernel instantiation
     from the ptxas reports, and the tensor-core instructions (HMMA,
     HGMMA) in the SASS of each K5 instantiation and of each of K5's
-    backward; fails if K1, K2, K3 or any backward kernel spills, unless
+    backward; fails if K1, K2, K3 or any backward kernel (K5's, K4's)
+    spills (K4's forward spills 44 bytes: reported, not held), unless
     every bf16 instantiation of K5 holds some, or unless each of the
     backward's four wgmma instantiations (dQ and dK/dV at widths 64 and
     128) holds HGMMA."""
@@ -341,7 +368,8 @@ def build_report(_build):
         if label.split("<")[0] in ("generic_waterfill_kernel",
                                    "hetero_waterfill_kernel",
                                    "gwf_waterfill_kernel") or \
-                label.startswith("flash_attention_bwd_"):
+                label.startswith(("flash_attention_bwd_",
+                                  "linear_scan_bwd_")):
             check(u.get("spill_store_bytes", 0) == 0
                   and u.get("spill_load_bytes", 0) == 0,
                   f"{label} spills: {u}")
@@ -1730,14 +1758,18 @@ def serve_times(torch, cap, launches, errs):
 
 # Phase 11: per-job SmartFill (paper §7) in float64 on the card.  The
 # fleet is the sampler's mixed five-family per-job batch at N = 256, M =
-# 32 (2..32 live jobs); the exchange search runs on ten mixed members
-# with slowdown weights under each job's own curve, w_i = s_i(B)/x_i (the
-# shape of examples/hetero_fleet.py).  SmartFill's inner CAP is the
-# float64 sorted solver: no K1–K5 launch may happen in the phase.  The
-# fleet's heuristic orders are realized (J == J_linear) on 62 of its 256
+# 32 (2..32 live jobs); the exchange search runs on eight mixed members
+# (ten until phase 19 needed the room) with slowdown weights under each
+# job's own curve, w_i = s_i(B)/x_i (the shape of
+# examples/hetero_fleet.py).  SmartFill's inner CAP is the float64 sorted
+# solver: no K1–K5 launch may happen in the phase.  The fleet's
+# heuristic orders are realized (J == J_linear) on 62 of its 256
 # instances; on the others J is a schedule quantity (see the check).
+# Phase 14 certifies its largest plan, which must be sound: at N = 128
+# the largest instance's order is not realized and its KKT rows read
+# 0.031 (the CPU rehearsal), so the fleet stays at 256.
 HETERO_N, HETERO_M, HETERO_SEED = 256, 32, 0
-EXCHANGE_M, EXCHANGE_SEED = 10, 1
+EXCHANGE_M, EXCHANGE_SEED = 8, 1
 
 
 def all_launches():
@@ -1935,7 +1967,8 @@ FLEET_K, FLEET_M, FLEET_SEED, FLEET_FAULT_SEED = 1024, 32, 21, 22
 # fleet's took ~40 s of the card machine's host; workloads are
 # independent, so the card's first rows must give the same numbers)
 FLEET_CPU_K = 256
-HSIM_K, HSIM_M, HSIM_SEED = 256, 16, 8
+# (c)'s per-job fleet: 128 workloads (256 until phase 19 needed the room)
+HSIM_K, HSIM_M, HSIM_SEED = 128, 16, 8
 MOVE_LANES = 8            # workloads of (c) that see the budget step
 F32_LIMIT = {"K1": 1e-4, "K2": 1e-4}   # max |J32 − J64| / J64
 FAULT_ITERS = 8
@@ -2261,8 +2294,8 @@ def engine_phase(torch, np, dev):
 # with the class knobs, bit for bit; (c) (a)'s plan drained by the
 # pinned, cached ClassSmartFillPolicy through simulate_fluid_classes,
 # against the port's CPU run of the same drain; (d) 32 class instances
-# through plan_classes_batched against the port's CPU run; (e) the ten
-# configs' roofline speedups on one 256-GPU pod.
+# through plan_classes_batched against the port's CPU run; (e) six of
+# the ten configs' roofline speedups on one 256-GPU pod.
 #
 # (a) is cut from the example's C = 32 classes of 31,250 jobs to C = 5
 # of 200,000 (the same million jobs): the per-job planner issues its
@@ -2280,16 +2313,17 @@ CLASS_KNOBS = dict(coarse=64, descent_iters=96, cap_iters=64,
                    exchange_passes=2, exchange_window=1, stol_rel=1e-10)
 J_CLASS_REF = 13375083293911.18
 J_CLASS_PORT_CPU = 13375083293911.186
-# (b)'s anchor plans 4 one-job classes twice (plan_classes and
+# (b)'s anchor plans 3 one-job classes twice (plan_classes and
 # smartfill_hetero, each with its exchange search): 8 took ~86 s on the
 # card, 5 about half as many device operations (aten operations counted
-# on the CPU: 3.55 M against 1.63 M) and 40.6–50.1 s; 4 (5 until phase
-# 18 needed the room) keeps the whole script within its time.  One job
-# a class makes the aggregation the identity whatever the instance.
-ANCHOR_SEED, ANCHOR_C = 5, 4
-# (d)'s batch: the first 32 of the sampler's 64 instances at this seed
-# (64 until phase 18 needed the room; the sampler draws instance by
-# instance, so these are the same 32)
+# on the CPU: 3.55 M against 1.63 M) and 40.6–50.1 s, 4 38.0 s; 3 (4
+# until phase 19 needed the room, 5 until phase 18) took 2.9 s on the
+# CPU where 4 took 11.1 s.  One job a class makes the aggregation the
+# identity whatever the instance.
+ANCHOR_SEED, ANCHOR_C = 5, 3
+# (d)'s batch: 32 instances at this seed (64 until phase 18 needed the
+# room; the sampler draws every instance's counts before any sizes, so
+# the 32 share the 64's first counts, not their sizes and weights)
 BATCH_SEED, BATCH_K, BATCH_C, BATCH_COUNTS = 7, 32, 16, (0, 50_000)
 # (d)'s aggregates are stiff (up to 50,000 jobs a class, 58 of 64
 # heuristic orders unrealized): μ* sits where F is flat and moves with
@@ -2302,6 +2336,10 @@ BATCH_SEED, BATCH_K, BATCH_C, BATCH_COUNTS = 7, 32, 16, (0, 50_000)
 # where the order is realized (J == J_linear).
 BATCH_LIMITS = {"J_realized": 1e-9, "J_linear": 1e-6, "J_unrealized": 1e-4}
 POD_GPUS, POD_TOKENS = 256.0, 256 * 4096
+# (e)'s pod: the first six of the ten configs in name order (all ten
+# until phase 19 needed the room; on the CPU six took 2.2 s where ten
+# took 4.5, the plan realized at both)
+CLASS_POD_JOBS = 6
 
 
 def classes_phase(torch, np, dev):
@@ -2456,8 +2494,9 @@ def classes_phase(torch, np, dev):
     check(r["J_below_J_linear"] == 0.0,
           "class batch: J below J_linear·(1 − 1e-9)")
 
-    # (e) examples/hetero_fleet.py: ten configs on one 256-GPU pod
-    names = sorted(list_archs())
+    # (e) examples/hetero_fleet.py: CLASS_POD_JOBS configs on one
+    # 256-GPU pod
+    names = sorted(list_archs())[:CLASS_POD_JOBS]
 
     def pod(d):
         members = []
@@ -3011,14 +3050,15 @@ def robust_phase(torch, np, dev, quickstart=None, hetero_fleet=None):
 # CPU; (d) a primary planner that raises: every replan on the ladder;
 # (e) serve_streams_sharded at D = 1 over the quick multi-tenant traces
 # of perf_serve.bench_multitenant_worker, each tenant bit for bit to its
-# solo run_device, the admission view equal to the CPU's.  For phase
-# 16's room (b)'s trace stops at 3600 s of its 7200 s day (at 1800 s an
-# arrival would still be running at its end) and (e) runs two of the
-# four tenants for 900 s of their 1800 s (PERF.md §4).
+# solo run_device, the admission view equal to the CPU's.  For the room
+# of later phases (b)'s trace stops at 2700 s of its 7200 s day (3600 s
+# until phase 19, 247 arrivals of 449, every one completed on the CPU;
+# at 1800 s an arrival would still be running at its end) and (e) runs
+# two of the four tenants for 900 s of their 1800 s (PERF.md §4).
 STREAM_M = 8
 STREAM_RTOL = 1e-9        # card vs CPU: completion times and weighted J
 STREAM_TRACE = "benchmarks/traces/arrivals_sample.csv"
-DAY_TRACE = dict(seed=17, horizon=3600.0, rate=0.12, diurnal=0.75,
+DAY_TRACE = dict(seed=17, horizon=2700.0, rate=0.12, diurnal=0.75,
                  period=7200.0, n_budget_events=2, budget_frac=(0.3, 0.8),
                  deadline_slack=50.0)
 BROKEN_TRACE, BROKEN_M = dict(seed=5, horizon=4000.0, rate=0.01), 4
@@ -4068,14 +4108,15 @@ def bwd_device_ms(torch, op, calls=5, pad=256, tries=3):
     return {k: sum(d) / len(d) / 1e6 for k, d in sorted(by_name.items())}
 
 
-def k5_bwd_time(torch, q, k, v, do, kw, plain=True):
+def k5_bwd_time(torch, q, k, v, do, kw, plain=True, route="wgmma"):
     """K5's backward at one shape in bf16 (inputs of f32 from a seed):
     op and device ms by kernel, the plain version (forward and backward
     through ``attention_ref``) unless ``plain`` is false, SDPA's
-    backward (the flash backend, ``is_causal``, ``enable_gqa``; timed
-    here, off the path) and the bound, 10·hd operations a valid (q, k)
-    pair (QKᵀ and dO·Vᵀ again, dV, dK, dQ) at the bf16 peak.  Fails
-    unless the profiler saw the wgmma kernels."""
+    backward (``enable_gqa``; ``is_causal``, which takes the flash
+    backend, or with a window its band as a boolean mask; timed here,
+    off the path) and the bound, 10·hd operations a valid (q, k) pair
+    (QKᵀ and dO·Vᵀ again, dV, dK, dQ) at the bf16 peak.  Fails unless
+    the profiler saw the kernels of ``route``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
 
@@ -4086,10 +4127,20 @@ def k5_bwd_time(torch, q, k, v, do, kw, plain=True):
     def op():
         return fk.flash_attention_bwd(q16, k16, v16, do16, lse, **kw)
 
+    W = kw.get("window")
+    if W:
+        pos = torch.arange(S, device=q.device)
+        band = ((pos[:, None] >= pos[None, :])
+                & (pos[:, None] - pos[None, :] < W))
+        sdpa_kw = {"attn_mask": band}
+        pairs = B_ * H * sum(min(i + 1, W) for i in range(S))
+    else:
+        sdpa_kw = {"is_causal": True}
+        pairs = B_ * H * S * (S + 1) // 2
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q16, k16, v16))
-    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                            scale=1.0, enable_gqa=True)
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, scale=1.0,
+                                            enable_gqa=True, **sdpa_kw)
     dot = do16.transpose(1, 2)
 
     def sdpa_bwd():
@@ -4101,10 +4152,9 @@ def k5_bwd_time(torch, q, k, v, do, kw, plain=True):
     ms_plain = (timed(torch, lambda: attn_grads_plain(
         torch, q16, k16, v16, do16, kw), runs=5) if plain else None)
     dev_ms = bwd_device_ms(torch, op)
-    check(sorted(dev_ms) == BWD_KERNELS["wgmma"],
+    check(sorted(dev_ms) == BWD_KERNELS[route],
           f"the profiler saw K5 bwd's kernels {sorted(dev_ms)} at "
           f"{tuple(q.shape)}")
-    pairs = B_ * H * S * (S + 1) // 2
     nbytes = (2 * (2 * q16.numel() + 2 * k16.numel()) + 4 * lse.numel()
               + 2 * (q16.numel() + 2 * k16.numel()))
     rec = {"ms": ms, "plain_ms": ms_plain,
@@ -4200,12 +4250,12 @@ def k5_bwd_phase(torch, dev, B_):
     return path, rec, {"fwd_ms": ms_fwd, "fwd_with_lse_ms": ms_fwd_lse}
 
 
-def perturbed_train_attention(torch, rel_fwd, rel_bwd, seed, dev):
-    """The plain attention for training with noise in both directions:
-    the output gets ``rel_fwd`` of its RMS, each of dq, dk, dv
-    ``rel_bwd`` of theirs (generators seeded ``seed``): a plain run as far
-    from the plain one as K5 and its backward read."""
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+def train_noise(torch, rel_fwd, rel_bwd, seed, dev):
+    """(pre, post): ``pre(x)`` is x whose gradient gets noise of
+    ``rel_bwd`` of its RMS, ``post(o)`` is o with noise of ``rel_fwd`` of
+    its RMS (one generator seeded ``seed``): around a plain version they
+    make a plain run as far from the plain one as a kernel and its
+    backward read."""
     gen = torch.Generator(dev).manual_seed(seed)
 
     class GradNoise(torch.autograd.Function):
@@ -4220,13 +4270,35 @@ def perturbed_train_attention(torch, rel_fwd, rel_bwd, seed, dev):
             return (g32 + noise * (rel_bwd * g32.pow(2).mean().sqrt())
                     ).to(g.dtype)
 
-    def run(q, k, v, causal=True, window=None, cap=None):
-        q, k, v = (GradNoise.apply(x) for x in (q, k, v))
-        out = attention_ref(q, k, v, causal=causal, window=window, cap=cap)
+    def post(out):
         o = out.float()
         noise = torch.randn(o.shape, generator=gen, device=dev)
         scale = rel_fwd * o.detach().pow(2).mean().sqrt()
         return (o + noise * scale).to(out.dtype)
+    return GradNoise.apply, post
+
+
+def perturbed_train_attention(torch, rel_fwd, rel_bwd, seed, dev):
+    """The plain attention for training with noise in both directions:
+    the output gets ``rel_fwd`` of its RMS, each of dq, dk, dv
+    ``rel_bwd`` of theirs (``train_noise``)."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    pre, post = train_noise(torch, rel_fwd, rel_bwd, seed, dev)
+
+    def run(q, k, v, causal=True, window=None, cap=None, impl="auto"):
+        return post(attention_ref(pre(q), pre(k), pre(v), causal=causal,
+                                  window=window, cap=cap))
+    return run
+
+
+def perturbed_train_scan(torch, rel_fwd, rel_bwd, seed, dev):
+    """The plain scan for training with noise in both directions: h gets
+    ``rel_fwd`` of its RMS, da and db ``rel_bwd`` of theirs."""
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+    pre, post = train_noise(torch, rel_fwd, rel_bwd, seed, dev)
+
+    def run(a, b, impl="auto"):
+        return post(linear_scan_ref(pre(a), pre(b)))
     return run
 
 
@@ -4249,60 +4321,67 @@ def grad_readings(torch, run, ref):
             "leaf_max": leaf}
 
 
-def train_end_to_end(torch, dev, model, cfg, path):
-    """Phase 18(c): one step's loss and gradients at B 1 × TRAIN_E2E_SEQ
-    through the kernels and through the plain versions (``attention_ref``
-    with autograd, patched into the model's call site), held to twice
-    the floor: the plain run against itself with noise of (a)'s relative
-    readings, the largest over ``TRAIN_FLOOR_SEEDS``."""
+def train_end_to_end(torch, dev, model, cfg, sites, expect, noise,
+                     tag="train_end_to_end", seeds=TRAIN_FLOOR_SEEDS):
+    """One step's loss and gradients at B 1 × TRAIN_E2E_SEQ through the
+    kernels and through their plain versions, held to twice the floor:
+    the plain run against itself with noise of the kernels' relative
+    readings, the largest over ``seeds``.  ``sites`` maps a
+    kernel to (module, attribute, plain version, seed → the plain version
+    with noise) of its call site in the model; ``expect`` is the kernel
+    run's launches (any other kernel must launch none)."""
     from repro_torch.data import SyntheticTokens
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.models import attention as attn_mod
     from repro_torch.train.loop import loss_and_grads
 
     batch = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_E2E_SEQ,
                             global_batch=1, seed=1).batch_at(0)
-    L = cfg.n_layers
     reset_all_launches()
     kern = loss_and_grads(model, batch)
     torch.cuda.synchronize()
     n_k = all_launches()
-    check(n_k["flash_attention"] == 2 * L and
-          n_k["flash_attention_bwd"] == L,
-          f"(c)'s kernel run launched {n_k}")
+    check(all(n == expect.get(k, 0) for k, n in n_k.items()),
+          f"{tag}: the kernel run launched {n_k}, not {expect}")
 
-    def plain_run(fn):
+    def plain_run(fns):
         reset_all_launches()
-        with mock.patch.object(attn_mod, "flash_attention_op", fn):
+        with contextlib.ExitStack() as stack:
+            for name, (mod, attr, *_) in sites.items():
+                stack.enter_context(mock.patch.object(mod, attr, fns[name]))
             out = loss_and_grads(model, batch)
         torch.cuda.synchronize()
         n = all_launches()
-        check(n["flash_attention"] == 0 and n["flash_attention_bwd"] == 0,
-              f"a plain run of (c) launched K5: {n}")
+        check(not any(n.values()), f"a plain run of {tag} launched: {n}")
         return out
 
-    plain = plain_run(lambda q, k, v, causal=True, window=None, cap=None,
-                      impl="auto": attention_ref(q, k, v, causal=causal,
-                                                 window=window, cap=cap))
+    plain = plain_run({k: v[2] for k, v in sites.items()})
     got = {"kernel": grad_readings(torch, kern, plain)}
     del kern
-    for seed in TRAIN_FLOOR_SEEDS:
-        noisy = plain_run(perturbed_train_attention(
-            torch, path["fwd_bf16_rel_rms"], path["bf16_rel_rms"], seed,
-            dev))
+    for seed in seeds:
+        noisy = plain_run({k: v[3](seed) for k, v in sites.items()})
         got[f"floor_seed{seed}"] = grad_readings(torch, noisy, plain)
         del noisy
-    floor = {k: max(got[f"floor_seed{s}"][k] for s in TRAIN_FLOOR_SEEDS)
+    floor = {k: max(got[f"floor_seed{s}"][k] for s in seeds)
              for k in got["kernel"]}
     limits = {k: 2 * v for k, v in floor.items()}
-    emit({"phase": "train_end_to_end", "tokens": TRAIN_E2E_SEQ,
-          "loss_plain": float(plain[0]), "limits": limits,
-          "noise": {"fwd_rel_rms": path["fwd_bf16_rel_rms"],
-                    "bwd_rel_rms": path["bf16_rel_rms"]}, **got})
+    emit({"phase": tag, "tokens": TRAIN_E2E_SEQ,
+          "loss_plain": float(plain[0]), "limits": limits, "noise": noise,
+          **got})
     for k, lim in limits.items():
         check(got["kernel"][k] <= lim,
-              f"(c): the kernel step's {k} reads {got['kernel'][k]:.3e} "
+              f"{tag}: the kernel step's {k} reads {got['kernel'][k]:.3e} "
               f"over twice the floor, {lim:.3e}")
+
+
+def attention_site(torch, dev, fwd_rel, bwd_rel):
+    """``train_end_to_end``'s site of K5 (and its backward)."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import attention as attn_mod
+
+    def plain(q, k, v, causal=True, window=None, cap=None, impl="auto"):
+        return attention_ref(q, k, v, causal=causal, window=window, cap=cap)
+    return (attn_mod, "flash_attention_op", plain,
+            lambda seed: perturbed_train_attention(torch, fwd_rel, bwd_rel,
+                                                   seed, dev))
 
 
 def _bits(state):
@@ -4477,6 +4556,112 @@ def train_substrate(torch, np, dev):
     emit({"phase": "train_substrate", **out})
 
 
+def train_launches(cfg, seq, micro):
+    """The kernel launches a training step of ``cfg`` must make at
+    ``seq`` tokens a row in ``micro`` micro-batches under remat "full":
+    each K4 and K5 forward twice a layer and micro-batch (the checkpoint
+    recomputes it in the backward pass), each backward once; K4 once an
+    RG-LRU layer and once a chunk of each Mamba layer."""
+    kinds = [cfg.cycle[i % len(cfg.cycle)] for i in range(cfg.n_layers)]
+    scans = (kinds.count("rglru")
+             + kinds.count("mamba") * -(-seq // min(cfg.scan_chunk, seq)))
+    attn = len(kinds) - kinds.count("rglru") - kinds.count("mamba")
+    return {"flash_attention": 2 * attn * micro,
+            "flash_attention_bwd": attn * micro,
+            "linear_scan": 2 * scans * micro,
+            "linear_scan_bwd": scans * micro}
+
+
+def untrained_logits(torch, model, batch, n=512):
+    """What the untrained model predicts on the first ``n`` tokens of
+    ``batch``'s first row: its loss there, and the share of positions
+    whose largest logit is the input token or the label."""
+    from repro_torch.models.transformer import model_apply
+    row = {k: v[:1, :n] for k, v in batch.items()}
+    with torch.no_grad():
+        loss, _, logits = model_apply(model, row, return_logits=True)
+        top = logits.argmax(-1).cpu()
+    return {"tokens": n, "loss": float(loss),
+            "argmax_is_input": float((top == torch.as_tensor(
+                row["tokens"])).float().mean()),
+            "argmax_is_label": float((top == torch.as_tensor(
+                row["labels"])).float().mean())}
+
+
+def train_main_path(torch, np, dev, cfg, arch, tag, steps, batch, seq,
+                    micro, falls="last"):
+    """A training main path, counted: ``cfg`` at full width (f32 masters,
+    seed 0) trains ``steps`` steps of ``SyntheticTokens`` at ``batch`` ×
+    ``seq`` in ``micro`` micro-batches through ``make_train_step``/
+    ``train_loop`` with the launcher's AdamW.  Every loss finite, the
+    first within 1 of ln V (for a tied √d-scaled embedding, which
+    untrained predicts the input token, within the reference's (0, 3 ln
+    V)), no step skipped, exactly ``train_launches`` a step, and the loss
+    falls: the last below the first, or with ``falls="first_update"``
+    the second (after one AdamW step) below the first.  Prints the
+    ``tag`` line, with what the untrained model predicts
+    (``untrained_logits``), and returns (the train state, the launches, a
+    step's launches, the figures)."""
+    from repro_torch.data import SyntheticTokens, host_batch_iterator
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, TrainState, make_train_step,
+                                   train_loop)
+
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16",
+          f"{arch}'s training config changed")
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev, dtype=torch.float32, trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    state = TrainState.create(model)
+    opt = AdamWConfig(**TRAIN_OPT)
+    step = make_train_step(cfg, opt, microbatches=micro)
+    src = SyntheticTokens(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    init = untrained_logits(torch, model, src.batch_at(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    hist = train_loop(cfg, opt, state, host_batch_iterator(src, cfg),
+                      steps, train_step=step, log_every=0)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    step_ms = [h["step_time_s"] * 1e3 for h in hist]
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    per_step = {k: v / steps for k, v in launches.items()}
+    want = train_launches(cfg, seq, micro)
+    emit({"phase": tag, "arch": arch, "layers": cfg.n_layers,
+          "params": n_params, "batch": batch, "seq": seq,
+          "microbatches": micro, "remat": cfg.remat,
+          "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+          "lr": [h["lr"] for h in hist],
+          "skipped": [h["skipped"] for h in hist], "step_ms": step_ms,
+          "step_ms_median_after_first": steady,
+          "tokens_per_s": batch * seq / (steady / 1e3),
+          "peak_memory_gb": peak / 1e9, "launches": launches,
+          "launches_per_step": per_step, "expected_per_step": want,
+          "init": init, "wall_s": time.perf_counter() - t0})
+    check(all(np.isfinite(losses)), f"{arch}: a loss not finite: {losses}")
+    ln_v = np.log(cfg.vocab)
+    if cfg.embed_scale and cfg.tie_embeddings:
+        # untrained, a tied √d-scaled embedding predicts the input token
+        # (``init`` in the line): the reference's own bound on an
+        # untrained loss, tests/models/test_archs.py:41
+        first_ok = 0 < losses[0] < 3 * ln_v
+    else:
+        first_ok = abs(losses[0] - ln_v) < 1
+    fell = losses[1 if falls == "first_update" else -1] < losses[0]
+    check(fell and first_ok,
+          f"{arch}: the training loss does not fall from ln V: {losses}")
+    check(not any(h["skipped"] for h in hist),
+          f"{arch}: a training step was skipped")
+    check(all(n == want.get(k, 0) for k, n in per_step.items()),
+          f"{arch}: launches a step {per_step}, not {want}")
+    return state, launches, per_step, {"step_ms": steady,
+                                       "peak_memory_gb": peak / 1e9}
+
+
 def train_phase(torch, np, dev):
     """Phase 18: (a) K5's backward against its plain version and its
     times; (b) llama3.2-1b at full width and depth trains TRAIN_STEPS
@@ -4485,14 +4670,9 @@ def train_phase(torch, np, dev):
     substrate.  Returns (launches of (b), K5 bwd's record, K5's training
     figures)."""
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticTokens, host_batch_iterator
-    from repro_torch.models import init_params
-    from repro_torch.train import (AdamWConfig, TrainState, make_train_step,
-                                   train_loop)
 
     cfg = get_config(TRAIN_ARCH)
-    check(cfg.remat == "full" and cfg.dtype == "bfloat16"
-          and cfg.tie_embeddings, f"{TRAIN_ARCH}'s training config changed")
+    check(cfg.tie_embeddings, f"{TRAIN_ARCH}'s training config changed")
     mb = TRAIN_BATCH // TRAIN_MICRO
     t0 = time.perf_counter()
     path, rec, fwd = k5_bwd_phase(torch, dev, mb)
@@ -4500,56 +4680,23 @@ def train_phase(torch, np, dev):
     torch.cuda.empty_cache()
 
     # (b) the main path, counted
-    t0 = time.perf_counter()
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                        device=dev, dtype=torch.float32, trainable=True)
-    n_params = sum(p.numel() for p in model.parameters())
-    state = TrainState.create(model)
-    opt = AdamWConfig(**TRAIN_OPT)
-    step = make_train_step(cfg, opt, microbatches=TRAIN_MICRO)
-    src = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                          global_batch=TRAIN_BATCH)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_all_launches()
-    hist = train_loop(cfg, opt, state, host_batch_iterator(src, cfg),
-                      TRAIN_STEPS, train_step=step, log_every=0)
-    torch.cuda.synchronize()
-    launches = all_launches()
-    peak = torch.cuda.max_memory_allocated()
-    losses = [h["loss"] for h in hist]
-    step_ms = [h["step_time_s"] * 1e3 for h in hist]
-    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
-    L = cfg.n_layers
-    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
-    emit({"phase": "train_main_path", "arch": TRAIN_ARCH,
-          "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-          "microbatches": TRAIN_MICRO, "remat": cfg.remat,
-          "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
-          "lr": [h["lr"] for h in hist],
-          "skipped": [h["skipped"] for h in hist], "step_ms": step_ms,
-          "step_ms_median_after_first": steady,
-          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (steady / 1e3),
-          "peak_memory_gb": peak / 1e9, "launches": launches,
-          "launches_per_step": per_step,
-          "wall_s": time.perf_counter() - t0})
-    check(all(np.isfinite(losses)), f"training loss not finite: {losses}")
-    check(losses[-1] < losses[0] and abs(losses[0] - np.log(cfg.vocab)) < 1,
-          f"the training loss does not fall from ln V: {losses}")
-    check(not any(h["skipped"] for h in hist), "a training step was skipped")
-    check(per_step["flash_attention"] == 2 * L * TRAIN_MICRO
-          and per_step["flash_attention_bwd"] == L * TRAIN_MICRO,
-          f"K5 launches a step: {per_step}")
-    check(all(launches[k] == 0 for k in launches
-              if not k.startswith("flash_attention")),
-          f"training launched other kernels: {launches}")
+    state, launches, per_step, figs = train_main_path(
+        torch, np, dev, cfg, TRAIN_ARCH, "train_main_path", TRAIN_STEPS,
+        TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO)
 
     # (c) kernel against plain, end to end
     t0 = time.perf_counter()
-    train_end_to_end(torch, dev, state.params, cfg, path)
+    L = cfg.n_layers
+    train_end_to_end(
+        torch, dev, state.params, cfg,
+        {"K5": attention_site(torch, dev, path["fwd_bf16_rel_rms"],
+                              path["bf16_rel_rms"])},
+        {"flash_attention": 2 * L, "flash_attention_bwd": L},
+        {"fwd_rel_rms": path["fwd_bf16_rel_rms"],
+         "bwd_rel_rms": path["bf16_rel_rms"]})
     emit({"phase": "train_end_to_end_wall", "wall_s":
           time.perf_counter() - t0})
-    del state, model, step
+    del state
     torch.cuda.empty_cache()
 
     # (d) the substrate
@@ -4561,8 +4708,355 @@ def train_phase(torch, np, dev):
     rec["launches"] = launches["flash_attention_bwd"]
     rec["launches_per_step"] = per_step["flash_attention_bwd"]
     return launches, rec, {"launches_per_step":
-                           per_step["flash_attention"], **fwd,
-                           "step_ms": steady, "peak_memory_gb": peak / 1e9}
+                           per_step["flash_attention"], **fwd, **figs}
+
+
+# ---- phase 19: training through K4's backward ------------------------------
+# K4's backward (``linear_scan_bwd.cu``) behind ``ops.LinearScan``, and
+# the two scan archs training at full width.  (a) The backward against
+# autograd through the plain scan (``linear_scan_ref``) at RG-LRU's path
+# shape (one layer's (B, 4096, 2560) a micro-batch), at Mamba's chunk
+# (B, 256, d_inner·N) with a nonzero carry folded into its first step,
+# and on every ``K4_OPTIONS`` case; past K4_BWD_AUTOGRAD_MAX_S steps
+# (the 65,536-step chain, whose autograd graph is a few host-issued
+# operations a step, twice over) against ``linear_scan_bwd_ref``, the
+# reverse loop the CPU tests hold to ``jax.vjp``.  f32 in units of the
+# plain gradient's RMS at K4's own limit, bf16 relative at phase 8's
+# (the bf16 backward reads the saved h in bf16), the same bits twice;
+# the planted faults (the carry
+# dropped at every chunk boundary, da reading h_t for h_{t−1}, the
+# coefficient a_t for a_{t+1}) over the f32 limit.  At the path shapes
+# K4's forward is read for the same bits twice too, not held: its
+# look-back stops wherever it first finds a prefix.  (a′) K5 at recurrentgemma's local layer (hd
+# 256, window 2048: the bf16 backward takes the FMA pair): the forward's
+# log-sum-exp against the plain scores', and the backward at phase
+# 18(a)'s limits and faults.  (b) recurrentgemma-2b (26 layers) and (c)
+# falcon-mamba-7b at MAMBA_LAYERS of 64 train SCAN_TRAIN_STEPS steps of
+# SCAN_TRAIN_BATCH × TRAIN_SEQ tokens in SCAN_TRAIN_MICRO micro-batches,
+# each freed before the next; (d) one step at 1 × TRAIN_E2E_SEQ through
+# the kernels and through the plain versions at a cut depth
+# (``SCAN_E2E_LAYERS``), within twice the floor of the plain run with
+# noise of (a)'s and (a′)'s relative readings.
+CU_K4_BWD = "src/repro_torch/kernels/linear_scan/csrc/linear_scan_bwd.cu"
+# K4's backward replaces no Pallas kernel: the JAX package trains through
+# autodiff of its associative scan
+XLA_SCAN = "src/repro/models/scan_ops.py:31"
+K4_BWD_F32_LIMIT = 1e-4
+K4_BWD_AUTOGRAD_MAX_S = 4096
+K4_RGLRU_SHAPE = (2, 4096, 2560)
+K4_MAMBA_SHAPE = (2, 256, 131072)
+# recurrentgemma's local layer: (B, S, H, K, hd), its window
+K5_LOCAL_SHAPE, K5_LOCAL_WINDOW = (2, 4096, 10, 1, 256), 2048
+LSE_LIMIT = 1e-3           # max |Δ| of the log-sum-exp (nats)
+SCAN_ARCHS = ("recurrentgemma-2b", MAMBA_ARCH)
+SCAN_TRAIN_STEPS, SCAN_TRAIN_BATCH, SCAN_TRAIN_MICRO = 4, 4, 2
+SCAN_TRAIN_LAYERS = {MAMBA_ARCH: MAMBA_LAYERS}
+# (d)'s depth: recurrentgemma's one pattern period (two RG-LRU layers and
+# a local one), two Mamba layers.  Its floor takes two seeds: with four
+# (the first H100 run) the two archs' floors spread at most 13× in the
+# loss and 11× in the gradient norm between seeds, and the kernel read
+# under the smallest floor of seeds 1 and 2 on every reading but
+# recurrentgemma's loss (2.1e-6 against 1.5e-5 and 1.2e-6)
+SCAN_E2E_LAYERS = {"recurrentgemma-2b": 3, MAMBA_ARCH: 2}
+SCAN_FLOOR_SEEDS = (1, 2)
+
+
+def scan_grads_plain(torch, a, b, h, dh):
+    """da, db of the plain scan: autograd through ``linear_scan_ref`` up to
+    K4_BWD_AUTOGRAD_MAX_S steps, else ``linear_scan_bwd_ref`` on the
+    kernel's forward output h, as the backward kernel gets it."""
+    from repro_torch.kernels.linear_scan.ref import (linear_scan_bwd_ref,
+                                                     linear_scan_ref)
+    if a.shape[1] > K4_BWD_AUTOGRAD_MAX_S:
+        return linear_scan_bwd_ref(a, h, dh)
+    leaves = [x.detach().clone().requires_grad_() for x in (a, b)]
+    return torch.autograd.grad(linear_scan_ref(*leaves), leaves, dh)
+
+
+def scan_bwd_faults(a, h, dh):
+    """K4's backward with a planted fault, each on the kernel: name → (da,
+    db).  The carry dropped at every chunk boundary (each chunk run as
+    its own sequence), da reading h_t for h_{t−1}, and the coefficient
+    a_t for a_{t+1}."""
+    import torch
+    from repro_torch.kernels.linear_scan import kernel as sk
+    B_, S, D = a.shape
+    c = sk.BWD_CHUNK
+    n = -(-S // c)
+    out = {}
+    if S > c:
+        def seg(x, fill):
+            x = torch.cat([x, x.new_full((B_, n * c - S, D), fill)], 1)
+            return x.reshape(B_ * n, c, D)
+        da, db = sk.linear_scan_bwd(seg(a, 1.0), seg(h, 0.0), seg(dh, 0.0))
+        out["carry_dropped_at_chunks"] = tuple(
+            x.reshape(B_, n * c, D)[:, :S] for x in (da, db))
+    if S > 1:
+        out["da_reads_h_t"] = sk.linear_scan_bwd(
+            a, h.roll(-1, 1).contiguous(), dh)
+        out["coefficient_a_t"] = sk.linear_scan_bwd(
+            a.roll(1, 1).contiguous(), h, dh)
+    return out
+
+
+def k4_bwd_readings(torch, a, b, dh, forward=False):
+    """K4's backward against its plain version on one set of f32 inputs
+    (rounded to bf16 for the bf16 readings), each the largest over da and
+    db: f32 in RMS units and as relative RMS ((d)'s noise), bf16
+    relative, the same bits twice, and the planted faults in f32 RMS
+    units; with ``forward`` also K4's own relative RMS ((d)'s noise) and
+    whether it gave the same bits twice."""
+    from repro_torch.kernels.linear_scan import kernel as sk
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+
+    def worst(read, xs, ys):
+        # a plain gradient that is all zero (da of one step) reads the
+        # kernel's largest |value|, which must be 0 too
+        return max(read(x, y) if bool(y.any())
+                   else float(x.float().abs().max()) for x, y in zip(xs, ys))
+
+    h = sk.linear_scan(a, b)
+    got = sk.linear_scan_bwd(a, h, dh)
+    plain = scan_grads_plain(torch, a, b, h, dh)
+    r = {"f32_rms_units": worst(rms_err, got, plain),
+         "f32_rel_rms": worst(rel_rms, got, plain),
+         "f32_max_abs": max(float((x - y).abs().max())
+                            for x, y in zip(got, plain)),
+         "same_bits_twice": all(torch.equal(x, y) for x, y in zip(
+             got, sk.linear_scan_bwd(a, h, dh)))}
+    if forward:
+        r["fwd_f32_rel_rms"] = rel_rms(h, linear_scan_ref(a, b))
+        r["fwd_same_bits_twice"] = bool(torch.equal(h, sk.linear_scan(a, b)))
+    a16, b16, dh16 = a.bfloat16(), b.bfloat16(), dh.bfloat16()
+    h16 = sk.linear_scan(a16, b16)
+    r["bf16_rel"] = worst(rel_err, sk.linear_scan_bwd(a16, h16, dh16),
+                          scan_grads_plain(torch, a16, b16, h16, dh16))
+    for name, f in scan_bwd_faults(a, h, dh).items():
+        r[f"fault_{name}"] = worst(rms_err, f, plain)
+    return r
+
+
+def check_k4_bwd(label, r):
+    check(r["f32_rms_units"] <= K4_BWD_F32_LIMIT,
+          f"{label}: K4 bwd vs plain in f32: {r['f32_rms_units']:.3e}")
+    check(r["bf16_rel"] <= BF16_LIMIT,
+          f"{label}: K4 bwd vs plain in bf16: {r['bf16_rel']:.3e}")
+    check(r["same_bits_twice"], f"{label}: K4 bwd gave other bits twice")
+    for key, val in r.items():
+        if key.startswith("fault_"):
+            check(not val <= K4_BWD_F32_LIMIT,
+                  f"{label}: K4 bwd's planted fault {key} reads {val:.3e}")
+
+
+def k4_inputs(torch, gen, shape, carry=False):
+    """a in (0.8, 1), b of std 0.1, dh standard normal; with ``carry`` a
+    state of std 1 folded into b's first step, as Mamba's chunks fold
+    theirs."""
+    dev = gen.device
+    a = 0.8 + 0.2 * torch.rand(shape, generator=gen, device=dev)
+    b = 0.1 * torch.randn(shape, generator=gen, device=dev)
+    if carry:
+        b[:, 0] += a[:, 0] * torch.randn(shape[0], shape[2], generator=gen,
+                                         device=dev)
+    return a, b, torch.randn(shape, generator=gen, device=dev)
+
+
+def k4_bwd_time(torch, a, b, dh):
+    """K4's backward at one f32 shape: op ms, device ms, the plain
+    version's ms (``linear_scan_bwd_ref``, 3 runs) and the bound (a, h, dh
+    read, da, db written; four operations an element)."""
+    from repro_torch.kernels.linear_scan import kernel as sk
+    from repro_torch.kernels.linear_scan.ref import linear_scan_bwd_ref
+    h = sk.linear_scan(a, b)
+    ms = timed(torch, lambda: sk.linear_scan_bwd(a, h, dh))
+    ms_plain = timed(torch, lambda: linear_scan_bwd_ref(a, h, dh), runs=3)
+    mine, _ = traced_kernel(torch, lambda: sk.linear_scan_bwd(a, h, dh),
+                            "linear_scan_bwd_kernel")
+    check(mine, f"the profiler saw no K4 bwd kernel at {tuple(a.shape)}")
+    b_ms, by = bound(a.element_size() * 5 * a.numel(), 4 * a.numel())
+    return {"ms": ms, "plain_ms": ms_plain, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None,
+            "kernel_device_ms": sum(mine) / 1e6 / len(mine),
+            "traced_launches": len(mine), "shape": list(a.shape)}
+
+
+def k4_bwd_phase(torch, dev):
+    """Phase 19(a): K4's backward on RG-LRU's and Mamba's path shapes and
+    on ``K4_OPTIONS``, then its times at both path shapes.  Returns (the
+    path readings by arch, the record for the kernels line)."""
+    from repro_torch.kernels.linear_scan import kernel as sk
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    # each arch's path shape; Mamba's chunk with a carry folded in
+    shapes = {"recurrentgemma-2b": (K4_RGLRU_SHAPE, False),
+              MAMBA_ARCH: (K4_MAMBA_SHAPE, True)}
+    paths = {arch: k4_bwd_readings(torch, *k4_inputs(torch, gen, *shape),
+                                   forward=True)
+             for arch, shape in shapes.items()}
+    got = {}
+    for name, shape in K4_OPTIONS.items():
+        if shape != K4_RGLRU_SHAPE:    # the serving shape is RG-LRU's path
+            got[name] = k4_bwd_readings(torch, *k4_inputs(torch, gen, shape))
+    torch.cuda.synchronize()
+    emit({"phase": "train_k4_bwd", "chunk": sk.BWD_CHUNK, "limits": {
+        "f32": K4_BWD_F32_LIMIT, "bf16": BF16_LIMIT},
+        "paths": paths, "options": got,
+        "wall_s": time.perf_counter() - t0})
+    for label, r in [*paths.items(), *got.items()]:
+        check_k4_bwd(f"K4 bwd {label}", r)
+    recs = {}
+    for arch, shape in shapes.items():
+        recs[arch] = k4_bwd_time(torch, *k4_inputs(torch, gen, *shape))
+        emit({"phase": "train_k4_bwd_time", "arch": arch, **recs[arch]})
+    rg = recs["recurrentgemma-2b"]
+    rec = {"name": "linear_scan_bwd", "route": "cuda", "source": CU_K4_BWD,
+           "replaces": XLA_SCAN, "launches": None,
+           "max_abs_err": paths["recurrentgemma-2b"]["f32_max_abs"],
+           **{k: rg[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "kernel_device_ms", "shape")},
+           "mamba_chunk": recs[MAMBA_ARCH]}
+    return paths, rec
+
+
+def lse_plain(torch, q, k, kw):
+    """Each row's log-sum-exp of the plain masked scores, f32 (B, H, S)."""
+    B_, S, H, hd = q.shape
+    T, K_ = k.shape[1], k.shape[2]
+    s = torch.einsum("bskgd,btkd->bkgst",
+                     q.reshape(B_, S, K_, H // K_, hd).float(), k.float())
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(T, device=q.device)[None]
+    mask = torch.ones(S, T, dtype=torch.bool, device=q.device)
+    if kw["causal"]:
+        mask &= qp >= kp
+    if kw["window"]:
+        mask &= (qp - kp) < kw["window"]
+    s = torch.where(mask, s, float("-inf"))
+    return torch.logsumexp(s, -1).reshape(B_, H, S)
+
+
+def k5_local_phase(torch, dev):
+    """Phase 19(a′): K5 at recurrentgemma's local layer: the forward's
+    log-sum-exp against the plain scores' (f32 and bf16; the causal mask
+    flipped must read over the limit), the backward at phase 18(a)'s
+    limits and faults, and its times (the FMA pair; SDPA's backward with
+    the window as a boolean mask the yardstick).  Returns (the readings,
+    the hd-256 record)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(191)
+    B_, S, H, K_, hd = K5_LOCAL_SHAPE
+    q = torch.randn(B_, S, H, hd, generator=gen, device=dev) * hd ** -0.5
+    k, v = (torch.randn(B_, S, K_, hd, generator=gen, device=dev)
+            for _ in range(2))
+    do = torch.randn(B_, S, H, hd, generator=gen, device=dev)
+    kw = {"causal": True, "window": K5_LOCAL_WINDOW, "cap": None}
+    lse = {}
+    for dt in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (x.to(dt) for x in (q, k, v))
+        ref = lse_plain(torch, qd, kd, kw)
+        for name, kw_ in (("sound", kw), ("fault_causal_flipped",
+                                          dict(kw, causal=False))):
+            _, got = fk.flash_attention(qd, kd, vd, return_lse=True, **kw_)
+            lse[f"{str(dt)[6:]}_{name}"] = float((got - ref).abs().max())
+        del ref
+    r = bwd_readings(torch, q, k, v, do, kw)
+    ins16 = [x.bfloat16() for x in (q, k, v, do)]
+    route = fk.bwd_geometry(B_, S, S, H, K_, hd, torch.bfloat16,
+                            fk.copies_16_bytes(hd, 2, *ins16)).route
+    emit({"phase": "train_k5_local", "q": [B_, S, H, hd],
+          "kv": [B_, S, K_, hd], **kw, "route": route,
+          "lse_limit": LSE_LIMIT, "lse": lse,
+          "limits": {"f32": BWD_F32_LIMIT, "bf16": BWD_BF16_LIMIT,
+                     "bf16_rms": BWD_BF16_RMS_LIMIT}, **r})
+    for key, val in lse.items():
+        ok = val <= LSE_LIMIT
+        check(ok if "fault" not in key else not ok,
+              f"K5's log-sum-exp at hd {hd}: {key} reads {val:.3e}")
+    check_bwd(f"K5 bwd at hd {hd}", r)
+    check(route == "fma", f"K5 bwd at hd {hd} took the {route} route")
+    rec, sdpa_err = k5_bwd_time(torch, q, k, v, do, kw, plain=False,
+                                route="fma")
+    emit({"phase": "train_k5_local_time", **rec,
+          "sdpa_bwd_vs_plain_bf16_rel": sdpa_err,
+          "wall_s": time.perf_counter() - t0})
+    return r, rec
+
+
+def scan_train_config(arch, layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    layers = layers or SCAN_TRAIN_LAYERS.get(arch)
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
+def scan_sites(torch, dev, arch, k4, k5):
+    """``train_end_to_end``'s call sites of ``arch``: K4 with noise of
+    (a)'s f32 readings ``k4``, and recurrentgemma's K5 with noise of
+    (a′)'s bf16 readings ``k5``."""
+    sites = {}
+    for name, (mod, attr, plain) in kernel_sites(arch).items():
+        if name == "K5":
+            sites[name] = attention_site(torch, dev, k5["fwd_bf16_rel_rms"],
+                                         k5["bf16_rel_rms"])
+        else:
+            sites[name] = (mod, attr, plain,
+                           lambda seed: perturbed_train_scan(
+                               torch, k4["fwd_f32_rel_rms"],
+                               k4["f32_rel_rms"], 1000 + seed, dev))
+    return sites
+
+
+def scan_train_phase(torch, np, dev):
+    """Phase 19: (a) K4's backward, (a′) K5 at hd 256, (b)–(c) the two
+    scan archs train, counted, (d) kernel against plain end to end.
+    Returns (the launches of (b) and (c) by arch, K4 bwd's record, K5
+    bwd's hd-256 record)."""
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    k4_paths, k4_rec = k4_bwd_phase(torch, dev)
+    torch.cuda.empty_cache()
+    k5_read, k5_rec = k5_local_phase(torch, dev)
+    torch.cuda.empty_cache()
+    emit({"phase": "train_scan_kernels", "wall_s": time.perf_counter() - t0})
+
+    launches, figs = {}, {}
+    for arch in SCAN_ARCHS:
+        cfg = scan_train_config(arch)
+        state, n, per_step, figs[arch] = train_main_path(
+            torch, np, dev, cfg, arch, f"train_scan_{arch}",
+            SCAN_TRAIN_STEPS, SCAN_TRAIN_BATCH, TRAIN_SEQ,
+            SCAN_TRAIN_MICRO, falls="first_update")
+        launches[arch] = {"total": n, "per_step": per_step}
+        del state
+        torch.cuda.empty_cache()
+
+    # (d) kernel against plain, end to end, at a cut depth
+    for arch in SCAN_ARCHS:
+        t0 = time.perf_counter()
+        cfg = scan_train_config(arch, SCAN_E2E_LAYERS[arch])
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, dtype=torch.float32, trainable=True)
+        k4 = k4_paths[arch]
+        train_end_to_end(
+            torch, dev, model, cfg, scan_sites(torch, dev, arch, k4, k5_read),
+            train_launches(cfg, TRAIN_E2E_SEQ, 1),
+            {"k4_fwd_rel_rms": k4["fwd_f32_rel_rms"],
+             "k4_bwd_rel_rms": k4["f32_rel_rms"],
+             "k5_fwd_rel_rms": k5_read["fwd_bf16_rel_rms"],
+             "k5_bwd_rel_rms": k5_read["bf16_rel_rms"]},
+            tag=f"train_scan_end_to_end_{arch}", seeds=SCAN_FLOOR_SEEDS)
+        emit({"phase": "train_scan_end_to_end_wall", "arch": arch,
+              "layers": cfg.n_layers, "wall_s": time.perf_counter() - t0})
+        del model
+        torch.cuda.empty_cache()
+    k4_rec["launches"] = sum(launches[a]["total"]["linear_scan_bwd"]
+                             for a in SCAN_ARCHS)
+    k4_rec["launches_per_step"] = {
+        a: launches[a]["per_step"]["linear_scan_bwd"] for a in SCAN_ARCHS}
+    k4_rec["train"] = figs
+    return launches, k4_rec, k5_rec
 
 
 def main():
@@ -4602,7 +5096,9 @@ def main():
           "ptxas": usage, "K5_sass": tensor_ops,
           "K5_bwd_registers": {k: u.get("registers") for k, u in
                                usage.items()
-                               if k.startswith("flash_attention_bwd_")}})
+                               if k.startswith("flash_attention_bwd_")},
+          "K4_spills": {k: u.get("spill_store_bytes", 0) for k, u in
+                        usage.items() if k.startswith("linear_scan")}})
 
     # ---- inputs, made from a seed -----------------------------------------
     rng = np.random.default_rng(0)
@@ -4971,6 +5467,14 @@ def main():
         if rec["name"] == "flash_attention":
             rec["train"] = k5_train
     kernels.append(bwd_rec)
+
+    # ---- 19. training recurrentgemma and Mamba through K4's backward -----
+    t0 = time.perf_counter()
+    launches19, k4_bwd_rec, k5_hd256 = scan_train_phase(torch, np, dev)
+    emit({"phase": "train_scan", "launches": launches19,
+          "wall_s": time.perf_counter() - t0})
+    bwd_rec["hd256_shape"] = k5_hd256
+    kernels.append(k4_bwd_rec)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -13,6 +13,7 @@ flash_attention — forward online-softmax attention (GQA/MQA, causal,
                   sliding window, softcap): the prefill attention of the
                   model stack.
 linear_scan     — the diagonal recurrence h_t = a_t·h_{t−1} + b_t: the
-                  RG-LRU prefill scan.
+                  RG-LRU scan and each chunk of Mamba's, and its backward
+                  (the reverse scan) for training.
 Sources are built with nvcc on first use (``_build.py``).
 """

@@ -59,6 +59,7 @@ SOURCES = {
     "flash_attention_bwd": (_PKG / "flash_attention" / "csrc"
                             / "flash_attention_bwd.cu"),
     "linear_scan": _PKG / "linear_scan" / "csrc" / "linear_scan.cu",
+    "linear_scan_bwd": _PKG / "linear_scan" / "csrc" / "linear_scan_bwd.cu",
 }
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]

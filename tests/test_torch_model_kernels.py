@@ -160,7 +160,7 @@ def test_ops_run_the_plain_version_on_cpu_tensors():
         SO.linear_scan_op(at, bt, impl="interpret")
     assert FK.LAUNCHES == {"flash_attention": 0,
                           "flash_attention_bwd": 0}
-    assert SK.LAUNCHES == {"linear_scan": 0}
+    assert SK.LAUNCHES == {"linear_scan": 0, "linear_scan_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -172,7 +172,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         SK.linear_scan(at, bt)
     assert FK.LAUNCHES == {"flash_attention": 0,
                           "flash_attention_bwd": 0}
-    assert SK.LAUNCHES == {"linear_scan": 0}
+    assert SK.LAUNCHES == {"linear_scan": 0, "linear_scan_bwd": 0}
 
 
 def test_build_starts_one_nvcc_per_source_all_at_once(monkeypatch, tmp_path):
@@ -194,12 +194,13 @@ def test_build_starts_one_nvcc_per_source_all_at_once(monkeypatch, tmp_path):
     with mock.patch.object(_build.subprocess, "Popen", FakeProc):
         reports = _build.build_all()
     assert sorted(reports) == ["flash_attention", "flash_attention_bwd",
-                               "gwf_waterfill", "linear_scan"]
+                               "gwf_waterfill", "linear_scan",
+                               "linear_scan_bwd"]
     kinds = [e[0] for e in events]
-    assert kinds == ["start"] * 4 + ["wait"] * 4
+    assert kinds == ["start"] * 5 + ["wait"] * 5
     assert {e[1].rsplit("/", 1)[-1] for e in events} == {
         "flash_attention.cu", "flash_attention_bwd.cu", "gwf_waterfill.cu",
-        "linear_scan.cu"}
+        "linear_scan.cu", "linear_scan_bwd.cu"}
 
 
 # (B, S, D) of chip_smoke.py's K4_OPTIONS: one step, under one chunk,

@@ -14,8 +14,8 @@ chunk that does not divide S, labels of −1 and a final softcap; values
 and gradients (h, table) in f32 to rtol 1e-5.
 
 Dispatch: on CPU tensors the ops take their plain versions with
-autograd; ``linear_scan_op`` refuses CUDA inputs that require a gradient
-(K4 has no backward yet) rather than fall back.
+autograd; on CUDA inputs that require a gradient ``linear_scan_op`` goes
+through ``LinearScan`` (K4 and its backward), never the plain scan.
 """
 import jax
 import jax.numpy as jnp
@@ -32,6 +32,7 @@ from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as FO
 from repro_torch.kernels.linear_scan import kernel as SK
 from repro_torch.kernels.linear_scan import ops as SO
+from repro_torch.kernels.linear_scan.ref import linear_scan_bwd_ref
 from repro_torch.models.common import chunked_cross_entropy, cross_entropy
 
 # (B, S, T, H, K, hd), causal, window, cap
@@ -149,18 +150,48 @@ def test_cross_entropy_ignores_negative_labels_and_masked_positions():
     assert float(none) == 0.0
 
 
-def test_linear_scan_refuses_gradients_on_the_card(monkeypatch):
+def test_linear_scan_takes_gradients_through_its_function_on_the_card(
+        monkeypatch):
     """With the op told the tensors are the card's, an input that needs a
-    gradient raises instead of reaching the plain scan or the kernel."""
-    a = torch.rand(1, 8, 4, requires_grad=True)
-    b = torch.rand(1, 8, 4)
+    gradient goes through ``LinearScan`` (K4 forward, K4's backward) and
+    never through the plain scan; without a gradient the op calls the
+    kernel alone, which refuses CPU tensors."""
+    rng = np.random.default_rng(4)
+    a = torch.tensor(rng.uniform(0.5, 1.0, (1, 8, 4)), dtype=torch.float32,
+                     requires_grad=True)
+    b = torch.tensor(rng.standard_normal((1, 8, 4)), dtype=torch.float32)
+    g = torch.tensor(rng.standard_normal((1, 8, 4)), dtype=torch.float32)
+    ref = SO.linear_scan_ref
+    calls = []
+
+    def fwd(a_, b_):
+        calls.append("linear_scan")
+        return ref(a_, b_)
+
+    def bwd(a_, h_, dh_):
+        calls.append("linear_scan_bwd")
+        return linear_scan_bwd_ref(a_, h_, dh_)
+
+    def plain(a_, b_):
+        raise AssertionError("the op took the plain scan")
+
     monkeypatch.setattr(SO, "use_cuda_for", lambda x, impl: True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        SO.linear_scan_op(a, b)
+    monkeypatch.setattr(SO, "linear_scan", fwd)
+    monkeypatch.setattr(SO, "linear_scan_bwd", bwd)
+    monkeypatch.setattr(SO, "linear_scan_ref", plain)
+    h = SO.linear_scan_op(a, b)
+    assert h.grad_fn is not None and "LinearScan" in type(h.grad_fn).__name__
+    (da,) = torch.autograd.grad(h, a, g)
+    assert calls == ["linear_scan", "linear_scan_bwd"]
+    a_ref = a.detach().clone().requires_grad_()
+    (da_ref,) = torch.autograd.grad(ref(a_ref, b), a_ref, g)
+    np.testing.assert_allclose(da.numpy(), da_ref.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    monkeypatch.setattr(SO, "linear_scan", SK.linear_scan)
     with torch.no_grad():           # serving: no gradient, the kernel
         with pytest.raises(ValueError, match="CUDA tensors"):
             SO.linear_scan_op(a, b)
-    assert SK.LAUNCHES == {"linear_scan": 0}
+    assert SK.LAUNCHES == {"linear_scan": 0, "linear_scan_bwd": 0}
 
 
 def test_linear_scan_plain_version_takes_gradients_on_the_cpu():

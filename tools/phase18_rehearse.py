@@ -107,15 +107,17 @@ class _DeviceRecord:
 
 @contextlib.contextmanager
 def _profile(**kw):
-    """The backward's two kernels on the route of its last call."""
+    """K5's backward's two kernels on the route of its last call, and
+    K4's backward kernel."""
     def events():
-        return [_DeviceRecord(name)
-                for name in cs.BWD_KERNELS[_LAST_ROUTE[0]]]
+        return [_DeviceRecord(name) for name in
+                [*cs.BWD_KERNELS[_LAST_ROUTE[0]], "linear_scan_bwd_kernel"]]
     yield types.SimpleNamespace(profiler=types.SimpleNamespace(
         kineto_results=types.SimpleNamespace(events=events)))
 
 
-def main():
+def install():
+    """The stand-ins and the smoke config in bf16 (see the docstring)."""
     for mod in (fk, fo):
         mod.flash_attention, mod.flash_attention_bwd = forward, backward
     fo.use_cuda_for = lambda x, impl: impl != "ref"
@@ -135,6 +137,10 @@ def main():
     launch_train.resolve_device = lambda device=None: torch.device("cpu")
     cs.TRAIN_SEQ, cs.TRAIN_E2E_SEQ, cs.SUBSTRATE_SEQ = 64, 64, 32
     cs.BWD_HD128_SHAPE = (2, 64, 16, 16, 128)
+
+
+def main():
+    install()
     launches, rec, k5 = cs.train_phase(torch, np, torch.device("cpu"))
     print({"launches": launches, "bwd_record": rec, "k5": k5})
 
