@@ -10,7 +10,8 @@ Phases (each one is a check; any failure exits non-zero):
      ptxas report, fails if an instantiation of K1, K2, K3 or K5's
      backward spills, and fails unless the SASS of every bf16
      instantiation of K5 holds tensor-core instructions (HMMA or HGMMA)
-     and that of each of the backward's four wgmma instantiations HGMMA;
+     and that of each of the backward's six wgmma instantiations (dQ and
+     dK/dV at widths 64, 128 and 256) HGMMA;
   3. the batched CAP front door at full width (N = 256 tenants ×
      k = 4096 jobs, float32): ``solve_cap_batched(impl="auto")`` with a
      shared shifted power (CUDA kernel generic_waterfill) and a per-job
@@ -247,8 +248,11 @@ Phases (each one is a check; any failure exits non-zero):
      dropped at every chunk boundary, da reading h_t for h_{t−1}, the
      coefficient a_t for a_{t+1}), and its times at both path shapes;
      (a′) K5 at recurrentgemma's local layer (2, 4096, 10:1, 256),
-     window 2048: the forward's log-sum-exp and the backward (the FMA
-     pair) at phase 18(a)'s limits and faults, its times beside SDPA's
+     window 2048: the forward's log-sum-exp and the backward (bf16 the
+     wgmma pair of 256 columns, f32 the FMA pair) at phase 18(a)'s limits
+     and faults, the same on ``K5_BWD_HD256_OPTIONS`` (softcap with a
+     window, hd 200, cross lengths, rows with no unmasked key, MHA, GQA
+     10:1) with the kernels each bf16 case ran, its times beside SDPA's
      backward; (b) recurrentgemma-2b at full width and depth and (c)
      falcon-mamba-7b at 16 of its 64 layers train 4 steps of 4 × 4096
      tokens in 2 micro-batches, every loss finite, the first update
@@ -356,8 +360,8 @@ def build_report(_build):
     backward; fails if K1, K2, K3 or any backward kernel (K5's, K4's)
     spills (K4's forward spills 44 bytes: reported, not held), unless
     every bf16 instantiation of K5 holds some, or unless each of the
-    backward's four wgmma instantiations (dQ and dK/dV at widths 64 and
-    128) holds HGMMA."""
+    backward's six wgmma instantiations (dQ and dK/dV at widths 64, 128
+    and 256) holds HGMMA."""
     usage = {}
     for name in _build.SOURCES:
         report = _build.ptxas_report(name)
@@ -394,7 +398,7 @@ def build_report(_build):
               f"{k} holds no tensor-core instruction: {c}")
     wg = {k: c for k, c in counts.items() if "_wgmma_kernel<" in k}
     check(sorted(wg) == [f"flash_attention_bwd_{k}_wgmma_kernel<{w}>"
-                         for k in ("dkdv", "dq") for w in (128, 64)],
+                         for k in ("dkdv", "dq") for w in (128, 256, 64)],
           f"K5 bwd's SASS lacks wgmma instantiations: {sorted(counts)}")
     for k, c in wg.items():
         check(c["HGMMA"] > 0, f"{k} holds no HGMMA: {c}")
@@ -4072,9 +4076,64 @@ def check_bwd(label, r):
                   f"{label}: K5 bwd's planted fault {key} reads {val:.3e}")
 
 
-BWD_KERNELS = {route: [f"flash_attention_bwd_{k}{tag}_kernel"
-                       for k in ("dkdv", "dq")]
-               for route, tag in (("wgmma", "_wgmma"), ("fma", ""))}
+def bwd_kernels(geo):
+    """The two kernels of K5's backward that a call of geometry ``geo``
+    (``kernel.bwd_geometry``) launches, as ``bwd_device_ms`` names them:
+    ``flash_attention_bwd_dq_wgmma_kernel<256>`` ..., the FMA pair
+    ``flash_attention_bwd_dq_kernel<256>`` ... (the instantiation's
+    width, its element type left out)."""
+    tag = "_wgmma" if geo.route == "wgmma" else ""
+    return [f"flash_attention_bwd_{k}{tag}_kernel<{geo.hd_tile}>"
+            for k in ("dkdv", "dq")]
+
+
+# a backward kernel's name and width in a trace, demangled
+# (``...dq_kernel<__nv_bfloat16, 256>(...)``) or mangled (``...ILi256E``)
+BWD_KERNEL_NAME = re.compile(
+    r"(flash_attention_bwd_\w+?_kernel)(?:<(?:[^<>]*, )?(\d+)>"
+    r"|I(?:13__nv_bfloat16|f)?Li(\d+)E)")
+
+
+def bwd_options(torch, randn, options):
+    """K5's backward on each case of ``options`` (name → ((B, S, T, H, K,
+    hd), causal, window, cap)), inputs from ``randn``: ``bwd_readings``,
+    and the route, the kernels the geometry names (``bwd_kernels``) and
+    the kernels the profiler saw of each bf16 case.  Returns (readings,
+    kernels) by name."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    got, ran = {}, {}
+    for name, ((b, S, T, h, kk, d), causal, window, cap) in \
+            options.items():
+        qo = randn(b, S, h, d) * (60.0 if cap else 1.0) * d ** -0.5
+        ko, vo, doo = randn(b, T, kk, d), randn(b, T, kk, d), \
+            randn(b, S, h, d)
+        kwo = {"causal": causal, "window": window, "cap": cap}
+        got[name] = bwd_readings(torch, qo, ko, vo, doo, kwo)
+        ins16 = [x.bfloat16() for x in (qo, ko, vo, doo)]
+        geo = fk.bwd_geometry(b, S, T, h, kk, d, torch.bfloat16,
+                              fk.copies_16_bytes(d, 2, *ins16))
+        ran[name] = {"route": geo.route, "geometry": bwd_kernels(geo),
+                     "kernels": sorted(bwd_device_ms(
+                         torch, lambda: attn_grads_kernel(*ins16, kwo),
+                         calls=1, pad=64))}
+    torch.cuda.synchronize()
+    return got, ran
+
+
+def check_bwd_options(options, got, ran, want):
+    """``check_bwd`` on each case of ``bwd_options``; each bf16 case ran
+    the kernels of its geometry, on the route ``want`` gives its hd."""
+    for name, r in got.items():
+        check_bwd(f"K5 bwd {name}", r)
+    for name, r in ran.items():
+        check(r["kernels"] == r["geometry"],
+              f"K5 bwd {name} in bf16 ran {r['kernels']} on the "
+              f"{r['route']} route, not {r['geometry']}")
+        hd_ = options[name][0][5]
+        check(r["route"] == want.get(hd_, r["route"]),
+              f"K5 bwd {name} (hd {hd_}) took the {r['route']} route")
+
+
 # K5's backward at qwen2-moe-a2.7b's training shape (B 2, S = T = 4096,
 # 16:16 heads, hd 128), causal, bf16: the wgmma route at hd 128
 BWD_HD128_SHAPE = (2, 4096, 16, 16, 128)
@@ -4082,8 +4141,8 @@ BWD_HD128_SHAPE = (2, 4096, 16, 16, 128)
 
 def bwd_device_ms(torch, op, calls=5, pad=256, tries=3):
     """Mean device ms of each backward kernel of ``op`` in a profiler
-    trace, by its name (``flash_attention_bwd_dq_wgmma_kernel`` ...);
-    padded with spin kernels as ``traced_kernel`` is."""
+    trace, by its name and width (``bwd_kernels``); padded with spin
+    kernels as ``traced_kernel`` is."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     by_name = {}
@@ -4100,15 +4159,16 @@ def bwd_device_ms(torch, op, calls=5, pad=256, tries=3):
                 torch.cuda._sleep(100)
             torch.cuda.synchronize()
         for e in prof.profiler.kineto_results.events():
-            m = re.search(r"(flash_attention_bwd_\w+?_kernel)", e.name())
+            m = BWD_KERNEL_NAME.search(e.name())
             if e.device_type() == DeviceType.CUDA and m:
-                by_name.setdefault(m.group(1), []).append(e.duration_ns())
+                by_name.setdefault(f"{m[1]}<{m[2] or m[3]}>", []).append(
+                    e.duration_ns())
         if len(by_name) >= 2:
             break
     return {k: sum(d) / len(d) / 1e6 for k, d in sorted(by_name.items())}
 
 
-def k5_bwd_time(torch, q, k, v, do, kw, plain=True, route="wgmma"):
+def k5_bwd_time(torch, q, k, v, do, kw, plain=True):
     """K5's backward at one shape in bf16 (inputs of f32 from a seed):
     op and device ms by kernel, the plain version (forward and backward
     through ``attention_ref``) unless ``plain`` is false, SDPA's
@@ -4116,7 +4176,8 @@ def k5_bwd_time(torch, q, k, v, do, kw, plain=True, route="wgmma"):
     backend, or with a window its band as a boolean mask; timed here,
     off the path) and the bound, 10·hd operations a valid (q, k) pair
     (QKᵀ and dO·Vᵀ again, dV, dK, dQ) at the bf16 peak.  Fails unless
-    the profiler saw the kernels of ``route``."""
+    the profiler saw the kernels of the call's geometry
+    (``bwd_kernels``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fk
 
@@ -4152,7 +4213,10 @@ def k5_bwd_time(torch, q, k, v, do, kw, plain=True, route="wgmma"):
     ms_plain = (timed(torch, lambda: attn_grads_plain(
         torch, q16, k16, v16, do16, kw), runs=5) if plain else None)
     dev_ms = bwd_device_ms(torch, op)
-    check(sorted(dev_ms) == BWD_KERNELS[route],
+    geo = fk.bwd_geometry(B_, S, k.shape[1], H, k.shape[2], hd,
+                          torch.bfloat16, fk.copies_16_bytes(
+                              hd, 2, q16, k16, v16, do16))
+    check(sorted(dev_ms) == bwd_kernels(geo),
           f"the profiler saw K5 bwd's kernels {sorted(dev_ms)} at "
           f"{tuple(q.shape)}")
     nbytes = (2 * (2 * q16.numel() + 2 * k16.numel()) + 4 * lse.numel()
@@ -4197,33 +4261,11 @@ def k5_bwd_phase(torch, dev, B_):
           "limits": {"f32": BWD_F32_LIMIT, "bf16": BWD_BF16_LIMIT,
                      "bf16_rms": BWD_BF16_RMS_LIMIT}, **path})
     check_bwd("K5 bwd at the path shape", path)
-    got, ran = {}, {}
-    for name, ((b, S, T, h, kk, d), causal, window, cap) in \
-            K5_OPTIONS.items():
-        qo = randn(b, S, h, d) * (60.0 if cap else 1.0) * d ** -0.5
-        ko, vo, doo = randn(b, T, kk, d), randn(b, T, kk, d), \
-            randn(b, S, h, d)
-        kwo = {"causal": causal, "window": window, "cap": cap}
-        got[name] = bwd_readings(torch, qo, ko, vo, doo, kwo)
-        ins16 = [x.bfloat16() for x in (qo, ko, vo, doo)]
-        route = fk.bwd_geometry(b, S, T, h, kk, d, torch.bfloat16,
-                                fk.copies_16_bytes(d, 2, *ins16)).route
-        ran[name] = {"route": route, "kernels": sorted(bwd_device_ms(
-            torch, lambda: attn_grads_kernel(*ins16, kwo), calls=1,
-            pad=64))}
-    torch.cuda.synchronize()
+    got, ran = bwd_options(torch, randn, K5_OPTIONS)
     emit({"phase": "train_k5_bwd_options", "readings": got,
           "bf16_kernels": ran})
-    for name, r in got.items():
-        check_bwd(f"K5 bwd {name}", r)
-    for name, r in ran.items():
-        check(r["kernels"] == BWD_KERNELS[r["route"]],
-              f"K5 bwd {name} in bf16 ran {r['kernels']} on the "
-              f"{r['route']} route")
-        hd_ = K5_OPTIONS[name][0][5]
-        want = {33: "fma", 64: "wgmma", 96: "wgmma", 128: "wgmma"}
-        check(r["route"] == want.get(hd_, r["route"]),
-              f"K5 bwd {name} (hd {hd_}) took the {r['route']} route")
+    check_bwd_options(K5_OPTIONS, got, ran,
+                      {33: "fma", 64: "wgmma", 96: "wgmma", 128: "wgmma"})
 
     # times at the path shape and at the hd-128 shape, bf16
     rec, sdpa_err = k5_bwd_time(torch, q, k, v, do, kw)
@@ -4727,16 +4769,18 @@ def train_phase(torch, np, dev):
 # dropped at every chunk boundary, da reading h_t for h_{t−1}, the
 # coefficient a_t for a_{t+1}) over the f32 limit.  At the path shapes
 # K4's forward is read for the same bits twice too, not held: its
-# look-back stops wherever it first finds a prefix.  (a′) K5 at recurrentgemma's local layer (hd
-# 256, window 2048: the bf16 backward takes the FMA pair): the forward's
+# look-back stops wherever it first finds a prefix.  (a′) K5 at
+# recurrentgemma's local layer (hd 256, window 2048: the bf16 backward
+# takes the wgmma pair of 256 columns, f32 the FMA pair): the forward's
 # log-sum-exp against the plain scores', and the backward at phase
-# 18(a)'s limits and faults.  (b) recurrentgemma-2b (26 layers) and (c)
-# falcon-mamba-7b at MAMBA_LAYERS of 64 train SCAN_TRAIN_STEPS steps of
-# SCAN_TRAIN_BATCH × TRAIN_SEQ tokens in SCAN_TRAIN_MICRO micro-batches,
-# each freed before the next; (d) one step at 1 × TRAIN_E2E_SEQ through
-# the kernels and through the plain versions at a cut depth
-# (``SCAN_E2E_LAYERS``), within twice the floor of the plain run with
-# noise of (a)'s and (a′)'s relative readings.
+# 18(a)'s limits and faults, there and on K5_BWD_HD256_OPTIONS.  (b)
+# recurrentgemma-2b (26 layers) and (c) falcon-mamba-7b at MAMBA_LAYERS
+# of 64 train SCAN_TRAIN_STEPS steps of SCAN_TRAIN_BATCH × TRAIN_SEQ
+# tokens in SCAN_TRAIN_MICRO micro-batches, each freed before the next;
+# (d) one step at 1 × TRAIN_E2E_SEQ through the kernels and through the
+# plain versions at a cut depth (``SCAN_E2E_LAYERS``), within twice the
+# floor of the plain run with noise of (a)'s and (a′)'s relative
+# readings.
 CU_K4_BWD = "src/repro_torch/kernels/linear_scan/csrc/linear_scan_bwd.cu"
 # K4's backward replaces no Pallas kernel: the JAX package trains through
 # autodiff of its associative scan
@@ -4747,6 +4791,20 @@ K4_RGLRU_SHAPE = (2, 4096, 2560)
 K4_MAMBA_SHAPE = (2, 256, 131072)
 # recurrentgemma's local layer: (B, S, H, K, hd), its window
 K5_LOCAL_SHAPE, K5_LOCAL_WINDOW = (2, 4096, 10, 1, 256), 2048
+# (a′)'s edges of the backward's wgmma kernels of 256 columns: (B, S, T,
+# H, K, hd), causal, window, cap.  gemma2's softcap 50 with a window, an
+# hd of 16-byte rows short of 256 (zeros past it), cross lengths
+# unmasked, rows with no unmasked key under a window (S ≥ T + window),
+# multi-head, and recurrentgemma's 10:1 grouping; S and T ragged against
+# the 128-row dQ and 64-key dK/dV blocks.
+K5_BWD_HD256_OPTIONS = {
+    "softcap50_window": ((1, 700, 700, 4, 2, 256), True, 200, 50.0),
+    "hd200_window": ((1, 500, 500, 4, 1, 200), True, 128, None),
+    "cross_unmasked": ((1, 300, 77, 4, 2, 256), False, None, None),
+    "no_key_rows_window": ((1, 150, 77, 4, 2, 256), False, 20, None),
+    "mha": ((1, 400, 400, 4, 4, 256), True, None, None),
+    "gqa10_window": ((1, 600, 600, 10, 1, 256), True, 256, None),
+}
 LSE_LIMIT = 1e-3           # max |Δ| of the log-sum-exp (nats)
 SCAN_ARCHS = ("recurrentgemma-2b", MAMBA_ARCH)
 SCAN_TRAIN_STEPS, SCAN_TRAIN_BATCH, SCAN_TRAIN_MICRO = 4, 4, 2
@@ -4939,17 +4997,22 @@ def k5_local_phase(torch, dev):
     """Phase 19(a′): K5 at recurrentgemma's local layer: the forward's
     log-sum-exp against the plain scores' (f32 and bf16; the causal mask
     flipped must read over the limit), the backward at phase 18(a)'s
-    limits and faults, and its times (the FMA pair; SDPA's backward with
-    the window as a boolean mask the yardstick).  Returns (the readings,
-    the hd-256 record)."""
+    limits and faults (bf16 on the wgmma kernels of 256 columns, f32 on
+    the FMA pair), the same on ``K5_BWD_HD256_OPTIONS`` with the kernels
+    each bf16 case ran, and its times (SDPA's backward with the window
+    as a boolean mask the yardstick).  Returns (the readings, the hd-256
+    record)."""
     from repro_torch.kernels.flash_attention import kernel as fk
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(191)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
     B_, S, H, K_, hd = K5_LOCAL_SHAPE
-    q = torch.randn(B_, S, H, hd, generator=gen, device=dev) * hd ** -0.5
-    k, v = (torch.randn(B_, S, K_, hd, generator=gen, device=dev)
-            for _ in range(2))
-    do = torch.randn(B_, S, H, hd, generator=gen, device=dev)
+    q = randn(B_, S, H, hd) * hd ** -0.5
+    k, v = randn(B_, S, K_, hd), randn(B_, S, K_, hd)
+    do = randn(B_, S, H, hd)
     kw = {"causal": True, "window": K5_LOCAL_WINDOW, "cap": None}
     lse = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -4962,10 +5025,11 @@ def k5_local_phase(torch, dev):
         del ref
     r = bwd_readings(torch, q, k, v, do, kw)
     ins16 = [x.bfloat16() for x in (q, k, v, do)]
-    route = fk.bwd_geometry(B_, S, S, H, K_, hd, torch.bfloat16,
-                            fk.copies_16_bytes(hd, 2, *ins16)).route
+    geo = fk.bwd_geometry(B_, S, S, H, K_, hd, torch.bfloat16,
+                          fk.copies_16_bytes(hd, 2, *ins16))
+    del ins16
     emit({"phase": "train_k5_local", "q": [B_, S, H, hd],
-          "kv": [B_, S, K_, hd], **kw, "route": route,
+          "kv": [B_, S, K_, hd], **kw, "geometry": geo._asdict(),
           "lse_limit": LSE_LIMIT, "lse": lse,
           "limits": {"f32": BWD_F32_LIMIT, "bf16": BWD_BF16_LIMIT,
                      "bf16_rms": BWD_BF16_RMS_LIMIT}, **r})
@@ -4974,9 +5038,15 @@ def k5_local_phase(torch, dev):
         check(ok if "fault" not in key else not ok,
               f"K5's log-sum-exp at hd {hd}: {key} reads {val:.3e}")
     check_bwd(f"K5 bwd at hd {hd}", r)
-    check(route == "fma", f"K5 bwd at hd {hd} took the {route} route")
-    rec, sdpa_err = k5_bwd_time(torch, q, k, v, do, kw, plain=False,
-                                route="fma")
+    check(geo.route == "wgmma" and geo.hd_tile == 256,
+          f"K5 bwd at hd {hd} took the {geo.route} route at width "
+          f"{geo.hd_tile}")
+    got, ran = bwd_options(torch, randn, K5_BWD_HD256_OPTIONS)
+    emit({"phase": "train_k5_local_options", "readings": got,
+          "bf16_kernels": ran})
+    check_bwd_options(K5_BWD_HD256_OPTIONS, got, ran,
+                      {200: "wgmma", 256: "wgmma"})
+    rec, sdpa_err = k5_bwd_time(torch, q, k, v, do, kw, plain=False)
     emit({"phase": "train_k5_local_time", **rec,
           "sdpa_bwd_vs_plain_bf16_rel": sdpa_err,
           "wall_s": time.perf_counter() - t0})

@@ -45,19 +45,19 @@
 // Routing, by shape (the wrapper's bwd_geometry, kernel.py, decides and
 // passes the route, tiles, grids and shared memory; the entry points
 // refuse a geometry that does not match their instantiations):
-// - bf16 with hd ≤ 128, rows of whole 16-byte pieces and 16-byte-aligned
-//   tensors: the wgmma kernels below (hd ≤ 64 on the instantiation of 64
-//   columns, else of 128; columns past hd read as zeros).
-// - f32, bf16 with 128 < hd ≤ 256, and rows that are not whole 16-byte
-//   pieces: the f32-FMA kernels (hd ≤ 64, 128, 256 on the instantiation
-//   of that width).
+// - bf16 with rows of whole 16-byte pieces and 16-byte-aligned tensors:
+//   the wgmma kernels below (hd ≤ 64 on the instantiation of 64 columns,
+//   hd ≤ 128 of 128, else of 256; columns past hd read as zeros).
+// - f32, and rows that are not whole 16-byte pieces: the f32-FMA kernels
+//   (hd ≤ 64, 128, 256 on the instantiation of that width).
 // Two kernels a call either way, dQ first (it writes D to a (B, H, S) f32
 // scratch that dK/dV read), no atomics, so the same inputs give the same
 // bits.
 //
-// Design, wgmma (bf16, hd ≤ 128): FlashAttention-3's shape on K5's
-// forward's parts (hopper_ptx.cuh).  A block is three warpgroups: two
-// consumer warpgroups of 64 rows (or keys) each, and a producer
+// Design, wgmma (bf16; the tiles below are hd ≤ 128's, hd 256's follow):
+// FlashAttention-3's shape on K5's forward's parts (hopper_ptx.cuh).  A
+// block is three warpgroups: two consumer warpgroups of 64 rows (or
+// keys) each, and a producer
 // warpgroup of which one warp starts the copies; setmaxnreg moves
 // registers from the producer (24 a thread) to the consumers (240).
 // Tiles are TMA boxes of 64 columns in the 128-byte-swizzled layout that
@@ -111,13 +111,36 @@
 //   the registers it moves.
 // - dQ, dK and dV are staged as bf16 in the warpgroup's own Q (or K and
 //   V) rows of shared memory and stored in 16-byte pieces.
+// - hd 256 (Wg<256>): with the tiles above a dQ stage of 64 keys would
+//   be 64 KB, and dK + dV of a warpgroup's 64 keys 256 f32 a thread, past
+//   setmaxnreg's 240.  So the dQ kernel keeps its 128 rows (one
+//   warpgroup a 64-row half, dQ 128 f32 a thread, as m64n256k16 with dS
+//   from registers) and streams tiles of 32 keys (S and dP m64n32k16)
+//   through a ring of three stages: Q + dO 131,072 bytes, the stages
+//   98,304, 230,400 with the slack.  The D pass keeps its two tiles in
+//   flight (S and dP of 32 keys are 16 + 16 f32 a thread).  A dK/dV block
+//   owns 64 keys, and both consumer warpgroups take all 64, each its half
+//   of dK's and dV's columns (64 + 64 f32 a thread, as at hd 128): each
+//   computes the block's whole Sᵀ and dPᵀ (64 keys × 64 rows) and runs
+//   dV[:, half] += Pᵀ·dO[:, half] and dK[:, half] += dSᵀ·Q[:, half] with
+//   Pᵀ and dSᵀ from its registers.  Sᵀ and dPᵀ are multiplied twice (the
+//   pair costs 22·hd flops, not 18·hd), in exchange for no shared P, no
+//   barrier between the warpgroups a tile and the registers of hd 128's
+//   kernel; the grid is T / 64 × K × B (128 blocks at recurrentgemma's
+//   local layer, one wave).  Its ring has two stages of 64 rows of Q and
+//   dO: K + V 65,536 bytes, the stages 131,072 and their L and D 1,024,
+//   198,656 with the slack.  A pass-2 warpgroup of the dQ kernel holds
+//   the stage of the tile whose dQ product is in flight until its next
+//   computed tile; the tiles it skips are at the ends of its walk (two at
+//   most at the end, causal), fewer than the ring's stages less one, so
+//   the producer never waits on a stage so held.
 //
-// Design, FMA (f32 and the other bf16 shapes): the same two kernels and
-// walks in f32 FMAs from shared memory, 256 threads a block on a 16 × 16
-// grid of threads, each holding a register tile of rows 16 apart (thread
-// (ty, tx) owns rows ty + 16·r and columns tx + 16·c), so that reads of a
-// shared row are broadcasts and reads of 16 consecutive rows hit 16 banks
-// (rows padded by one word).  Tiles: hd ≤ 64: BQ = BK = 64; hd ≤ 128:
+// Design, FMA (f32 and bf16 rows that are not 16-byte pieces): the same
+// two kernels and walks in f32 FMAs from shared memory, 256 threads a
+// block on a 16 × 16 grid of threads, each holding a register tile of
+// rows 16 apart (thread (ty, tx) owns rows ty + 16·r and columns tx +
+// 16·c), so that reads of a shared row are broadcasts and reads of 16
+// consecutive rows hit 16 banks (rows padded by one word).  Tiles: hd ≤ 64: BQ = BK = 64; hd ≤ 128:
 // BQ 64, BK 32; hd ≤ 256: BQ 32, BK 16; shared memory 84–114 KB a block.
 // Columns past hd and rows past S or T load as zeros.
 //
@@ -556,7 +579,7 @@ flash_attention_bwd_dq_kernel(const T* __restrict__ q,
     }
   }
 }
-// ---- bf16 at hd ≤ 128: wgmma fed by TMA --------------------------------------
+// ---- bf16: wgmma fed by TMA -------------------------------------------------
 
 constexpr int kWgThreads = 384;     // consumer warpgroups 0 and 1, producer 2
 constexpr int kConsumerRegs = 240;  // setmaxnreg: 2·128·240 + 128·24 ≤ 64 K
@@ -565,17 +588,34 @@ constexpr int kRowsDq = 128;        // query rows a dQ block
 constexpr int kKeysDq = 64;         // keys a streamed K/V tile of the dQ kernel
 constexpr int kKeysDkdv = 128;      // keys a dK/dV block
 constexpr int kRowsDkdv = 64;       // query rows a streamed Q/dO tile
-constexpr int kStages = 4;          // the ring's stages
+constexpr int kStages = 4;          // each ring's stages
+// at hd 256, where a 64-key K/V stage of the dQ kernel is 64 KB and dK
+// and dV of 64 keys are 256 f32 a consumer thread:
+constexpr int kKeysDq256 = 32;      // keys a streamed K/V tile of the dQ kernel
+constexpr int kKeysDkdv256 = 64;    // keys a dK/dV block, each consumer half
+                                    // of the columns of all of them
+constexpr int kStagesDq256 = 3;     // the dQ kernel's ring
+constexpr int kStagesDkdv256 = 2;   // the dK/dV kernel's ring
 constexpr float kLog2e = 1.4426950408889634f;
 
-// dynamic shared memory a wgmma kernel needs, from a 1 KB alignment slack
-template <int HD> struct WgSmem {
-  static constexpr size_t dq =
-      1024 + sizeof(__nv_bfloat16) * HD * (2 * kRowsDq + kStages * 2 * kKeysDq);
-  static constexpr size_t dkdv =
+// The tiles of the wgmma kernels at width HD, and the dynamic shared
+// memory they need from a 1 KB alignment slack.
+template <int HD> struct Wg {
+  static constexpr bool wide = HD > 128;
+  static constexpr int keys_dq = wide ? kKeysDq256 : kKeysDq;
+  static constexpr int keys_dkdv = wide ? kKeysDkdv256 : kKeysDkdv;
+  static constexpr int stages_dq = wide ? kStagesDq256 : kStages;
+  static constexpr int stages_dkdv = wide ? kStagesDkdv256 : kStages;
+  // the columns of dK and dV a consumer warpgroup holds
+  static constexpr int cols_dkdv = wide ? HD / 2 : HD;
+  static constexpr size_t smem_dq =
+      1024 + sizeof(__nv_bfloat16) * HD *
+                 (2 * kRowsDq + stages_dq * 2 * keys_dq);
+  static constexpr size_t smem_dkdv =
       1024 +
-      sizeof(__nv_bfloat16) * HD * (2 * kKeysDkdv + kStages * 2 * kRowsDkdv) +
-      sizeof(float) * kStages * 2 * kRowsDkdv;
+      sizeof(__nv_bfloat16) * HD *
+          (2 * keys_dkdv + stages_dkdv * 2 * kRowsDkdv) +
+      sizeof(float) * stages_dkdv * 2 * kRowsDkdv;
 };
 
 // TMA maps of q, k, v and dO
@@ -583,14 +623,14 @@ struct BwdMaps {
   CUtensorMap q, k, v, dout;
 };
 
-// The ring's position of the n-th tile: its stage, and the parity of the
-// stage's phases (the consumers wait for it on full, the producer for the
-// one before on empty).
-struct Ring {
+// The position of the n-th tile in a ring of NS stages: its stage, and
+// the parity of the stage's phases (the consumers wait for it on full,
+// the producer for the one before on empty).
+template <int NS> struct Ring {
   int stage;
   uint32_t parity;
   __device__ __forceinline__ explicit Ring(int n)
-      : stage(n % kStages), parity((n / kStages) & 1) {}
+      : stage(n % NS), parity((n / NS) & 1) {}
 };
 
 // True when no (row, key) pair of rows [i_lo, i_hi] and keys [j_lo,
@@ -644,54 +684,54 @@ __device__ __forceinline__ void p_ds_cap(const Opts& o, bool open, int i,
   ds = p * (dp - D) * (1.0f - t * t);
 }
 
-// Starts d = A · Bᵀ (64 × 64) over HD columns: A the warpgroup's 64 rows
-// at shared address a in a tile of RA rows, B a tile of 64 rows at b,
-// both K-major (swz_at).  The caller fences, commits and waits.
-template <int HD, int RA>
-__device__ __forceinline__ void wgmma_ss_tile(float (&d)[8][4], uint32_t a,
-                                              uint32_t b) {
+// Starts d = A · Bᵀ (64 × RB) over HD columns: A the warpgroup's 64 rows
+// at shared address a in a tile of RA rows, B a tile of RB rows (32 or
+// 64) at b, both K-major (swz_at).  The caller fences, commits and waits.
+template <int HD, int RA, int RB>
+__device__ __forceinline__ void wgmma_ss_tile(float (&d)[RB / 8][4],
+                                              uint32_t a, uint32_t b) {
   using namespace hopper;
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks) {
     // k16 step ks: 64-column block ks / 4, 32 bytes a step inside it
     const uint32_t off = (ks & 3) * 32;
-    wgmma_ss_n64(d, gmma_desc(a + (ks >> 2) * RA * 128 + off, 16, 1024),
-                 gmma_desc(b + (ks >> 2) * 64 * 128 + off, 16, 1024), ks > 0);
+    wgmma_ss<RB>(d, gmma_desc(a + (ks >> 2) * RA * 128 + off, 16, 1024),
+                 gmma_desc(b + (ks >> 2) * RB * 128 + off, 16, 1024), ks > 0);
   }
 }
 
 // Starts s = A1 · B1ᵀ and t = A2 · B2ᵀ as two commit groups, in that
 // order (wgmma_ss_tile's operands).
-template <int HD, int RA>
-__device__ __forceinline__ void wgmma_ss_pair(float (&s)[8][4],
-                                              float (&t)[8][4], uint32_t a1,
-                                              uint32_t b1, uint32_t a2,
-                                              uint32_t b2) {
+template <int HD, int RA, int RB>
+__device__ __forceinline__ void wgmma_ss_pair(float (&s)[RB / 8][4],
+                                              float (&t)[RB / 8][4],
+                                              uint32_t a1, uint32_t b1,
+                                              uint32_t a2, uint32_t b2) {
   using namespace hopper;
   hold(s);
   hold(t);
   wgmma_fence();
-  wgmma_ss_tile<HD, RA>(s, a1, b1);
+  wgmma_ss_tile<HD, RA, RB>(s, a1, b1);
   wgmma_commit();
-  wgmma_ss_tile<HD, RA>(t, a2, b2);
+  wgmma_ss_tile<HD, RA, RB>(t, a2, b2);
   wgmma_commit();
   hold(s);
   hold(t);
 }
 
-// Starts acc (64 × HD) += A · B over 64 k: A the packed fragments a
-// (pack_a), B the tile of 64 rows (the k) at shared address bt, read
-// MN-major: two groups of 8 rows a k16 step (sbo 1 KB), HD blocks of 64
-// columns 64 rows of 128 bytes apart (lbo).  The caller fences, commits
-// and waits.
-template <int HD>
-__device__ __forceinline__ void wgmma_rs_tile(float (&acc)[HD / 8][4],
-                                              const uint32_t (&a)[4][4],
+// Starts acc (64 × N) += A · B over KR k: A the packed fragments a
+// (pack_a), B N columns of a tile of KR rows (the k) at shared address
+// bt, read MN-major: two groups of 8 rows a k16 step (sbo 1 KB), N / 64
+// blocks of 64 columns KR rows of 128 bytes apart (lbo).  The caller
+// fences, commits and waits.
+template <int N, int KR>
+__device__ __forceinline__ void wgmma_rs_tile(float (&acc)[N / 8][4],
+                                              const uint32_t (&a)[KR / 16][4],
                                               uint32_t bt) {
   using namespace hopper;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs<HD>(acc, a[kk], gmma_desc(bt + kk * 16 * 128, 64 * 128, 1024));
+  for (int kk = 0; kk < KR / 16; ++kk)
+    wgmma_rs<N>(acc, a[kk], gmma_desc(bt + kk * 16 * 128, KR * 128, 1024));
 }
 
 // a consumer warp hands a stage back once its lanes are done with it
@@ -700,18 +740,20 @@ __device__ __forceinline__ void release(uint64_t* bar) {
   if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(bar);
 }
 
-// The warp's 16 rows [tr, tr + 16) of a tile of R rows in shared memory
-// (swz_at, bf16) to rows row0 + r of head `head` of x (B, L, NH, hd):
-// 16-byte pieces, rows past L and columns past hd not stored.
-template <int HD, int R>
+// Columns [c0, c0 + NC) of the warp's 16 rows [tr, tr + 16) of a tile of
+// R rows in shared memory (swz_at, bf16) to rows row0 + r of head `head`
+// of x (B, L, NH, hd): 16-byte pieces, rows past L and columns past hd
+// not stored.
+template <int NC, int R>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ x,
                                            const __nv_bfloat16* tile, int tr,
                                            long row_base, int row0, int L,
-                                           int NH, int head, int hd) {
-  constexpr int CPR = HD / 8;  // 16-byte pieces a row
+                                           int NH, int head, int hd,
+                                           int c0 = 0) {
+  constexpr int CPR = NC / 8;  // 16-byte pieces a row
   for (int idx = threadIdx.x & 31; idx < 16 * CPR; idx += 32) {
     const int r = idx / CPR;
-    const int c = (idx - r * CPR) * 8;
+    const int c = c0 + (idx - r * CPR) * 8;
     const int row = row0 + r;
     if (row < L && c < hd)
       *reinterpret_cast<int4*>(
@@ -721,19 +763,19 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ x,
 }
 
 // the lane's accumulator fragment (rows tr + g and tr + g + 8 of the warp,
-// columns 8n + 2t, + 1) as bf16 into a tile of R rows (swz_at)
-template <int HD, int R>
+// columns c0 + 8n + 2t, + 1) as bf16 into a tile of R rows (swz_at)
+template <int NC, int R>
 __device__ __forceinline__ void stage_frags(__nv_bfloat16* tile,
-                                            const float (&acc)[HD / 8][4],
-                                            int tr, int lane) {
+                                            const float (&acc)[NC / 8][4],
+                                            int tr, int lane, int c0 = 0) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
+  for (int n = 0; n < NC / 8; ++n) {
     *reinterpret_cast<__nv_bfloat162*>(
-        tile + hopper::swz_at(R, tr + g, 8 * n + 2 * t)) =
+        tile + hopper::swz_at(R, tr + g, c0 + 8 * n + 2 * t)) =
         __floats2bfloat162_rn(acc[n][0], acc[n][1]);
     *reinterpret_cast<__nv_bfloat162*>(
-        tile + hopper::swz_at(R, tr + g + 8, 8 * n + 2 * t)) =
+        tile + hopper::swz_at(R, tr + g + 8, c0 + 8 * n + 2 * t)) =
         __floats2bfloat162_rn(acc[n][2], acc[n][3]);
   }
 }
@@ -746,15 +788,19 @@ flash_attention_bwd_dq_wgmma_kernel(const float* __restrict__ lse,
                                     const Opts o, int n_qt,
                                     const __grid_constant__ BwdMaps maps) {
   using namespace hopper;
+  constexpr int kKeys = Wg<HD>::keys_dq;  // keys a streamed K/V tile
+  constexpr int kNJ = kKeys / 8;          // its n-tiles of S and dP
+  constexpr int kNS = Wg<HD>::stages_dq;  // the ring's stages
+  using Rg = Ring<kNS>;
   constexpr int kTileQ = kRowsDq * HD;  // elements of Q (and of dO)
-  constexpr int kTileK = kKeysDq * HD;  // of a stage's K (and V)
+  constexpr int kTileK = kKeys * HD;    // of a stage's K (and V)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t mis = smem_addr(smem_raw) & 1023;
   __nv_bfloat16* Qs =
       reinterpret_cast<__nv_bfloat16*>(smem_raw + (mis ? 1024 - mis : 0));
   __nv_bfloat16* dOs = Qs + kTileQ;
   __nv_bfloat16* KVs = dOs + kTileQ;  // stage s: K at KVs + 2s·kTileK, V after
-  __shared__ alignas(8) uint64_t full[kStages], empty[kStages], qbar;
+  __shared__ alignas(8) uint64_t full[kNS], empty[kNS], qbar;
 
   // block → (head fastest, then q tile from the last, then batch)
   const int h = blockIdx.x % o.H;
@@ -768,11 +814,11 @@ flash_attention_bwd_dq_wgmma_kernel(const float* __restrict__ lse,
   const int q_hi = min(q0 + kRowsDq, o.S) - 1;
   const int k_hi = o.causal ? min(q_hi, o.T - 1) : o.T - 1;
   const int k_lo = o.window > 0 ? max(0, q0 - o.window + 1) : 0;
-  const int kt_lo = k_lo / kKeysDq;
-  const int kt_hi = k_lo <= k_hi ? k_hi / kKeysDq : kt_lo - 1;
+  const int kt_lo = k_lo / kKeys;
+  const int kt_hi = k_lo <= k_hi ? k_hi / kKeys : kt_lo - 1;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kNS; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // one arrival a consumer warp
     }
@@ -796,15 +842,15 @@ flash_attention_bwd_dq_wgmma_kernel(const float* __restrict__ lse,
       int n = 0;
       for (int pass = 0; pass < 2; ++pass) {
         for (int kt = kt_lo; kt <= kt_hi; ++kt, ++n) {
-          const Ring r(n);
+          const Rg r(n);
           mbar_wait(&empty[r.stage], r.parity ^ 1);
           __nv_bfloat16* Ks = KVs + r.stage * 2 * kTileK;
           mbar_expect(&full[r.stage], 2 * kTileK * sizeof(__nv_bfloat16));
           for (int kb = 0; kb < HD / 64; ++kb) {
-            tma_load(Ks + kb * kKeysDq * 64, &maps.k, &full[r.stage],
-                     kb * 64, kvh, kt * kKeysDq, b);
-            tma_load(Ks + kTileK + kb * kKeysDq * 64, &maps.v,
-                     &full[r.stage], kb * 64, kvh, kt * kKeysDq, b);
+            tma_load(Ks + kb * kKeys * 64, &maps.k, &full[r.stage], kb * 64,
+                     kvh, kt * kKeys, b);
+            tma_load(Ks + kTileK + kb * kKeys * 64, &maps.v, &full[r.stage],
+                     kb * 64, kvh, kt * kKeys, b);
           }
         }
       }
@@ -827,23 +873,23 @@ flash_attention_bwd_dq_wgmma_kernel(const float* __restrict__ lse,
     // stage st; without a softcap s becomes P while dP is multiplied.
     // The lane's (row, key) of element (j, e): (qa + 8·(e >> 1), k0 + 8j
     // + 2t + (e & 1)).
-    float s[8][4], dp[8][4];
+    float s[kNJ][4], dp[kNJ][4];
     auto scores = [&](int st, int k0, bool open) {
       const uint32_t k_addr = smem_addr(KVs + st * 2 * kTileK);
-      wgmma_ss_pair<HD, kRowsDq>(s, dp, q_addr, k_addr, o_addr,
-                                 k_addr + kTileK * 2);
+      wgmma_ss_pair<HD, kRowsDq, kKeys>(s, dp, q_addr, k_addr, o_addr,
+                                        k_addr + kTileK * 2);
       if (!cap) {
         wgmma_wait<1>();
         hold(s);
         if (open) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < kNJ; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               s[j][e] = ex2(fmaf(s[j][e], kLog2e, e < 2 ? -La : -Lb));
         } else {
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < kNJ; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               s[j][e] = p_of(o, e < 2 ? qa : qa + 8,
@@ -860,13 +906,13 @@ flash_attention_bwd_dq_wgmma_kernel(const float* __restrict__ lse,
       if (!cap) {
         if (open) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < kNJ; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               dp[j][e] = s[j][e] * (dp[j][e] - (e < 2 ? Da : Db));
         } else {
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < kNJ; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               dp[j][e] = ds_of(o, e < 2 ? qa : qa + 8, s[j][e], dp[j][e],
@@ -875,7 +921,7 @@ flash_attention_bwd_dq_wgmma_kernel(const float* __restrict__ lse,
         return;
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < kNJ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           p_ds_cap(o, open, e < 2 ? qa : qa + 8, k0 + 8 * j + 2 * t + (e & 1),
@@ -889,22 +935,22 @@ flash_attention_bwd_dq_wgmma_kernel(const float* __restrict__ lse,
     // are in flight: S and dP of the next tile are multiplied while the
     // lanes form P and P ∘ dP of this one, in the other registers.
     float da = 0.0f, db = 0.0f;
-    float s1[8][4], dp1[8][4];
+    float s1[kNJ][4], dp1[kNJ][4];
     // waits for tile i's stage and starts its S and dP as one commit
     // group (an empty one where the warpgroup sees none of the tile's
     // pairs); true when started
-    auto start = [&](int i, float (&sx)[8][4], float (&dpx)[8][4]) {
-      const Ring r(n + i);
+    auto start = [&](int i, float (&sx)[kNJ][4], float (&dpx)[kNJ][4]) {
+      const Rg r(n + i);
       mbar_wait(&full[r.stage], r.parity);
-      const int k0 = (kt_lo + i) * kKeysDq;
-      const bool go = !pairs_closed(o, r_wg, r_wg + 63, k0, k0 + kKeysDq - 1);
+      const int k0 = (kt_lo + i) * kKeys;
+      const bool go = !pairs_closed(o, r_wg, r_wg + 63, k0, k0 + kKeys - 1);
       const uint32_t k_addr = smem_addr(KVs + r.stage * 2 * kTileK);
       hold(sx);
       hold(dpx);
       wgmma_fence();
       if (go) {
-        wgmma_ss_tile<HD, kRowsDq>(sx, q_addr, k_addr);
-        wgmma_ss_tile<HD, kRowsDq>(dpx, o_addr, k_addr + kTileK * 2);
+        wgmma_ss_tile<HD, kRowsDq, kKeys>(sx, q_addr, k_addr);
+        wgmma_ss_tile<HD, kRowsDq, kKeys>(dpx, o_addr, k_addr + kTileK * 2);
       }
       wgmma_commit();
       hold(sx);
@@ -912,18 +958,18 @@ flash_attention_bwd_dq_wgmma_kernel(const float* __restrict__ lse,
       return go;
     };
     // once tile i's group is in: hands its stage back and adds its P ∘ dP
-    auto finish = [&](int i, bool go, float (&sx)[8][4],
-                      float (&dpx)[8][4]) {
+    auto finish = [&](int i, bool go, float (&sx)[kNJ][4],
+                      float (&dpx)[kNJ][4]) {
       hold(sx);
       hold(dpx);
-      release(&empty[Ring(n + i).stage]);
+      release(&empty[Rg(n + i).stage]);
       if (!go) return;
-      const int k0 = (kt_lo + i) * kKeysDq;
+      const int k0 = (kt_lo + i) * kKeys;
       const bool open =
-          pairs_open(o, q0 + tr, q0 + tr + 15, k0, k0 + kKeysDq - 1);
+          pairs_open(o, q0 + tr, q0 + tr + 15, k0, k0 + kKeys - 1);
       if (cap) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kNJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float ds;
@@ -933,13 +979,13 @@ flash_attention_bwd_dq_wgmma_kernel(const float* __restrict__ lse,
           }
       } else if (open) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kNJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             sx[j][e] = ex2(fmaf(sx[j][e], kLog2e, e < 2 ? -La : -Lb));
       } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kNJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             sx[j][e] = p_of(o, e < 2 ? qa : qa + 8,
@@ -947,7 +993,7 @@ flash_attention_bwd_dq_wgmma_kernel(const float* __restrict__ lse,
                             e < 2 ? La : Lb);
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kNJ; ++j) {
         da = fmaf(sx[j][0], dpx[j][0], fmaf(sx[j][1], dpx[j][1], da));
         db = fmaf(sx[j][2], dpx[j][2], fmaf(sx[j][3], dpx[j][3], db));
       }
@@ -987,19 +1033,19 @@ flash_attention_bwd_dq_wgmma_kernel(const float* __restrict__ lse,
     // product runs on while the next tile's S and dP are started; their
     // waits complete it, and then its stage is handed back.
     float acc[HD / 8][4];
-    uint32_t a[4][4];     // dS of the tile whose dQ product is in flight
+    uint32_t a[kNJ / 2][4];  // dS of the tile whose dQ product is in flight
     int in_flight = -1;   // that tile's stage
     zero(acc);
     for (int kt = kt_lo; kt <= kt_hi; ++kt, ++n) {
-      const Ring r(n);
+      const Rg r(n);
       mbar_wait(&full[r.stage], r.parity);
-      const int k0 = kt * kKeysDq;
-      if (pairs_closed(o, r_wg, r_wg + 63, k0, k0 + kKeysDq - 1)) {
+      const int k0 = kt * kKeys;
+      if (pairs_closed(o, r_wg, r_wg + 63, k0, k0 + kKeys - 1)) {
         release(&empty[r.stage]);
         continue;
       }
       const bool open =
-          pairs_open(o, q0 + tr, q0 + tr + 15, k0, k0 + kKeysDq - 1);
+          pairs_open(o, q0 + tr, q0 + tr + 15, k0, k0 + kKeys - 1);
       scores(r.stage, k0, open);
       hold(acc);
       hold(a);
@@ -1007,7 +1053,8 @@ flash_attention_bwd_dq_wgmma_kernel(const float* __restrict__ lse,
       probs(k0, open, da, db);
       pack_a(a, dp);
       wgmma_fence();
-      wgmma_rs_tile<HD>(acc, a, smem_addr(KVs + r.stage * 2 * kTileK));
+      wgmma_rs_tile<HD, kKeys>(acc, a,
+                               smem_addr(KVs + r.stage * 2 * kTileK));
       wgmma_commit();
       in_flight = r.stage;
     }
@@ -1034,7 +1081,14 @@ flash_attention_bwd_dkdv_wgmma_kernel(const float* __restrict__ lse,
                                       const Opts o, int n_kt,
                                       const __grid_constant__ BwdMaps maps) {
   using namespace hopper;
-  constexpr int kTileK = kKeysDkdv * HD;  // elements of K (and of V)
+  constexpr int kKeys = Wg<HD>::keys_dkdv;  // keys a block
+  constexpr int kNS = Wg<HD>::stages_dkdv;  // the ring's stages
+  using Rg = Ring<kNS>;
+  // the columns of dK and dV a consumer warpgroup holds: at hd 256 both
+  // take all the block's keys and half the columns each
+  constexpr int kCols = Wg<HD>::cols_dkdv;
+  constexpr bool kSplit = kCols < HD;
+  constexpr int kTileK = kKeys * HD;      // elements of K (and of V)
   constexpr int kTileQ = kRowsDkdv * HD;  // of a stage's Q (and dO)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t mis = smem_addr(smem_raw) & 1023;
@@ -1043,8 +1097,8 @@ flash_attention_bwd_dkdv_wgmma_kernel(const float* __restrict__ lse,
   __nv_bfloat16* Vs = Ks + kTileK;
   __nv_bfloat16* QOs = Vs + kTileK;  // stage s: Q at QOs + 2s·kTileQ, dO after
   // stage s: L·log2 e of its rows at LDs + 2s·kRowsDkdv, D after
-  float* LDs = reinterpret_cast<float*>(QOs + kStages * 2 * kTileQ);
-  __shared__ alignas(8) uint64_t full[kStages], empty[kStages], kvbar;
+  float* LDs = reinterpret_cast<float*>(QOs + kNS * 2 * kTileQ);
+  __shared__ alignas(8) uint64_t full[kNS], empty[kNS], kvbar;
 
   // block → (kv head fastest, then key tile from the first, then batch)
   const int kvh = blockIdx.x % o.K;
@@ -1052,11 +1106,11 @@ flash_attention_bwd_dkdv_wgmma_kernel(const float* __restrict__ lse,
   const int kt = rest % n_kt;
   const int b = rest / n_kt;
   const int G = o.H / o.K;
-  const int k0 = kt * kKeysDkdv;
+  const int k0 = kt * kKeys;
   // the query rows that can see keys k0 .. k_hi (the mirror of the
   // forward's tile_walk), and the rows with no unmasked key, which see
   // every key uniformly
-  const int k_hi = min(k0 + kKeysDkdv, o.T) - 1;
+  const int k_hi = min(k0 + kKeys, o.T) - 1;
   const int q_lo = o.causal ? k0 : 0;
   int q_hi = o.S - 1;
   if (o.window > 0 && !o.keyless(o.S - 1))
@@ -1065,7 +1119,7 @@ flash_attention_bwd_dkdv_wgmma_kernel(const float* __restrict__ lse,
   const int qt_hi = q_lo <= q_hi ? q_hi / kRowsDkdv : qt_lo - 1;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kNS; ++s) {
       mbar_init(&full[s], 32);  // the producer warp's lanes
       mbar_init(&empty[s], 8);  // one arrival a consumer warp
     }
@@ -1084,10 +1138,8 @@ flash_attention_bwd_dkdv_wgmma_kernel(const float* __restrict__ lse,
       if (lane == 0) {
         mbar_expect(&kvbar, 2 * kTileK * sizeof(__nv_bfloat16));
         for (int kb = 0; kb < HD / 64; ++kb) {
-          tma_load(Ks + kb * kKeysDkdv * 64, &maps.k, &kvbar, kb * 64, kvh, k0,
-                   b);
-          tma_load(Vs + kb * kKeysDkdv * 64, &maps.v, &kvbar, kb * 64, kvh, k0,
-                   b);
+          tma_load(Ks + kb * kKeys * 64, &maps.k, &kvbar, kb * 64, kvh, k0, b);
+          tma_load(Vs + kb * kKeys * 64, &maps.v, &kvbar, kb * 64, kvh, k0, b);
         }
       }
       int n = 0;
@@ -1095,7 +1147,7 @@ flash_attention_bwd_dkdv_wgmma_kernel(const float* __restrict__ lse,
         const int h = kvh * G + gh;
         const long stat = (static_cast<long>(b) * o.H + h) * o.S;
         for (int qt = qt_lo; qt <= qt_hi; ++qt, ++n) {
-          const Ring r(n);
+          const Rg r(n);
           const int q0 = qt * kRowsDkdv;
           mbar_wait(&empty[r.stage], r.parity ^ 1);
           float* Ls = LDs + r.stage * 2 * kRowsDkdv;
@@ -1123,22 +1175,27 @@ flash_attention_bwd_dkdv_wgmma_kernel(const float* __restrict__ lse,
     setmaxnreg_inc<kConsumerRegs>();
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
-    const int k_wg = k0 + wg * 64;       // the warpgroup's first key
-    const int tr = wg * 64 + warp * 16;  // the warp's first key of the tile
+    const int wk = kSplit ? 0 : wg * 64;     // the warpgroup's first key
+    const int wc = kSplit ? wg * kCols : 0;  // and column of the tile
+    const int k_wg = k0 + wk;
+    const int tr = wk + warp * 16;  // the warp's first key of the tile
     const int kw = k0 + tr;
-    const int ka = kw + g;               // the lane's keys ka and ka + 8
-    const uint32_t k_addr = smem_addr(Ks) + wg * 64 * 128;
-    const uint32_t v_addr = smem_addr(Vs) + wg * 64 * 128;
+    const int ka = kw + g;          // the lane's keys ka and ka + 8
+    const uint32_t k_addr = smem_addr(Ks) + wk * 128;
+    const uint32_t v_addr = smem_addr(Vs) + wk * 128;
+    // the warpgroup's columns of a stage's Q and dO: 64-column blocks of
+    // kRowsDkdv rows of 128 bytes
+    const uint32_t cols = (wc / 64) * kRowsDkdv * 128;
     const bool cap = o.cap > 0.0f;
 
-    float accK[HD / 8][4], accV[HD / 8][4];
+    float accK[kCols / 8][4], accV[kCols / 8][4];
     zero(accK);
     zero(accV);
     mbar_wait(&kvbar, 0);
     int n = 0;
     for (int gh = 0; gh < G; ++gh) {
       for (int qt = qt_lo; qt <= qt_hi; ++qt, ++n) {
-        const Ring r(n);
+        const Rg r(n);
         const int q0 = qt * kRowsDkdv;
         mbar_wait(&full[r.stage], r.parity);
         if (!pairs_closed(o, q0, q0 + kRowsDkdv - 1, k_wg, k_wg + 63)) {
@@ -1153,8 +1210,8 @@ flash_attention_bwd_dkdv_wgmma_kernel(const float* __restrict__ lse,
           // 1)).
           float sT[8][4], dpT[8][4];
           uint32_t aP[4][4], aS[4][4];
-          wgmma_ss_pair<HD, kKeysDkdv>(sT, dpT, k_addr, q_addr, v_addr,
-                                       o_addr);
+          wgmma_ss_pair<HD, kKeys, kRowsDkdv>(sT, dpT, k_addr, q_addr,
+                                              v_addr, o_addr);
           if (!cap) {
             // Pᵀ while dPᵀ is multiplied, then dV += Pᵀ dO while dSᵀ is
             // formed
@@ -1175,7 +1232,8 @@ flash_attention_bwd_dkdv_wgmma_kernel(const float* __restrict__ lse,
             pack_a(aP, sT);
             hold(accV);
             wgmma_fence();
-            wgmma_rs_tile<HD>(accV, aP, o_addr);  // dV += Pᵀ dO
+            wgmma_rs_tile<kCols, kRowsDkdv>(accV, aP,
+                                            o_addr + cols);  // dV += Pᵀ dO
             wgmma_commit();
             wgmma_wait<1>();                      // dPᵀ is in
             hold(dpT);
@@ -1209,13 +1267,15 @@ flash_attention_bwd_dkdv_wgmma_kernel(const float* __restrict__ lse,
             pack_a(aP, sT);
             hold(accV);
             wgmma_fence();
-            wgmma_rs_tile<HD>(accV, aP, o_addr);  // dV += Pᵀ dO
+            wgmma_rs_tile<kCols, kRowsDkdv>(accV, aP,
+                                            o_addr + cols);  // dV += Pᵀ dO
             wgmma_commit();
           }
           pack_a(aS, dpT);
           hold(accK);
           wgmma_fence();
-          wgmma_rs_tile<HD>(accK, aS, q_addr);  // dK += dSᵀ Q
+          wgmma_rs_tile<kCols, kRowsDkdv>(accK, aS,
+                                          q_addr + cols);  // dK += dSᵀ Q
           wgmma_commit();
           wgmma_wait<0>();
           hold(accV);
@@ -1227,15 +1287,18 @@ flash_attention_bwd_dkdv_wgmma_kernel(const float* __restrict__ lse,
       }
     }
 
-    // dK and dV through the warpgroup's own K and V rows, then 16-byte
-    // stores
-    named_barrier(1 + wg, 128);
-    stage_frags<HD, kKeysDkdv>(Ks, accK, tr, lane);
-    stage_frags<HD, kKeysDkdv>(Vs, accV, tr, lane);
+    // dK and dV through the warpgroup's own K and V rows (columns at hd
+    // 256, once neither warpgroup reads K or V), then 16-byte stores
+    if constexpr (kSplit)
+      named_barrier(1, 256);
+    else
+      named_barrier(1 + wg, 128);
+    stage_frags<kCols, kKeys>(Ks, accK, tr, lane, wc);
+    stage_frags<kCols, kKeys>(Vs, accV, tr, lane, wc);
     __syncwarp();
     const long base = static_cast<long>(b) * o.T;
-    store_rows<HD, kKeysDkdv>(dk, Ks, tr, base, kw, o.T, o.K, kvh, o.hd);
-    store_rows<HD, kKeysDkdv>(dv, Vs, tr, base, kw, o.T, o.K, kvh, o.hd);
+    store_rows<kCols, kKeys>(dk, Ks, tr, base, kw, o.T, o.K, kvh, o.hd, wc);
+    store_rows<kCols, kKeys>(dv, Vs, tr, base, kw, o.T, o.K, kvh, o.hd, wc);
   }
 }
 
@@ -1247,7 +1310,9 @@ struct Geometry {
   int hd_tile;     // the instantiation's width
   int dq_rows, dq_keys;      // a dQ block's query rows, a streamed tile's keys
   int dkdv_keys, dkdv_rows;  // a dK/dV block's keys, a streamed tile's rows
-  int stages, threads;
+  int stages;      // the dQ kernel's ring (the dK/dV kernel's is Wg's,
+                   // which dkdv_smem covers)
+  int threads;
   int n_qt, n_kt;            // dQ blocks along S, dK/dV blocks along T
   int dq_blocks, dkdv_blocks;
   int dq_smem, dkdv_smem;    // dynamic shared memory, bytes
@@ -1269,22 +1334,23 @@ int launch_wgmma(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, float* dd, void* dq,
                  void* dk, void* dv, int B, const Opts& o,
                  const Geometry& geo, cudaStream_t stream) {
-  if (geo.dq_rows != kRowsDq || geo.dq_keys != kKeysDq ||
-      geo.dkdv_keys != kKeysDkdv || geo.dkdv_rows != kRowsDkdv ||
-      geo.stages != kStages || geo.threads != kWgThreads ||
-      geo.dq_smem < static_cast<int>(WgSmem<HD>::dq) ||
-      geo.dkdv_smem < static_cast<int>(WgSmem<HD>::dkdv) ||
+  using W = Wg<HD>;
+  if (geo.dq_rows != kRowsDq || geo.dq_keys != W::keys_dq ||
+      geo.dkdv_keys != W::keys_dkdv || geo.dkdv_rows != kRowsDkdv ||
+      geo.stages != W::stages_dq || geo.threads != kWgThreads ||
+      geo.dq_smem < static_cast<int>(W::smem_dq) ||
+      geo.dkdv_smem < static_cast<int>(W::smem_dkdv) ||
       geo.dq_smem > kSmemLimit || geo.dkdv_smem > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdMaps m1 = {}, m2 = {};  // boxes of the dQ kernel's and dK/dV's rows
   if (!(hopper::encode_map(&m1.q, q, B, o.S, o.H, o.hd, kRowsDq) &&
         hopper::encode_map(&m1.dout, dout, B, o.S, o.H, o.hd, kRowsDq) &&
-        hopper::encode_map(&m1.k, k, B, o.T, o.K, o.hd, kKeysDq) &&
-        hopper::encode_map(&m1.v, v, B, o.T, o.K, o.hd, kKeysDq) &&
+        hopper::encode_map(&m1.k, k, B, o.T, o.K, o.hd, W::keys_dq) &&
+        hopper::encode_map(&m1.v, v, B, o.T, o.K, o.hd, W::keys_dq) &&
         hopper::encode_map(&m2.q, q, B, o.S, o.H, o.hd, kRowsDkdv) &&
         hopper::encode_map(&m2.dout, dout, B, o.S, o.H, o.hd, kRowsDkdv) &&
-        hopper::encode_map(&m2.k, k, B, o.T, o.K, o.hd, kKeysDkdv) &&
-        hopper::encode_map(&m2.v, v, B, o.T, o.K, o.hd, kKeysDkdv)))
+        hopper::encode_map(&m2.k, k, B, o.T, o.K, o.hd, W::keys_dkdv) &&
+        hopper::encode_map(&m2.v, v, B, o.T, o.K, o.hd, W::keys_dkdv)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto dqk = flash_attention_bwd_dq_wgmma_kernel<HD>;
   auto dkdv = flash_attention_bwd_dkdv_wgmma_kernel<HD>;
@@ -1362,6 +1428,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
                                 stream);
       if (geo.hd_tile == 128)
         return launch_wgmma<128>(q, k, v, dout, lse, dd, dq, dk, dv, B, o,
+                                 geo, stream);
+      if (geo.hd_tile == 256)
+        return launch_wgmma<256>(q, k, v, dout, lse, dd, dq, dk, dv, B, o,
                                  geo, stream);
     }
     return static_cast<int>(cudaErrorInvalidValue);

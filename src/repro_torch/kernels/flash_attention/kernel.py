@@ -14,11 +14,12 @@ gradient, f32 inside, the inputs' dtype out; deterministic (no
 atomics).  ``bwd_geometry`` routes a call by its shape, and passes the
 route, the tiles, the grids and the shared memory to the kernels:
 
-  * bf16 with hd ≤ 128, rows of whole 16-byte pieces and 16-byte-aligned
-    tensors (``copies_16_bytes``): the ``wgmma`` kernels, every product
-    on the tensor cores, tiles copied by TMA;
-  * f32, bf16 with 128 < hd ≤ 256, and rows that are not whole 16-byte
-    pieces: the f32-FMA kernels.
+  * bf16 with rows of whole 16-byte pieces and 16-byte-aligned tensors
+    (``copies_16_bytes``): the ``wgmma`` kernels, every product on the
+    tensor cores, tiles copied by TMA, on the instantiation of 64, 128
+    or 256 columns (at 256 with tiles of their own: ``_WGMMA_TILES``);
+  * f32, and rows that are not whole 16-byte pieces: the f32-FMA
+    kernels.
 
 The route is decided by shape alone: a launch that the card refuses
 raises, whatever the route.  ``ops.py`` puts the backward behind a
@@ -78,11 +79,12 @@ def copies_16_bytes(hd, element_size, *tensors) -> bool:
 # The backward's geometry.  The wgmma kernels: a block of three
 # warpgroups (two consumers, one producer), 128 query rows a dQ block
 # over streamed tiles of 64 keys, 128 keys a dK/dV block over streamed
-# tiles of 64 query rows, a ring of WGMMA_STAGES stages.  The FMA
-# kernels: 256 threads, tiles by width.  csrc/flash_attention_bwd.cu
-# checks what it is passed against its instantiations and refuses a
-# mismatch.
-WGMMA_MAX_HEAD_DIM = 128
+# tiles of 64 query rows, rings of WGMMA_STAGES stages; at hd 256 tiles
+# of 32 keys in a ring of 3 stages, and 64 keys a dK/dV block in a ring
+# of 2 (``_WGMMA_TILES``).  The FMA kernels: 256 threads, tiles by
+# width.  csrc/flash_attention_bwd.cu checks what it is passed against
+# its instantiations and refuses a mismatch.
+WGMMA_MAX_HEAD_DIM = 256
 SMEM_LIMIT = 232_448            # dynamic shared memory a block may use
 # At least half of an SM's 233,472 bytes less the 1 KB it keeps for each
 # block, so that one wgmma block holds an SM: setmaxnreg then finds the
@@ -90,7 +92,13 @@ SMEM_LIMIT = 232_448            # dynamic shared memory a block may use
 ONE_BLOCK_SMEM = 116 * 1024
 _ALIGN_SLACK = 1024             # the 128-byte swizzle repeats every 1 KB
 _FMA_TILES = {64: (64, 64), 128: (64, 32), 256: (32, 16)}  # hd: (BQ, BK)
-WGMMA_STAGES = 4                # the ring's stages (kStages)
+WGMMA_STAGES = 4                # the rings' stages (kStages) at hd ≤ 128
+# hd_tile: (dq_rows, dq_keys, dkdv_keys, dkdv_rows, the dQ kernel's
+# stages, the dK/dV kernel's); the geometry's ``stages`` is the dQ
+# kernel's, ``dkdv_smem`` holds the dK/dV kernel's ring
+_WGMMA_TILES = {64: (128, 64, 128, 64, WGMMA_STAGES, WGMMA_STAGES),
+                128: (128, 64, 128, 64, WGMMA_STAGES, WGMMA_STAGES),
+                256: (128, 32, 64, 64, 3, 2)}
 
 
 class BwdGeometry(NamedTuple):
@@ -98,11 +106,12 @@ class BwdGeometry(NamedTuple):
     arguments: ``route`` "wgmma" or "fma"; ``hd_tile`` the instantiation's
     width; a dQ block owns ``dq_rows`` query rows and walks tiles of
     ``dq_keys`` keys, a dK/dV block owns ``dkdv_keys`` keys and walks
-    tiles of ``dkdv_rows`` query rows, through ``stages`` buffers, with
-    ``threads`` threads; ``n_qt`` dQ blocks along S and ``n_kt`` dK/dV
-    blocks along T, ``dq_blocks`` and ``dkdv_blocks`` in all (× heads ×
-    batch); ``dq_smem`` and ``dkdv_smem`` bytes of dynamic shared
-    memory."""
+    tiles of ``dkdv_rows`` query rows, through ``stages`` buffers (the
+    dQ kernel's ring, which at hd 256 is deeper than the dK/dV
+    kernel's), with ``threads`` threads; ``n_qt`` dQ blocks along S and
+    ``n_kt`` dK/dV blocks along T, ``dq_blocks`` and ``dkdv_blocks`` in
+    all (× heads × batch); ``dq_smem`` and ``dkdv_smem`` bytes of
+    dynamic shared memory."""
     route: str
     hd_tile: int
     dq_rows: int
@@ -127,22 +136,22 @@ def bwd_geometry(B: int, S: int, T: int, H: int, K: int, hd: int, dtype,
     (``copies_16_bytes``)."""
     if not 0 < hd <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd} outside 1..{MAX_HEAD_DIM}")
+    hd_tile = 64 if hd <= 64 else 128 if hd <= 128 else 256
     if dtype == torch.bfloat16 and vec and hd <= WGMMA_MAX_HEAD_DIM:
-        hd_tile = 64 if hd <= 64 else 128
-        dq_rows, dq_keys, dkdv_keys, dkdv_rows = 128, 64, 128, 64
-        stages, threads = WGMMA_STAGES, 384
+        (dq_rows, dq_keys, dkdv_keys, dkdv_rows, stages,
+         dkdv_stages) = _WGMMA_TILES[hd_tile]
+        threads = 384
 
         def tile(rows):                 # bytes of a bf16 tile
             return rows * hd_tile * 2
         dq_smem = (_ALIGN_SLACK + 2 * tile(dq_rows)
                    + stages * 2 * tile(dq_keys))
-        dkdv_smem = (_ALIGN_SLACK + 2 * tile(dkdv_keys)
-                     + stages * (2 * tile(dkdv_rows) + 2 * dkdv_rows * 4))
+        dkdv_smem = (_ALIGN_SLACK + 2 * tile(dkdv_keys) + dkdv_stages
+                     * (2 * tile(dkdv_rows) + 2 * dkdv_rows * 4))
         dq_smem = max(dq_smem, ONE_BLOCK_SMEM)
         dkdv_smem = max(dkdv_smem, ONE_BLOCK_SMEM)
         route = "wgmma"
     else:
-        hd_tile = 64 if hd <= 64 else 128 if hd <= 128 else 256
         bq, bk = _FMA_TILES[hd_tile]
         dq_rows, dq_keys, dkdv_keys, dkdv_rows = bq, bk, bk, bq
         stages, threads = 1, 256

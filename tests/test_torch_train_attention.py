@@ -46,6 +46,7 @@ CASES = {
     "hd33_window": ((1, 43, 43, 4, 2, 33), True, 10, None),
     "no_key_rows_window": ((1, 40, 17, 4, 2, 16), False, 8, None),
     "no_key_rows_causal": ((1, 60, 25, 2, 1, 16), True, 8, None),
+    "rg_local_hd256": ((1, 48, 48, 4, 1, 256), True, 16, None),
 }
 
 

@@ -38,8 +38,11 @@ kernel's bits at each block size, or the tool fails.
 K3's rows also carry the kernel's device time from the profiler
 (``device_ms``): an event-timed call of K3 is mostly the host's launch.
 K5's backward runs at llama3.2-1b's training shape (4, 4096, 32:8, 64),
-causal, with the geometry ``kernel.bwd_geometry`` gives it, and its rows
-carry each kernel's device time (``device_ms_dq``, ``device_ms_dkdv``):
+causal (the instantiation of 64 columns), and at recurrentgemma-2b's
+local layer (2, 4096, 10:1, 256), causal with a window of 2048 (that of
+256 columns), each with the geometry ``kernel.bwd_geometry`` gives it
+(``shape`` in its rows); its rows carry each kernel's device time
+(``device_ms_dq``, ``device_ms_dkdv``):
 whole, without the exponentials (ex2 replaced by a copy), without the
 dQ kernel's D pass (its tiles waited for and handed back, nothing
 computed), and with the products of a warpgroup serialised against the
@@ -115,7 +118,7 @@ VARIANTS = {
         "no_exp2": [('  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
                      "  y = x;")],
         "no_d_pass": [("      const bool go = !pairs_closed(o, r_wg, r_wg + 63, "
-                       "k0, k0 + kKeysDq - 1);",
+                       "k0, k0 + kKeys - 1);",
                        "      const bool go = false;")],
         "serial_products": [
             ("      if (!cap) {\n        wgmma_wait<1>();",
@@ -211,6 +214,13 @@ PRECISION = ("whole", "exp2f", "no_lo_word", "no_recentre", "double_move")
 # the K3 variants that must give the whole kernel's bits
 K3_EXACT = ("no_exit", "bisection_r1", "multisection_r3", "bottles_in_smem")
 CAP = ("generic_waterfill", "hetero_waterfill")
+
+
+# K5's backward: llama3.2-1b's training shape (the instantiation of 64
+# columns) and recurrentgemma-2b's local layer (256 columns, its window):
+# (B, S, H, K, hd, window), causal
+BWD_SHAPES = {"llama_hd64": (4, 4096, 32, 8, 64, None),
+              "rg_local_hd256": (2, 4096, 10, 1, 256, 2048)}
 
 
 def build(out: Path, groups) -> dict:
@@ -402,17 +412,27 @@ def main():
     flags = torch.zeros(geo.flag_ints, dtype=torch.int32, device=dev)
     carry = torch.empty(geo.carry_floats, device=dev)
 
-    # K5's backward at llama3.2-1b's training shape, bf16, causal
-    Bb, Sb, Hb, Kb, hdb = 4, 4096, 32, 8, 64
-    qb = (torch.randn(Bb, Sb, Hb, hdb, generator=gen, device=dev)
-          * hdb ** -0.5).bfloat16()
-    kb, vb = (torch.randn(Bb, Sb, Kb, hdb, generator=gen,
-                          device=dev).bfloat16() for _ in range(2))
-    dob = torch.randn(Bb, Sb, Hb, hdb, generator=gen, device=dev).bfloat16()
-    _, lseb = fk.flash_attention(qb, kb, vb, return_lse=True)
-    bwd_out = [torch.empty_like(x) for x in (qb, kb, vb)]
-    ddb = torch.empty_like(lseb)
-    geo_b = fk.bwd_geometry(Bb, Sb, Sb, Hb, Kb, hdb, torch.bfloat16, True)
+    keep = []   # the backward's tensors, alive while their pointers are
+    # K5's backward at llama3.2-1b's training shape and at
+    # recurrentgemma-2b's local layer, bf16: (B, S, H, K, hd, window)
+    bwd_args = {}
+    for shape, (Bb, Sb, Hb, Kb, hdb, W) in BWD_SHAPES.items():
+        qb = (torch.randn(Bb, Sb, Hb, hdb, generator=gen, device=dev)
+              * hdb ** -0.5).bfloat16()
+        kb, vb = (torch.randn(Bb, Sb, Kb, hdb, generator=gen,
+                              device=dev).bfloat16() for _ in range(2))
+        dob = torch.randn(Bb, Sb, Hb, hdb, generator=gen,
+                          device=dev).bfloat16()
+        _, lseb = fk.flash_attention(qb, kb, vb, return_lse=True, window=W)
+        ins = (qb, kb, vb, dob, lseb, torch.empty_like(lseb),
+               *(torch.empty_like(x) for x in (qb, kb, vb)))
+        geo_b = fk.bwd_geometry(Bb, Sb, Sb, Hb, Kb, hdb, torch.bfloat16,
+                                True)
+        bwd_args[shape] = (
+            *[P(t.data_ptr()) for t in ins],
+            Bb, Sb, Sb, Hb, Kb, hdb, 1, W or 0, ctypes.c_float(0.0),
+            int(geo_b.route == "wgmma"), *geo_b[1:], stream)
+        keep.append(ins)
 
     cap = CapCalls(dev)
     level = LevelCalls(dev)
@@ -432,11 +452,8 @@ def main():
         elif kernel == "flash_attention_bwd":
             fn = ctypes.CDLL(str(lib)).flash_attention_bwd_bf16
             fn.argtypes = [*fk._BWD_ARGS, P]
-            args = (*[P(t.data_ptr()) for t in (qb, kb, vb, dob, lseb, ddb,
-                                                 *bwd_out)],
-                    Bb, Sb, Sb, Hb, Kb, hdb, 1, 0, ctypes.c_float(0.0),
-                    int(geo_b.route == "wgmma"), *geo_b[1:], stream)
-            calls[kernel, name] = (fn, args, None)
+            for shape, args in bwd_args.items():
+                calls[kernel, name, shape] = (fn, args, None)
         else:  # linear_scan
             fn = ctypes.CDLL(str(lib)).linear_scan_f32
             fn.argtypes = [P, P, P, *[I] * 5, P, P, P]
@@ -484,9 +501,9 @@ def main():
                     lambda: run(fn, args, scratch),
                     f"flash_attention_bwd_{k}_wgmma_kernel")
                     for k in ("dq", "dkdv")}
+            third = "shape" if key[0] == "flash_attention_bwd" else "threads"
             print(json.dumps({"kernel": key[0], "variant": key[1],
-                              **({"threads": key[2]} if len(key) > 2
-                                 else {}),
+                              **({third: key[2]} if len(key) > 2 else {}),
                               "round": rnd, "ms": ms, **dev_ms}), flush=True)
         print(json.dumps({"kernel": "linear_scan", "variant":
                           "torch.add over the same bytes", "round": rnd,

@@ -10,7 +10,8 @@ card; CUDA events, synchronisation, memory statistics and the profiler
 are faked; ``get_config`` gives the smoke config in bf16 for the full
 one, and the sequence lengths are cut to 64 (32 for the substrate; the
 hd-128 timing shape's too).  The faked profiler shows the backward
-kernels of the route ``bwd_geometry`` gave the last backward call.  It
+kernels of the geometry ``bwd_geometry`` gave the last backward call,
+named as a trace names them (``chip_smoke.bwd_kernels``).  It
 runs every check of the phase on that path, so it finds wrong paths,
 shapes, launch counts and control flow before a chip call; its numbers
 are no measurement of anything.  About 15 s on an 8-core CPU.
@@ -61,15 +62,15 @@ def forward(q, k, v, *, causal=True, window=None, cap=None,
     return out, lse.reshape(B, H, S)
 
 
-_LAST_ROUTE = ["wgmma"]   # the route of the last backward call
+_LAST_GEOMETRY = [None]   # the geometry of the last backward call
 
 
 def backward(q, k, v, dout, lse, *, causal=True, window=None, cap=None):
     fk.LAUNCHES["flash_attention_bwd"] += 1
     B, S, H, hd = q.shape
-    _LAST_ROUTE[0] = fk.bwd_geometry(
+    _LAST_GEOMETRY[0] = fk.bwd_geometry(
         B, S, k.shape[1], H, k.shape[2], hd, q.dtype,
-        fk.copies_16_bytes(hd, q.element_size(), q, k, v, dout)).route
+        fk.copies_16_bytes(hd, q.element_size(), q, k, v, dout))
     with torch.enable_grad():
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
         attention_ref(*leaves, causal=causal, window=window,
@@ -105,13 +106,23 @@ class _DeviceRecord:
         return 1000
 
 
+def _traced(name):
+    """A kernel of ``chip_smoke.bwd_kernels`` as a trace names it:
+    demangled, the FMA pair with its element type."""
+    base, width = name[:-1].split("<")
+    args = width if "_wgmma" in base else f"__nv_bfloat16, {width}"
+    return f"void (anonymous namespace)::{base}<{args}>(float const*)"
+
+
 @contextlib.contextmanager
 def _profile(**kw):
-    """K5's backward's two kernels on the route of its last call, and
-    K4's backward kernel."""
+    """K5's backward's two kernels of the geometry of its last call,
+    demangled as a trace shows them, and K4's backward kernel."""
     def events():
+        geo = _LAST_GEOMETRY[0]
+        k5 = [] if geo is None else map(_traced, cs.bwd_kernels(geo))
         return [_DeviceRecord(name) for name in
-                [*cs.BWD_KERNELS[_LAST_ROUTE[0]], "linear_scan_bwd_kernel"]]
+                [*k5, "linear_scan_bwd_kernel"]]
     yield types.SimpleNamespace(profiler=types.SimpleNamespace(
         kineto_results=types.SimpleNamespace(events=events)))
 

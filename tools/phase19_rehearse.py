@@ -11,8 +11,10 @@ K4's: its forward and backward wrappers become their plain versions
 as the kernels are, and the scan op dispatches to them as on the card.
 The shapes are cut: K4's path shapes and ``K4_OPTIONS`` to a few
 hundred steps (the long chain to 5,000 steps, past a plain-autograd
-cut of 1,000), K5's local layer to 64 tokens and a window of 16, the
-training sequences to 64 tokens.  It runs every check of the phase on
+cut of 1,000), K5's local layer to 64 tokens and a window of 16
+(``K5_BWD_HD256_OPTIONS`` run as they are, ≤ 700 rows), the training
+sequences to 64 tokens.  The faked profiler names the backward kernels
+of each call's geometry, so (a′) sees ``..._wgmma_kernel<256>``.  It runs every check of the phase on
 that path, so it finds wrong paths, shapes, launch counts and control
 flow before a chip call; its numbers are no measurement of anything.
 It also counts the phase's device work at its real shapes where that is
