@@ -262,12 +262,35 @@ Phases (each one is a check; any failure exits non-zero):
      against the plain versions at 3 recurrentgemma and 2 Mamba layers,
      within twice a floor.  ``tools/phase19_rehearse.py`` rehearses it
      on the CPU.
+ 20. training the MoE, the VLM and the encoder–decoder (``train_new_*``
+     lines), each freed before the next: (b) qwen2-moe-a2.7b at full
+     width and 4 of its 24 layers (2.905 B parameters), internvl2-1b
+     (24 layers, 256 patches before 4096 tokens) and
+     seamless-m4t-medium (12 + 12 layers over 4096 frames) not cut,
+     train 4 steps of 4 × 4096 tokens in 2 micro-batches, counted (16,
+     96 and 144 K5 forward, 8, 48 and 72 backward launches a step), with
+     the MoE's choices dropped by capacity and largest expert load a
+     step and remat's router recompute held to its forward's top-k; (a)
+     K5's backward on layer 0's q/k/v of the first forward (qwen2-moe's
+     (2, 4096, 16:16, 128) causal, internvl2's (2, 4352, 14:2, 64)
+     causal, seamless's bidirectional encoder, causal decoder and
+     cross-attention) at phase 18(a)'s limits and faults, on the wgmma
+     pair of the head width, timed beside SDPA's backward; (c) one step
+     at 1 × 4096 at 2 layers (2 + 2) through the kernels against the
+     plain versions within twice a floor (two seeds), qwen2-moe's runs at
+     the kernel run's routes and its free routes counted against their
+     own floor; (d) ``repro_torch.launch.train`` on qwen2-moe's smoke
+     config for 3 steps under ``--policy dp_tp`` and ``zero3``: the same
+     losses bit for bit, the 1 × 1 host mesh on the card, no parameter
+     placed over a mesh axis of more than one device.
+     ``tools/phase20_rehearse.py`` rehearses it on the CPU and counts
+     the MoE step's peak memory.
 
 Launch counters are reset before phases 3–4 drive the planning path,
 before phases 7, 16(b) and each part of 17 drive the serving paths, before phases 11,
 13, 14, 15 and 16(a), before each float32 run of phase 12 and before
-the training runs of phases 18(b), 19(b) and 19(c), and read right
-after each;
+the training runs of phases 18(b), 19(b), 19(c) and 20(b), and read
+right after each;
 the comparisons and timings come later and do not count.  Prints one
 JSON line per measurement, the kernel summary line ``{"kernels": [...]}``
 (seven kernels, each with its device ms; K1 and K2 also with their
@@ -278,8 +301,10 @@ launches, ``new_paths_launches``, its times at qwen2-moe's shape,
 its launches in phase 18(b) and its times at the hd-128 shape,
 ``hd128_shape``, and at recurrentgemma's hd-256 local layer,
 ``hd256_shape``; K4's backward with its launches in phase 19(b)–(c),
-its times at both path shapes and its training figures), the card
-line, and last
+its times at both path shapes and its training figures; K5 also with
+phase 20(b)'s launches a step, ``new_train_launches_per_step``, and K5's
+backward with phase 20's launches, training figures and times on each
+path, ``new_train_paths``), the card line, and last
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -4173,8 +4198,9 @@ def k5_bwd_time(torch, q, k, v, do, kw, plain=True):
     op and device ms by kernel, the plain version (forward and backward
     through ``attention_ref``) unless ``plain`` is false, SDPA's
     backward (``enable_gqa``; ``is_causal``, which takes the flash
-    backend, or with a window its band as a boolean mask; timed here,
-    off the path) and the bound, 10·hd operations a valid (q, k) pair
+    backend, with a window its band as a boolean mask, no mask when not
+    causal; timed here, off the path) and the bound, 10·hd operations a
+    valid (q, k) pair
     (QKᵀ and dO·Vᵀ again, dV, dK, dQ) at the bf16 peak.  Fails unless
     the profiler saw the kernels of the call's geometry
     (``bwd_kernels``)."""
@@ -4195,9 +4221,12 @@ def k5_bwd_time(torch, q, k, v, do, kw, plain=True):
                 & (pos[:, None] - pos[None, :] < W))
         sdpa_kw = {"attn_mask": band}
         pairs = B_ * H * sum(min(i + 1, W) for i in range(S))
-    else:
+    elif kw.get("causal", True):
         sdpa_kw = {"is_causal": True}
         pairs = B_ * H * S * (S + 1) // 2
+    else:
+        sdpa_kw = {}
+        pairs = B_ * H * S * k.shape[1]
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q16, k16, v16))
     o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, scale=1.0,
@@ -4371,25 +4400,46 @@ def train_end_to_end(torch, dev, model, cfg, sites, expect, noise,
     readings, the largest over ``seeds``.  ``sites`` maps a
     kernel to (module, attribute, plain version, seed → the plain version
     with noise) of its call site in the model; ``expect`` is the kernel
-    run's launches (any other kernel must launch none)."""
-    from repro_torch.data import SyntheticTokens
-    from repro_torch.train.loop import loss_and_grads
+    run's launches (any other kernel must launch none).
 
-    batch = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_E2E_SEQ,
-                            global_batch=1, seed=1).batch_at(0)
+    A MoE's runs (plain and floors) replay the kernel run's routes, call
+    for call (``route_replay``), so that the readings are what the
+    kernels move at fixed routes; the routes themselves are counted
+    apart: the forward's top-k selections and capacity decisions of the
+    plain version running free (no gradient: the same forward) that
+    differ from the kernel run's (``route_diff``), within twice those of
+    each floor run against the plain one."""
+    from repro_torch.data import SyntheticTokens, host_batch_iterator
+    from repro_torch.models.transformer import model_apply
+    from repro_torch.train.loop import cast_copy, loss_and_grads
+
+    src = SyntheticTokens(vocab=cfg.vocab, seq_len=TRAIN_E2E_SEQ,
+                          global_batch=1, seed=1)
+    batch = next(host_batch_iterator(src, cfg))
+    kroutes = []
     reset_all_launches()
-    kern = loss_and_grads(model, batch)
+    with (route_recorder(torch, kroutes, lambda: True) if cfg.moe
+          else contextlib.nullcontext()):
+        kern = loss_and_grads(model, batch)
     torch.cuda.synchronize()
     n_k = all_launches()
     check(all(n == expect.get(k, 0) for k, n in n_k.items()),
           f"{tag}: the kernel run launched {n_k}, not {expect}")
 
-    def plain_run(fns):
+    def plain_run(fns, routes=None):
         reset_all_launches()
         with contextlib.ExitStack() as stack:
             for name, (mod, attr, *_) in sites.items():
                 stack.enter_context(mock.patch.object(mod, attr, fns[name]))
-            out = loss_and_grads(model, batch)
+            if routes is not None:      # free, forward only: the routes
+                stack.enter_context(route_recorder(torch, routes,
+                                                   lambda: True))
+                with torch.no_grad():
+                    out = model_apply(cast_copy(model), batch)
+            else:
+                if cfg.moe:
+                    stack.enter_context(route_replay(torch, kroutes))
+                out = loss_and_grads(model, batch)
         torch.cuda.synchronize()
         n = all_launches()
         check(not any(n.values()), f"a plain run of {tag} launched: {n}")
@@ -4405,13 +4455,40 @@ def train_end_to_end(torch, dev, model, cfg, sites, expect, noise,
     floor = {k: max(got[f"floor_seed{s}"][k] for s in seeds)
              for k in got["kernel"]}
     limits = {k: 2 * v for k, v in floor.items()}
-    emit({"phase": tag, "tokens": TRAIN_E2E_SEQ,
+    routes = {}
+    if cfg.moe:
+        # the forward's router calls are the first of each layer's two
+        # (remat recomputes it in the backward pass)
+        fwd = kroutes[:cfg.n_layers]
+        free = []
+        plain_run({k: v[2] for k, v in sites.items()}, routes=free)
+        routes = {"kernel": route_diff(torch, cfg, fwd, free)}
+        for seed in seeds:
+            rts = []
+            plain_run({k: v[3](seed) for k, v in sites.items()},
+                      routes=rts)
+            routes[f"floor_seed{seed}"] = route_diff(torch, cfg, rts, free)
+        routes["limits"] = {
+            key: 2 * max(routes[f"floor_seed{s}"][key] for s in seeds)
+            for key in ("selections", "drops")}
+        routes["recompute_equals_forward"] = all(
+            torch.equal(a, b) for a, b in zip(
+                fwd, reversed(kroutes[cfg.n_layers:])))
+    emit({"phase": tag, "tokens": TRAIN_E2E_SEQ, "layers": cfg.n_layers,
           "loss_plain": float(plain[0]), "limits": limits, "noise": noise,
-          **got})
+          "routes_replayed": cfg.moe, "routes": routes, **got})
     for k, lim in limits.items():
         check(got["kernel"][k] <= lim,
               f"{tag}: the kernel step's {k} reads {got['kernel'][k]:.3e} "
               f"over twice the floor, {lim:.3e}")
+    if cfg.moe:
+        check(len(kroutes) == 2 * cfg.n_layers
+              and routes["recompute_equals_forward"],
+              f"{tag}: remat's router calls did not repeat the forward's")
+        for key, lim in routes["limits"].items():
+            check(routes["kernel"][key] <= lim,
+                  f"{tag}: {routes['kernel'][key]} route {key} differ from "
+                  f"the plain run's, over twice the floor's ({lim})")
 
 
 def attention_site(torch, dev, fwd_rel, bwd_rel):
@@ -4603,11 +4680,17 @@ def train_launches(cfg, seq, micro):
     ``seq`` tokens a row in ``micro`` micro-batches under remat "full":
     each K4 and K5 forward twice a layer and micro-batch (the checkpoint
     recomputes it in the backward pass), each backward once; K4 once an
-    RG-LRU layer and once a chunk of each Mamba layer."""
+    RG-LRU layer and once a chunk of each Mamba layer.  K5 runs once an
+    attention layer (the VLM's patches ride in the same call), and in an
+    encoder–decoder once an encoder layer (bidirectional) and twice a
+    decoder layer (causal self-attention, then cross-attention over the
+    encoder's output)."""
     kinds = [cfg.cycle[i % len(cfg.cycle)] for i in range(cfg.n_layers)]
     scans = (kinds.count("rglru")
              + kinds.count("mamba") * -(-seq // min(cfg.scan_chunk, seq)))
     attn = len(kinds) - kinds.count("rglru") - kinds.count("mamba")
+    if cfg.encoder_decoder:
+        attn = 2 * attn + cfg.n_enc_layers
     return {"flash_attention": 2 * attn * micro,
             "flash_attention_bwd": attn * micro,
             "linear_scan": 2 * scans * micro,
@@ -4616,13 +4699,15 @@ def train_launches(cfg, seq, micro):
 
 def untrained_logits(torch, model, batch, n=512):
     """What the untrained model predicts on the first ``n`` tokens of
-    ``batch``'s first row: its loss there, and the share of positions
-    whose largest logit is the input token or the label."""
+    ``batch``'s first row (behind the row's patches, over its first
+    ``n`` frames): its loss there, and the share of positions whose
+    largest logit is the input token or the label."""
     from repro_torch.models.transformer import model_apply
     row = {k: v[:1, :n] for k, v in batch.items()}
     with torch.no_grad():
         loss, _, logits = model_apply(model, row, return_logits=True)
-        top = logits.argmax(-1).cpu()
+        # the text positions, past a VLM's patches
+        top = logits[:, -row["tokens"].shape[1]:].argmax(-1).cpu()
     return {"tokens": n, "loss": float(loss),
             "argmax_is_input": float((top == torch.as_tensor(
                 row["tokens"])).float().mean()),
@@ -4659,7 +4744,7 @@ def train_main_path(torch, np, dev, cfg, arch, tag, steps, batch, seq,
     opt = AdamWConfig(**TRAIN_OPT)
     step = make_train_step(cfg, opt, microbatches=micro)
     src = SyntheticTokens(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
-    init = untrained_logits(torch, model, src.batch_at(0))
+    init = untrained_logits(torch, model, next(host_batch_iterator(src, cfg)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
@@ -5129,6 +5214,293 @@ def scan_train_phase(torch, np, dev):
     return launches, k4_rec, k5_rec
 
 
+
+# ---- phase 20: training the MoE, the VLM and the encoder–decoder ----------
+# qwen2-moe-a2.7b at full width and NEW_TRAIN_LAYERS of its 24 layers
+# (the peak count of ``tools/phase20_rehearse.py``: 24 B a parameter and
+# the MoE's dispatch), internvl2-1b (24 layers; 256 patches before 4096
+# tokens, K5 at 4,352 rows, GQA 14:2 at hd 64) and seamless-m4t-medium
+# (12 + 12 layers; 4096 frames into the bidirectional encoder, the
+# decoder's causal self-attention and cross-attention over them) not
+# cut, each freed before the next.  (b) Each trains NEW_TRAIN_STEPS steps
+# of NEW_TRAIN_BATCH × TRAIN_SEQ tokens in NEW_TRAIN_MICRO micro-batches
+# through ``train_main_path``, counted (``train_launches``); for the MoE
+# each step's choices dropped by capacity and largest expert load, and
+# remat's recompute of each router call against its forward (the same
+# top-k, so the same drops).  (a) K5's backward on layer 0's q/k/v of
+# step 0's first micro-batch (seamless: the first encoder layer's, the
+# first decoder layer's self- and cross-attention) at 18(a)'s limits and
+# faults, on the wgmma kernels of the head width, timed beside SDPA's
+# backward.  (c) One step at 1 × TRAIN_E2E_SEQ at NEW_E2E_LAYERS layers
+# (2 + 2 for seamless) through the kernels against the plain versions,
+# within twice the floor over NEW_FLOOR_SEEDS, the MoE's runs at the
+# kernel run's routes and its free routes against their own floor.  (d)
+# The launcher on qwen2-moe's smoke config for POLICY_STEPS steps under
+# each policy: the same losses bit for bit, the 1 × 1 host mesh on the
+# card, no parameter placed over a mesh axis of more than one device.
+NEW_TRAIN_ARCHS = (MOE_ARCH, VLM_ARCH, ENCDEC_ARCH)
+NEW_TRAIN_LAYERS = {MOE_ARCH: 4}
+NEW_TRAIN_STEPS, NEW_TRAIN_BATCH, NEW_TRAIN_MICRO = 4, 4, 2
+NEW_E2E_LAYERS = 2
+NEW_FLOOR_SEEDS = (1, 2)
+POLICY_STEPS = 3
+
+
+def new_train_config(arch, layers=None):
+    """``arch``'s full config cut to ``layers`` layers (an encoder's
+    too), or to its NEW_TRAIN_LAYERS."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    layers = layers or NEW_TRAIN_LAYERS.get(arch)
+    if not layers:
+        return cfg
+    if cfg.encoder_decoder:
+        return cfg.replace(n_layers=layers, n_enc_layers=layers)
+    return cfg.replace(n_layers=layers)
+
+
+def path_taps(cfg):
+    """The K5 calls of a training forward that 20(a) holds: label →
+    the call's index (layer 0; an encoder–decoder's first encoder layer,
+    then its first decoder layer's self- and cross-attention)."""
+    if cfg.encoder_decoder:
+        return {"encoder": 0, "decoder": cfg.n_enc_layers,
+                "cross": cfg.n_enc_layers + 1}
+    return {"layer0": 0}
+
+
+@contextlib.contextmanager
+def train_taps(torch, cfg, qkv, routes):
+    """While a gradient is taken: copies of the q/k/v and options of the
+    K5 calls of ``path_taps`` into ``qkv`` (the first forward's), and each
+    MoE router call's top-k into ``routes`` (``route_recorder``)."""
+    from repro_torch.models import attention as attn_mod
+    op = attn_mod.flash_attention_op
+    want = {i: label for label, i in path_taps(cfg).items()}
+    calls = [0]
+
+    def run(q, k, v, **kw):
+        if torch.is_grad_enabled():
+            if calls[0] in want and want[calls[0]] not in qkv:
+                qkv[want[calls[0]]] = (tuple(x.detach().clone()
+                                             for x in (q, k, v)), dict(kw))
+            calls[0] += 1
+        return op(q, k, v, **kw)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(attn_mod,
+                                              "flash_attention_op", run))
+        if cfg.moe:
+            stack.enter_context(route_recorder(torch, routes,
+                                               torch.is_grad_enabled))
+        yield
+
+
+def train_route_stats(torch, cfg, routes):
+    """20(b)'s MoE routes: each micro-batch's router calls are its L
+    forward calls, then remat's L recomputes in reverse order.  Prints,
+    a step, the choices dropped by capacity and the largest expert load
+    of each layer (``route_stats`` of each micro-batch's forward, summed
+    and maxed over the micro-batches); fails unless every recompute took
+    its forward's top-k."""
+    L = cfg.n_layers
+    check(len(routes) == 2 * L * NEW_TRAIN_MICRO * NEW_TRAIN_STEPS,
+          f"{cfg.name}: {len(routes)} router calls in (b)")
+    mbs = [routes[i:i + 2 * L] for i in range(0, len(routes), 2 * L)]
+    stats = [route_stats(cfg, mb[:L]) for mb in mbs]
+    same = [all(torch.equal(a, b) for a, b in zip(mb[:L], reversed(mb[L:])))
+            for mb in mbs]
+    steps = []
+    for i in range(0, len(stats), NEW_TRAIN_MICRO):
+        part = stats[i:i + NEW_TRAIN_MICRO]
+        steps.append({
+            "dropped": [sum(x) for x in zip(*(p["dropped"] for p in part))],
+            "max_load": [max(x) for x in zip(*(p["max_load"]
+                                               for p in part))]})
+    emit({"phase": "train_new_moe_routes", "group": stats[0]["group"],
+          "capacity": stats[0]["capacity"],
+          "choices_per_microbatch_layer": stats[0]["choices"],
+          "steps": steps, "recompute_equals_forward": same})
+    check(all(same), f"{cfg.name}: remat's router recompute took other "
+                     f"top-k than its forward: {same}")
+
+
+def k5_train_path(torch, dev, label, qkv, kw, seed=20):
+    """20(a) on one captured call: K5's backward against its plain
+    version (``bwd_readings`` at 18(a)'s limits and faults) on the call's
+    q/k/v (bf16, cast up for the f32 readings) and a dO from a seed; the
+    bf16 call's route must be the wgmma pair of the head width, and its
+    times beside SDPA's backward (``k5_bwd_time``, which fails unless the
+    profiler saw that pair).  Returns (the readings, the time record)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    q, k, v = (x.float() for x in qkv)
+    kw = {"causal": kw.get("causal", True), "window": kw.get("window"),
+          "cap": kw.get("cap")}
+    do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    r = bwd_readings(torch, q, k, v, do, kw)
+    B_, S, H, hd = q.shape
+    geo = fk.bwd_geometry(B_, S, k.shape[1], H, k.shape[2], hd,
+                          torch.bfloat16, fk.copies_16_bytes(
+                              hd, 2, *(x.bfloat16() for x in (q, k, v, do))))
+    emit({"phase": f"train_new_k5_bwd_{label}", "q": list(q.shape),
+          "kv": list(k.shape), **kw, "route": geo.route,
+          "kernels": bwd_kernels(geo),
+          "limits": {"f32": BWD_F32_LIMIT, "bf16": BWD_BF16_LIMIT,
+                     "bf16_rms": BWD_BF16_RMS_LIMIT}, **r})
+    check_bwd(f"K5 bwd on {label}", r)
+    width = min(w for w in (64, 128, 256) if w >= hd)
+    check(geo.route == "wgmma" and geo.hd_tile == width,
+          f"K5 bwd on {label} took the {geo.route} route at width "
+          f"{geo.hd_tile}, not wgmma at {width}")
+    rec, sdpa_err = k5_bwd_time(torch, q, k, v, do, kw, plain=False)
+    rec["max_abs_err"] = r["bf16_max_abs"]
+    emit({"phase": f"train_new_k5_bwd_time_{label}", **rec,
+          "sdpa_bwd_vs_plain_bf16_rel": sdpa_err})
+    return r, rec
+
+
+def _spec_axes(spec):
+    """The mesh axes each entry of a PartitionSpec names."""
+    return [() if e is None else (e,) if isinstance(e, str) else e
+            for e in spec]
+
+
+def leaf_paths(tree, prefix=""):
+    """(path, shape) of every array of nested dicts and tuples, the path
+    spelled as the JAX package's dryrun spells a leaf's."""
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tuple(tree.shape))]
+    return [x for k, v in items
+            for x in leaf_paths(v, f"{prefix}/{k}" if prefix else str(k))]
+
+
+def policy_phase(torch, np, dev):
+    """20(d): ``python -m repro_torch.launch.train`` on MOE_ARCH's smoke
+    config for POLICY_STEPS steps under each policy, on the card by
+    default: the same losses bit for bit, K5 and its backward launched;
+    inside, the launcher's mesh is 1 × 1 on the current card under the
+    policy's rules, and every parameter's ``param_sharding`` (its JAX
+    path and shape, ``convert.arrays_from_params``) names no mesh axis
+    of more than one device; outside, no mesh is left installed."""
+    import tempfile
+    from repro_torch import convert
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train as launch_train
+
+    loop = launch_train.train_loop
+    seen = []
+
+    def spy(cfg, opt, state, *args, **kw):
+        mesh = sharding.active_mesh()
+        size = mesh.shape
+        specs = [sharding.param_sharding(path, shape) for path, shape in
+                 leaf_paths(convert.arrays_from_params(cfg, state.params))]
+        seen.append({
+            "mesh": size, "devices": [str(d) for d in mesh.devices.flat],
+            "rules": sharding._rules(), "leaves": len(specs),
+            "leaves_naming_an_axis": sum(any(_spec_axes(s))
+                                         for s in specs),
+            "over_more_than_one_device": sum(
+                any(np.prod([size[a] for a in axes]) > 1
+                    for axes in _spec_axes(s)) for s in specs)})
+        return loop(cfg, opt, state, *args, **kw)
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(launch_train, "train_loop", spy):
+        for policy in sorted(sharding.POLICIES):
+            reset_all_launches()
+            t0 = time.perf_counter()
+            hist = launch_train.main([
+                "--arch", MOE_ARCH, "--steps", str(POLICY_STEPS),
+                "--policy", policy, "--ckpt-dir", f"{tmp}/{policy}"])
+            torch.cuda.synchronize()
+            runs[policy] = {"losses": [h["loss"] for h in hist],
+                            "launches": all_launches(),
+                            "wall_s": time.perf_counter() - t0}
+    card = str(dev if dev.type != "cuda" or dev.index is not None
+               else torch.device("cuda", torch.cuda.current_device()))
+    inside = [{k: v for k, v in s.items() if k != "rules"} for s in seen]
+    emit({"phase": "train_new_policies", "arch": MOE_ARCH, "runs": runs,
+          "inside": inside})
+    losses = [r["losses"] for r in runs.values()]
+    check(all(x == losses[0] for x in losses) and len(losses[0])
+          == POLICY_STEPS and all(np.isfinite(losses[0])),
+          f"(d) the policies' losses differ: {runs}")
+    for policy, r, s in zip(sorted(sharding.POLICIES), runs.values(), seen):
+        check(s["mesh"] == {"data": 1, "model": 1} and s["devices"] == [card]
+              and s["rules"] == sharding.POLICIES[policy]
+              and s["leaves"] > 0 and s["over_more_than_one_device"] == 0,
+              f"(d) inside the launcher under {policy}: {s}")
+        check(r["launches"]["flash_attention"] > 0
+              and r["launches"]["flash_attention_bwd"] > 0,
+              f"(d) the launcher under {policy} launched {r['launches']}")
+    check(sharding.active_mesh() is None,
+          "(d) the launcher left a mesh installed")
+
+
+def new_train_phase(torch, np, dev):
+    """Phase 20: (b) each of NEW_TRAIN_ARCHS trains, counted, with (a)'s
+    inputs captured from its first forward; (a) K5's backward on them;
+    (c) kernel against plain end to end at a cut depth; (d) the launcher
+    under each policy.  Returns ((b)'s launches by arch, (b)'s figures
+    by arch, (a)'s time records by arch and call)."""
+    from repro_torch.models import init_params
+
+    launches, figs, recs = {}, {}, {}
+    for arch in NEW_TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        cfg = new_train_config(arch)
+        qkv, routes = {}, []
+        with train_taps(torch, cfg, qkv, routes):
+            state, n, per_step, figs[arch] = train_main_path(
+                torch, np, dev, cfg, arch, f"train_new_{arch}",
+                NEW_TRAIN_STEPS, NEW_TRAIN_BATCH, TRAIN_SEQ,
+                NEW_TRAIN_MICRO)
+        launches[arch] = {"total": n, "per_step": per_step}
+        del state
+        torch.cuda.empty_cache()
+        if cfg.moe:
+            train_route_stats(torch, cfg, routes)
+        check(sorted(qkv) == sorted(path_taps(cfg)),
+              f"{arch}: (a)'s K5 calls were not captured: {sorted(qkv)}")
+        t1 = time.perf_counter()
+        reads = {}
+        for label in path_taps(cfg):
+            reads[label], recs[f"{arch}/{label}"] = k5_train_path(
+                torch, dev, f"{arch}_{label}", *qkv.pop(label))
+            torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+
+        # (c) kernel against plain, end to end, at a cut depth
+        fwd = max(r["fwd_bf16_rel_rms"] for r in reads.values())
+        bwd = max(r["bf16_rel_rms"] for r in reads.values())
+        cut = new_train_config(arch, NEW_E2E_LAYERS)
+        model = init_params(cut, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, dtype=torch.float32, trainable=True)
+        train_end_to_end(
+            torch, dev, model, cut,
+            {"K5": attention_site(torch, dev, fwd, bwd)},
+            train_launches(cut, TRAIN_E2E_SEQ, 1),
+            {"fwd_rel_rms": fwd, "bwd_rel_rms": bwd},
+            tag=f"train_new_end_to_end_{arch}", seeds=NEW_FLOOR_SEEDS)
+        del model
+        torch.cuda.empty_cache()
+        emit({"phase": "train_new_wall", "arch": arch,
+              "main_path_s": t1 - t0, "k5_bwd_s": t2 - t1,
+              "end_to_end_s": time.perf_counter() - t2})
+
+    t0 = time.perf_counter()
+    policy_phase(torch, np, dev)
+    emit({"phase": "train_new_policies_wall",
+          "wall_s": time.perf_counter() - t0})
+    return launches, figs, recs
+
+
 def main():
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -5545,6 +5917,23 @@ def main():
           "wall_s": time.perf_counter() - t0})
     bwd_rec["hd256_shape"] = k5_hd256
     kernels.append(k4_bwd_rec)
+
+    # ---- 20. training the MoE, the VLM and the encoder–decoder ------------
+    t0 = time.perf_counter()
+    launches20, figs20, recs20 = new_train_phase(torch, np, dev)
+    emit({"phase": "train_new", "launches": launches20,
+          "wall_s": time.perf_counter() - t0})
+    for rec in kernels:
+        if rec["name"] == "flash_attention":
+            rec["new_train_launches_per_step"] = {
+                a: n["per_step"]["flash_attention"]
+                for a, n in launches20.items()}
+    bwd_rec["new_train_paths"] = {
+        "launches": {a: n["total"]["flash_attention_bwd"]
+                     for a, n in launches20.items()},
+        "launches_per_step": {a: n["per_step"]["flash_attention_bwd"]
+                              for a, n in launches20.items()},
+        "train": figs20, "times": recs20}
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -1,16 +1,21 @@
-"""Train launcher: data, model, the train step and loop, checkpoints.
+"""Train launcher: mesh, policy, data, model, the train step and loop,
+checkpoints.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
-        --steps 200 [--no-smoke] [--resume] [--device cpu]
+        --steps 200 [--no-smoke] [--policy zero3] [--resume] [--device cpu]
 
 Trains the architecture's smoke config by default, as the JAX launcher
 does (its ``--smoke`` is ``store_true`` with ``default=True``, so it can
 never be turned off; here ``--no-smoke`` asks for the full config), with
 random weights from seed 0, f32 masters and the config's compute dtype,
-on CUDA unless ``--device`` says otherwise.  The sharding policies of the
-JAX launcher (``--policy``) are not ported: one process drives one
-device.  ``chip_smoke.py`` drives the full-width llama3.2-1b through the
-train step on the card.
+on CUDA unless ``--device`` says otherwise.  As the JAX launcher, it
+installs the 1×1 host mesh (``launch/mesh.py``) with ``set_mesh`` and
+runs under the sharding policy ``--policy`` (``POLICIES``: ``dp_tp``,
+``zero3``); the mesh is cleared again when it returns.  One process
+drives one device, so a policy changes where specs place the
+parameters, never a number.  ``chip_smoke.py`` drives full-width
+models through the train step on the card, and this launcher under
+each policy.
 """
 from __future__ import annotations
 
@@ -24,10 +29,12 @@ import torch
 from .._device import resolve_device
 from ..configs import get_config
 from ..data import SyntheticTokens, host_batch_iterator
+from ..distributed.sharding import POLICIES, set_mesh, with_logical_rules
 from ..models import init_params
 from ..train import (AdamWConfig, CheckpointHook, HeartbeatMonitor,
                      TrainState, checkpoint as ckpt, make_train_step,
                      train_loop)
+from .mesh import make_host_mesh
 
 
 def main(argv=None):
@@ -37,6 +44,7 @@ def main(argv=None):
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--policy", default="dp_tp", choices=sorted(POLICIES))
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--ckpt-dir", default=os.path.join(
@@ -49,6 +57,20 @@ def main(argv=None):
 
     cfg = get_config(args.arch, smoke=args.smoke)
     dev = resolve_device(args.device)
+    set_mesh(make_host_mesh(dev))
+    try:
+        with with_logical_rules(POLICIES[args.policy]):
+            hist = _train(args, cfg, dev)
+    finally:
+        set_mesh(None)
+    l0 = np.mean([h["loss"] for h in hist[:10]])
+    l1 = np.mean([h["loss"] for h in hist[-10:]])
+    print(f"done: loss {l0:.3f} → {l1:.3f} over {len(hist)} steps on "
+          f"{dev}")
+    return hist
+
+
+def _train(args, cfg, dev):
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                         device=dev, dtype=torch.float32, trainable=True)
     state = TrainState.create(model)
@@ -71,10 +93,6 @@ def main(argv=None):
     hist = train_loop(cfg, opt, state, it, args.steps - start,
                       train_step=step_fn, hooks=hooks, log_every=25)
     ckpt.wait_pending()
-    l0 = np.mean([h["loss"] for h in hist[:10]])
-    l1 = np.mean([h["loss"] for h in hist[-10:]])
-    print(f"done: loss {l0:.3f} → {l1:.3f} over {len(hist)} steps on "
-          f"{dev}")
     return hist
 
 

@@ -11,6 +11,8 @@ import torch
 
 import repro_torch.configs as PC
 from repro_torch.data import SyntheticTokens, host_batch_iterator
+from repro_torch.distributed.sharding import (POLICIES, active_mesh,
+                                              logical_to_spec)
 from repro_torch.launch import train as launch_train
 from repro_torch.models import init_params
 from repro_torch.train import (AdamWConfig, CheckpointHook,
@@ -231,6 +233,39 @@ def test_loop_trains_and_launcher_runs_on_the_cpu(tmp_path, capsys):
                                "--ckpt-dir", str(tmp_path)])
     assert len(hist2) == 2
     assert "resumed from step 12" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("policy", ["zero3", "no_such_policy"])
+def test_launcher_policy_moves_no_number(policy, tmp_path, monkeypatch):
+    """Under ``--policy zero3`` the launcher's losses are ``dp_tp``'s bit
+    for bit; inside, the 1×1 host mesh and the policy's rules are
+    installed, and both are gone when it returns.  A policy the JAX
+    launcher lacks is refused."""
+    args = ["--device", "cpu", "--steps", "3", "--seq", "32",
+            "--global-batch", "4", "--microbatches", "2"]
+    if policy not in POLICIES:
+        with pytest.raises(SystemExit):
+            launch_train.main(args + ["--policy", policy])
+        return
+    seen = []
+    train = launch_train._train
+
+    def spy(*a):
+        mesh = active_mesh()
+        seen.append((mesh.axis_names, mesh.devices.shape,
+                     logical_to_spec("batch", "fsdp", "ff",
+                                     shape=(4, 64, 128))))
+        return train(*a)
+    monkeypatch.setattr(launch_train, "_train", spy)
+    runs = [launch_train.main(args + ["--policy", p, "--ckpt-dir",
+                                      str(tmp_path / p)])
+            for p in ("dp_tp", policy)]
+    losses = [[h["loss"] for h in hist] for hist in runs]
+    assert losses[0] == losses[1] and len(losses[0]) == 3
+    assert seen == [(("data", "model"), (1, 1), ("data", None, "model")),
+                    (("data", "model"), (1, 1),
+                     (("data", "model"), None, None))]
+    assert active_mesh() is None
 
 
 def test_launcher_defaults_to_the_card(monkeypatch):
