@@ -108,7 +108,7 @@ Phases (each one is a check; any failure exits non-zero):
      plan drained by the pinned, cached ``ClassSmartFillPolicy``
      through ``simulate_fluid_classes``, card against CPU; (d) 32 class
      instances through ``plan_classes_batched``, card against CPU; (e)
-     ``examples/hetero_fleet.py``: six of the ten configs' roofline
+     ``examples/hetero_fleet.py``: four of the ten configs' roofline
      speedups on one 256-GPU pod, card against CPU, WMR not below the
      plan; no
      K1–K5 launch.  Rehearse on the CPU with ``classes_phase(torch, np,
@@ -168,16 +168,17 @@ Phases (each one is a check; any failure exits non-zero):
      in float64 (``cluster_*`` lines), each call held to the port's CPU
      run of it (run in spawned workers beside the card's runs): the
      eight fleets of ``examples/batched_planning.py`` §2 through
-     ``current_allocations_fleets`` (Σθ = B); the 12 jobs on 256 GPUs of
-     ``benchmarks/cluster_sim.py::bench_cluster`` through the cost-free
+     ``current_allocations_fleets`` (Σθ = B); 8 jobs on 256 GPUs from
+     ``benchmarks/cluster_sim.py::bench_cluster``'s generator (its 12
+     until phase 21 needed the room) through the cost-free
      device path (SmartFill ≤ heSRPT), the host loop with a 30 s
      reallocation cost and 2-chip merging, and integer chips (J to 1e-9,
      the same allocation changes, their times and allocations to 1e-7:
      SmartFill's schedule off the pure-power path; the event counts are
      printed, and may differ by the host loop's ghost events,
-     ``schedule_of``); six of the ten configs'
-     roofline speedups as one 256-GPU pod (ten until phase 18 needed the
-     room; the plan against
+     ``schedule_of``); four of the ten configs'
+     roofline speedups as one 256-GPU pod (ten until phase 18 and six
+     until phase 21 needed the room; the plan against
      ``smartfill_hetero``, the device path against the host loop to
      1e-5); 256 fleets under a one-card fleet mesh, bit for bit to the
      call without one; no K1–K5 launch.  (b) falcon-mamba-7b at full
@@ -226,7 +227,7 @@ Phases (each one is a check; any failure exits non-zero):
      bound there and, but for the plain version, at qwen2-moe's hd-128
      training shape (2, 4096, 16:16, 128); (b)
      llama3.2-1b at full width and depth (1.236 B parameters, f32
-     masters, bf16 compute, remat "full") trains 8 steps of 8 × 4096
+     masters, bf16 compute, remat "full") trains 4 steps of 8 × 4096
      tokens in 2 micro-batches through ``make_train_step``/
      ``train_loop``: every loss finite and falling from ≈ ln V, step ms,
      tokens/s, peak memory, and exactly 64 K5 forward and 32 backward
@@ -254,7 +255,7 @@ Phases (each one is a check; any failure exits non-zero):
      window, hd 200, cross lengths, rows with no unmasked key, MHA, GQA
      10:1) with the kernels each bf16 case ran, its times beside SDPA's
      backward; (b) recurrentgemma-2b at full width and depth and (c)
-     falcon-mamba-7b at 16 of its 64 layers train 4 steps of 4 × 4096
+     falcon-mamba-7b at 16 of its 64 layers train 2 steps of 4 × 4096
      tokens in 2 micro-batches, every loss finite, the first update
      lowering it, exactly 72 K4 forward, 36 backward, 32 K5 forward and
      16 backward launches a step (recurrentgemma) and 1,024 and 512 K4
@@ -267,7 +268,7 @@ Phases (each one is a check; any failure exits non-zero):
      width and 4 of its 24 layers (2.905 B parameters), internvl2-1b
      (24 layers, 256 patches before 4096 tokens) and
      seamless-m4t-medium (12 + 12 layers over 4096 frames) not cut,
-     train 4 steps of 4 × 4096 tokens in 2 micro-batches, counted (16,
+     train 2 steps of 4 × 4096 tokens in 2 micro-batches, counted (16,
      96 and 144 K5 forward, 8, 48 and 72 backward launches a step), with
      the MoE's choices dropped by capacity and largest expert load a
      step and remat's router recompute held to its forward's top-k; (a)
@@ -285,12 +286,33 @@ Phases (each one is a check; any failure exits non-zero):
      placed over a mesh axis of more than one device.
      ``tools/phase20_rehearse.py`` rehearses it on the CPU and counts
      the MoE step's peak memory.
+ 21. ``examples/cluster_schedule.py``'s path (``schedule_*`` lines),
+     after phase 20's models are freed: (a) the dry run
+     (``launch/dryrun.py``) of deepseek-7b × train_4k and llama3.2-1b ×
+     train_4k on the 1 × 1 host mesh, traced on meta and counted
+     (``launch/hlo_analysis.py``; no launch), each ok on one device with
+     at least 6·N_active·tokens flops, and phase 18(b)'s own step
+     counted: its flops over 18(b)'s step time below the bf16 peak, its
+     meta inputs' bytes equal to 18(b)'s real tensors' (temp + args
+     printed beside 18(b)'s peak); (b) ``calibrate_from_dryrun`` on
+     (a)'s cells, SmartFill on the example's six jobs and
+     ``ClusterScheduler.simulate`` with a 30 s reallocation cost,
+     2-chip merging and integer chips, on the card against the CPU at
+     phase 16(a)'s tolerances, no launch; (c) phase 18(d)'s run (llama's
+     full width at 2 layers) trains 3 steps through K5 and its
+     backward, ``ElasticTrainer.reallocate`` moves it from 128 to 64
+     chips (a 1 × 1 mesh on the card) and it resumes: every leaf bit
+     for bit and on the card, the event and the manifest, the resumed
+     loss against 18(d)'s uninterrupted run within 18(d)'s spread, the
+     launches counted, and a planted fault (step 2's checkpoint
+     restored instead) that must fail the bit-for-bit check.
+     ``tools/phase21_rehearse.py`` rehearses it on the CPU.
 
 Launch counters are reset before phases 3–4 drive the planning path,
 before phases 7, 16(b) and each part of 17 drive the serving paths, before phases 11,
 13, 14, 15 and 16(a), before each float32 run of phase 12 and before
-the training runs of phases 18(b), 19(b), 19(c) and 20(b), and read
-right after each;
+the training runs of phases 18(b), 19(b), 19(c) and 20(b), before each
+part of phase 21, and read right after each;
 the comparisons and timings come later and do not count.  Prints one
 JSON line per measurement, the kernel summary line ``{"kernels": [...]}``
 (seven kernels, each with its device ms; K1 and K2 also with their
@@ -304,7 +326,8 @@ its launches in phase 18(b) and its times at the hd-128 shape,
 its times at both path shapes and its training figures; K5 also with
 phase 20(b)'s launches a step, ``new_train_launches_per_step``, and K5's
 backward with phase 20's launches, training figures and times on each
-path, ``new_train_paths``), the card line, and last
+path, ``new_train_paths``; K5 and its backward also with phase 21(c)'s
+launches, ``elastic_launches``), the card line, and last
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -2323,7 +2346,7 @@ def engine_phase(torch, np, dev):
 # with the class knobs, bit for bit; (c) (a)'s plan drained by the
 # pinned, cached ClassSmartFillPolicy through simulate_fluid_classes,
 # against the port's CPU run of the same drain; (d) 32 class instances
-# through plan_classes_batched against the port's CPU run; (e) six of
+# through plan_classes_batched against the port's CPU run; (e) four of
 # the ten configs' roofline speedups on one 256-GPU pod.
 #
 # (a) is cut from the example's C = 32 classes of 31,250 jobs to C = 5
@@ -2342,14 +2365,15 @@ CLASS_KNOBS = dict(coarse=64, descent_iters=96, cap_iters=64,
                    exchange_passes=2, exchange_window=1, stol_rel=1e-10)
 J_CLASS_REF = 13375083293911.18
 J_CLASS_PORT_CPU = 13375083293911.186
-# (b)'s anchor plans 3 one-job classes twice (plan_classes and
+# (b)'s anchor plans 2 one-job classes twice (plan_classes and
 # smartfill_hetero, each with its exchange search): 8 took ~86 s on the
 # card, 5 about half as many device operations (aten operations counted
-# on the CPU: 3.55 M against 1.63 M) and 40.6–50.1 s, 4 38.0 s; 3 (4
-# until phase 19 needed the room, 5 until phase 18) took 2.9 s on the
-# CPU where 4 took 11.1 s.  One job a class makes the aggregation the
-# identity whatever the instance.
-ANCHOR_SEED, ANCHOR_C = 5, 3
+# on the CPU: 3.55 M against 1.63 M) and 40.6–50.1 s, 4 38.0 s, 3 12.8 s
+# (PR 29 run 2); 2 since phase 21 needed the room (3 until then, 4 until
+# phase 19, 5 until phase 18; on the CPU 3 took 2.9 s where 4 took 11.1
+# s).  One job a class makes the aggregation the identity whatever the
+# instance.
+ANCHOR_SEED, ANCHOR_C = 5, 2
 # (d)'s batch: 32 instances at this seed (64 until phase 18 needed the
 # room; the sampler draws every instance's counts before any sizes, so
 # the 32 share the 64's first counts, not their sizes and weights)
@@ -2365,10 +2389,10 @@ BATCH_SEED, BATCH_K, BATCH_C, BATCH_COUNTS = 7, 32, 16, (0, 50_000)
 # where the order is realized (J == J_linear).
 BATCH_LIMITS = {"J_realized": 1e-9, "J_linear": 1e-6, "J_unrealized": 1e-4}
 POD_GPUS, POD_TOKENS = 256.0, 256 * 4096
-# (e)'s pod: the first six of the ten configs in name order (all ten
-# until phase 19 needed the room; on the CPU six took 2.2 s where ten
-# took 4.5, the plan realized at both)
-CLASS_POD_JOBS = 6
+# (e)'s pod: the first four of the ten configs in name order (all ten
+# until phase 19, six until phase 21 needed the room; on the CPU six
+# took 2.2 s where ten took 4.5, the plan realized at both)
+CLASS_POD_JOBS = 4
 
 
 def classes_phase(torch, np, dev):
@@ -3360,19 +3384,21 @@ def _stream_checks(torch, np, dev, reference):
 # ---- 16(a). the cluster scheduler, float64 -----------------------------------
 # ``sched/cluster.py`` on the card, each call held to the port's CPU run of
 # the same call: examples/batched_planning.py §2's eight fleets;
-# benchmarks/cluster_sim.py::bench_cluster's instance (12 jobs on 256 GPUs
-# under job_speedup's analytic roofline: the repo holds no dry-run JSON)
+# benchmarks/cluster_sim.py::bench_cluster's generator at CLUSTER_M jobs
+# on 256 GPUs (its 12 until phase 21 needed the room: 18.6 s of card
+# time for the three runs) under job_speedup's analytic roofline
 # through the cost-free device path (SmartFill ≤ heSRPT), the host loop
 # with a 30 s reallocation cost and 2-chip merging, and integer chips;
 # the roofline speedups of CLUSTER_POD_JOBS of the ten configs (all ten
-# until phase 18 needed the room: the pod's device path took 58.7 s and
-# its host loop 28.5 s at ten) as the jobs of one 256-GPU pod (the plan,
+# until phase 18 and six until phase 21 needed the room: the pod's device
+# path took 58.7 s and its host loop 28.5 s at ten, 20.1 and 7.8 s at
+# six) as the jobs of one 256-GPU pod (the plan,
 # and the device and host paths against each other at the reference's
 # 1e-5, tests/sched/test_cluster.py:213-221); and 256 fleets
 # under a one-card fleet mesh, bit for bit to the call without one.  The
 # float64 CAP takes the closed form: no K1–K5 launch.
-CLUSTER_GPUS, CLUSTER_M, CLUSTER_FLEETS = 256.0, 12, 256
-CLUSTER_POD_JOBS = 6       # the first six configs in name order
+CLUSTER_GPUS, CLUSTER_M, CLUSTER_FLEETS = 256.0, 8, 256
+CLUSTER_POD_JOBS = 4       # the first four configs in name order
 CLUSTER_RTOL = 1e-9        # card vs CPU: J; Σθ = B
 # card vs CPU: allocations (over B) and event times (relative).  Off the
 # pure-power path SmartFill's schedule is determined only to ~1e-7 (μ*
@@ -3429,7 +3455,7 @@ def cluster_call(job, d):
                          for i, s in enumerate(sz[::-1])])
         return cs.current_allocations_fleets(many)
     if job in CLUSTER_SIMS:
-        # benchmarks/cluster_sim.py::bench_cluster's instance
+        # benchmarks/cluster_sim.py::bench_cluster's generator at CLUSTER_M jobs
         sp = job_speedup(step_flops=6 * 7e9 * 1e6, grad_bytes=2 * 7e9,
                          tokens_per_step=1e6, B=CLUSTER_GPUS, device=d)
         rng = np.random.default_rng(0)
@@ -3568,7 +3594,7 @@ def _cluster_checks(torch, np, dev, reference):
     check(r["sum_vs_B"] <= CLUSTER_RTOL
           and r["card_vs_cpu"] <= CLUSTER_THETA_RTOL, f"cluster fleets: {r}")
 
-    # benchmarks/cluster_sim.py::bench_cluster's instance, three ways
+    # benchmarks/cluster_sim.py::bench_cluster's generator, three ways
     got = {}
     for name in CLUSTER_SIMS:
         res, wall = run(name)
@@ -3962,8 +3988,11 @@ def new_paths_phase(torch, np, dev):
 # micro-batches (the reference's train_4k global batch of 256 cut to 8).
 # Under remat "full" K5's forward runs twice a layer and micro-batch (the
 # checkpoint recomputes it in the backward pass), its backward once.
+# The steps of 18–20 were cut for phase 21's room (8, 4 and 4 until PR
+# 30): the runs are deterministic, and the cut runs' last losses are
+# the longer runs' losses at the same steps, below the first (PERF.md §4).
 TRAIN_ARCH = "llama3.2-1b"
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 8, 4096, 2
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 8, 4096, 2
 TRAIN_OPT = {"lr": 3e-3, "warmup_steps": 20}
 CU_K5_BWD = ("src/repro_torch/kernels/flash_attention/csrc/"
              "flash_attention_bwd.cu")
@@ -4673,6 +4702,7 @@ def train_substrate(torch, np, dev):
               and n["flash_attention_bwd"] > 0,
               f"(d) the launcher: {out['launcher']}")
     emit({"phase": "train_substrate", **out})
+    return {"uninterrupted": a, "spread": spread}
 
 
 def train_launches(cfg, seq, micro):
@@ -4789,14 +4819,26 @@ def train_main_path(torch, np, dev, cfg, arch, tag, steps, batch, seq,
                                        "peak_memory_gb": peak / 1e9}
 
 
+def state_bytes(state, batch):
+    """The bytes of a training step's inputs: the model's parameters,
+    AdamW's step and both moments, and the batch's arrays."""
+    opt = state.opt_state
+    ts = [*state.params.parameters(), opt.step, *opt.mu.values(),
+          *opt.nu.values()]
+    return (sum(t.numel() * t.element_size() for t in ts)
+            + sum(x.nbytes for x in batch.values()))
+
+
 def train_phase(torch, np, dev):
     """Phase 18: (a) K5's backward against its plain version and its
     times; (b) llama3.2-1b at full width and depth trains TRAIN_STEPS
     steps through ``make_train_step``/``train_loop``, counted; (c) one
     step through the kernels against the plain versions; (d) the
     substrate.  Returns (launches of (b), K5 bwd's record, K5's training
-    figures)."""
+    figures with the step's input bytes (``state_bytes``), the
+    substrate's uninterrupted losses and their spread)."""
     from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
 
     cfg = get_config(TRAIN_ARCH)
     check(cfg.tie_embeddings, f"{TRAIN_ARCH}'s training config changed")
@@ -4810,6 +4852,9 @@ def train_phase(torch, np, dev):
     state, launches, per_step, figs = train_main_path(
         torch, np, dev, cfg, TRAIN_ARCH, "train_main_path", TRAIN_STEPS,
         TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO)
+    figs["state_bytes"] = state_bytes(state, SyntheticTokens(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH).batch_at(0))
 
     # (c) kernel against plain, end to end
     t0 = time.perf_counter()
@@ -4828,14 +4873,15 @@ def train_phase(torch, np, dev):
 
     # (d) the substrate
     t0 = time.perf_counter()
-    train_substrate(torch, np, dev)
+    substrate = train_substrate(torch, np, dev)
     emit({"phase": "train_substrate_wall",
           "wall_s": time.perf_counter() - t0})
     torch.cuda.empty_cache()
     rec["launches"] = launches["flash_attention_bwd"]
     rec["launches_per_step"] = per_step["flash_attention_bwd"]
     return launches, rec, {"launches_per_step":
-                           per_step["flash_attention"], **fwd, **figs}
+                           per_step["flash_attention"], **fwd,
+                           **figs}, substrate
 
 
 # ---- phase 19: training through K4's backward ------------------------------
@@ -4860,7 +4906,8 @@ def train_phase(torch, np, dev):
 # log-sum-exp against the plain scores', and the backward at phase
 # 18(a)'s limits and faults, there and on K5_BWD_HD256_OPTIONS.  (b)
 # recurrentgemma-2b (26 layers) and (c) falcon-mamba-7b at MAMBA_LAYERS
-# of 64 train SCAN_TRAIN_STEPS steps of SCAN_TRAIN_BATCH × TRAIN_SEQ
+# of 64 (at 4 its untrained loss reads 12.92, 1.84 over ln V) train
+# SCAN_TRAIN_STEPS steps of SCAN_TRAIN_BATCH × TRAIN_SEQ
 # tokens in SCAN_TRAIN_MICRO micro-batches, each freed before the next;
 # (d) one step at 1 × TRAIN_E2E_SEQ through the kernels and through the
 # plain versions at a cut depth (``SCAN_E2E_LAYERS``), within twice the
@@ -4892,7 +4939,7 @@ K5_BWD_HD256_OPTIONS = {
 }
 LSE_LIMIT = 1e-3           # max |Δ| of the log-sum-exp (nats)
 SCAN_ARCHS = ("recurrentgemma-2b", MAMBA_ARCH)
-SCAN_TRAIN_STEPS, SCAN_TRAIN_BATCH, SCAN_TRAIN_MICRO = 4, 4, 2
+SCAN_TRAIN_STEPS, SCAN_TRAIN_BATCH, SCAN_TRAIN_MICRO = 2, 4, 2
 SCAN_TRAIN_LAYERS = {MAMBA_ARCH: MAMBA_LAYERS}
 # (d)'s depth: recurrentgemma's one pattern period (two RG-LRU layers and
 # a local one), two Mamba layers.  Its floor takes two seeds: with four
@@ -5240,7 +5287,7 @@ def scan_train_phase(torch, np, dev):
 # card, no parameter placed over a mesh axis of more than one device.
 NEW_TRAIN_ARCHS = (MOE_ARCH, VLM_ARCH, ENCDEC_ARCH)
 NEW_TRAIN_LAYERS = {MOE_ARCH: 4}
-NEW_TRAIN_STEPS, NEW_TRAIN_BATCH, NEW_TRAIN_MICRO = 4, 4, 2
+NEW_TRAIN_STEPS, NEW_TRAIN_BATCH, NEW_TRAIN_MICRO = 2, 4, 2
 NEW_E2E_LAYERS = 2
 NEW_FLOOR_SEEDS = (1, 2)
 POLICY_STEPS = 3
@@ -5499,6 +5546,283 @@ def new_train_phase(torch, np, dev):
     emit({"phase": "train_new_policies_wall",
           "wall_s": time.perf_counter() - t0})
     return launches, figs, recs
+
+
+# ---- phase 21: examples/cluster_schedule.py's path -------------------------
+# The example's four steps on the card: (a) the dry run
+# (``launch/dryrun.py``) of its cell, deepseek-7b × train_4k, and of
+# llama3.2-1b × train_4k on the host mesh, each traced on meta and
+# counted (``launch/hlo_analysis.py``), which launches nothing; phase
+# 18(b)'s own step counted the same way, its flops over 18(b)'s measured
+# step time, and its meta inputs' bytes against 18(b)'s real tensors';
+# (b) ``calibrate_from_dryrun`` on (a)'s cells, SmartFill on the
+# example's instance and ``ClusterScheduler.simulate`` with its
+# reallocation cost, merge threshold and integer chips, each on the card
+# in float64 against the same call on the CPU at phase 16(a)'s
+# tolerances, with no kernel launch; (c) one real reallocation through
+# ``ElasticTrainer``: phase 18(d)'s run (llama's full width at
+# SUBSTRATE_LAYERS layers, SUBSTRATE_BATCH × SUBSTRATE_SEQ, seed 0)
+# trains REALLOC_STEPS steps through K5 and its backward, moves from
+# REALLOC_OLD to REALLOC_NEW chips (a 1 × 1 mesh on the one card), and
+# resumes: the restored leaves bit for bit, the resumed loss against
+# 18(d)'s uninterrupted run within 18(d)'s spread, and a planted fault
+# (the checkpoint of step 2 restored instead) that the bit-for-bit check
+# must fail.
+SCHED_CELLS = (("deepseek-7b", "train_4k"), (TRAIN_ARCH, "train_4k"))
+SCHED_B, SCHED_M, SCHED_SEED = 256.0, 6, 1
+REALLOC_STEPS, REALLOC_OLD, REALLOC_NEW = 3, 128, 64
+REALLOC_CKPT_BYTES = 12    # on disk a parameter: f32 master, both moments
+
+
+def sched_example(np, Job, sp, device):
+    """examples/cluster_schedule.py §2–3 on the speedup ``sp``: the
+    SmartFill plan's J and Θ, and the simulation's (events, J) with
+    allocations as numpy arrays."""
+    from repro_torch.core import smartfill
+    from repro_torch.sched import ClusterScheduler
+
+    rng = np.random.default_rng(SCHED_SEED)
+    work = np.sort(rng.uniform(2, 15, SCHED_M))[::-1] * 1e9
+    weights = 1.0 / work
+    plan = smartfill(sp, work, weights, B=SCHED_B)
+    jobs = [Job(name=f"run{i}", size=float(work[i]),
+                weight=float(weights[i])) for i in range(SCHED_M)]
+    res = ClusterScheduler(sp, SCHED_B, realloc_cost_s=30.0, min_delta=2.0,
+                           integer_chips=True).simulate(jobs)
+    return (float(plan.J), plan.theta.cpu().numpy(),
+            (res.events, float(res.J)), res)
+
+
+def schedule_dryrun(torch, np, dev, train18):
+    """21(a): the two cells and phase 18(b)'s step counted; returns the
+    cells."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import trace_program
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import AdamWConfig, make_train_step
+
+    mesh = make_host_mesh()
+    reset_all_launches()
+    cells = [dryrun.run_cell(a, s, mesh, verbose=False)
+             for a, s in SCHED_CELLS]
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    shape = dataclasses.replace(SHAPES["train_4k"], name="phase_18b",
+                                seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    specs = dryrun.shape_specs(cfg, shape, mesh)
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT),
+                           microbatches=TRAIN_MICRO)
+    cost, mem, _ = trace_program(
+        lambda x: step(x["params"], x["opt"], x["batch"]), specs)
+    trace_s = time.perf_counter() - t0
+    launches = all_launches()
+    step_s = train18["step_ms"] / 1e3
+    tflops = cost.flops / step_s / 1e12
+    n_active = cfg.active_param_count()
+    r18 = {"flops": cost.flops, "bytes": cost.bytes,
+           "bytes_fused": cost.bytes_fused,
+           "model_flops": 6 * n_active * TRAIN_BATCH * TRAIN_SEQ,
+           "trace_s": trace_s, "step_ms": train18["step_ms"],
+           "counted_tflops_per_s": tflops,
+           "share_of_bf16_peak": tflops * 1e12 / BF16_TC_OPS,
+           "meta_arg_bytes": mem.arg_bytes,
+           "real_arg_bytes": train18["state_bytes"],
+           "meta_temp_bytes": mem.temp_bytes,
+           "temp_plus_args_gb": (mem.temp_bytes + mem.arg_bytes) / 1e9,
+           "max_memory_allocated_gb": train18["peak_memory_gb"]}
+    emit({"phase": "schedule_dryrun", "card": card_line(),
+          "hardware_model": dryrun.HARDWARE, "cells": cells,
+          "phase_18b_step": r18, "launches": launches})
+    check(not any(launches.values()),
+          f"(a) the dry run launched a kernel: {launches}")
+    for c in cells:
+        sh = SHAPES[c["shape"]]
+        tokens = sh.global_batch * sh.seq_len
+        check(c["ok"] and c["n_devices"] == 1 and c["mesh"] == "1x1"
+              and c["flops_per_dev"] >= 6 * c["active_params"] * tokens,
+              f"(a) {c['arch']} × {c['shape']}: {c}")
+    check(cost.flops >= r18["model_flops"] and tflops * 1e12 < BF16_TC_OPS,
+          f"(a) 18(b)'s step counted: {r18}")
+    check(mem.arg_bytes == train18["state_bytes"],
+          f"(a) 18(b)'s meta inputs {mem.arg_bytes} B, its real tensors "
+          f"{train18['state_bytes']} B")
+    return cells
+
+
+def schedule_plan(torch, np, dev, cells, tmp):
+    """21(b): calibrate from (a)'s cells, plan and simulate on the card and
+    on the CPU."""
+    from repro_torch.sched import Job
+    from repro_torch.sched.speedup_models import calibrate_from_dryrun
+
+    path = f"{tmp}/dryrun_single_pod.json"
+    with open(path, "w") as f:
+        json.dump(cells, f, indent=1)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    sp = calibrate_from_dryrun(path, B=SCHED_B, device=dev)[SCHED_CELLS[0]]
+    J, theta, run, res = sched_example(np, Job, sp, dev)
+    sync()
+    card_s = time.perf_counter() - t0
+    launches = all_launches()
+    t0 = time.perf_counter()
+    sp_c = calibrate_from_dryrun(path, B=SCHED_B, device="cpu")[
+        SCHED_CELLS[0]]
+    J_c, theta_c, run_c, _ = sched_example(np, Job, sp_c, "cpu")
+    cpu_s = time.perf_counter() - t0
+    r = cluster_runs_close(np, run, run_c, SCHED_B)
+    on_card = sp.A.device.type == dev.type
+    out = {"speedup": {k: float(getattr(sp, k)) for k in ("A", "w", "gamma")},
+           "s": {str(t): float(sp.s(torch.tensor(t, dtype=torch.float64,
+                                                 device=dev)))
+                 for t in (32.0, 128.0, 256.0)},
+           "plan_J": J, "plan_J_cpu": J_c, "plan_dJ": abs(J - J_c) / J_c,
+           "plan_dtheta": float(np.abs(theta - theta_c).max()) / SCHED_B,
+           "parked_job_phases": int(sum(
+               1 for j in range(SCHED_M) for i in range(j + 1)
+               if theta[i, j] == 0)),
+           "sim": r, "sim_over_plan": run[1] / J - 1.0,
+           "path": res.path, "status": res.status, "on_card": bool(on_card),
+           "wall_s": card_s, "cpu_wall_s": cpu_s, "launches": launches}
+    emit({"phase": "schedule_plan", **out})
+    check(out["plan_dJ"] <= CLUSTER_RTOL
+          and out["plan_dtheta"] <= CLUSTER_THETA_RTOL,
+          f"(b) SmartFill card vs CPU: {out}")
+    check(cluster_ok(r) and res.ok and on_card,
+          f"(b) the simulation card vs CPU: {out}")
+    check(not any(launches.values()),
+          f"(b) planning launched a kernel: {launches}")
+
+
+def schedule_realloc(torch, np, dev, substrate, tmp):
+    """21(c): phase 18(d)'s run trained, moved and resumed; returns its
+    kernel launches."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens, host_batch_iterator
+    from repro_torch.models import init_params
+    from repro_torch.sched import ElasticTrainer
+    from repro_torch.train import (AdamWConfig, AdamWState, TrainState,
+                                   checkpoint as ckpt, make_train_step,
+                                   train_loop)
+
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=SUBSTRATE_LAYERS)
+    opt = AdamWConfig(**TRAIN_OPT)
+    step = make_train_step(cfg, opt)
+    src = SyntheticTokens(vocab=cfg.vocab, seq_len=SUBSTRATE_SEQ,
+                          global_batch=SUBSTRATE_BATCH)
+    state = TrainState.create(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        dtype=torch.float32, trainable=True))
+    n_params = sum(p.numel() for p in state.params.parameters())
+    need = REALLOC_CKPT_BYTES * n_params      # one checkpoint at a time
+    free = shutil.disk_usage(tmp).free
+    check(free >= 1.1 * need, f"(c) {free / 1e9:.1f} GB free in {tmp}, a "
+          f"checkpoint takes {need / 1e9:.1f} GB")
+    held = {}
+
+    def keep_step_2(n, metrics, st):     # the planted fault's state
+        if n == 2:
+            held["bits"] = _bits(st)
+
+    reset_all_launches()
+    t0 = time.perf_counter()
+    hist = train_loop(cfg, opt, state, host_batch_iterator(src, cfg),
+                      REALLOC_STEPS, train_step=step, log_every=0,
+                      hooks=[keep_step_2])
+    train_s = time.perf_counter() - t0
+    bits = _bits(state)
+    trainer = ElasticTrainer(cfg, lambda mesh: step, f"{tmp}/realloc")
+    mesh, state = trainer.reallocate(state, old_chips=REALLOC_OLD,
+                                     new_chips=REALLOC_NEW)
+    ev = trainer.events[0]
+    with open(f"{ev.ckpt_path}/manifest.json") as f:
+        manifest = json.load(f)
+    card = torch.device("cuda", torch.cuda.current_device()) \
+        if dev.type == "cuda" else dev
+    r = {"losses": [h["loss"] for h in hist], "params": n_params,
+         "train_s": train_s, "restore_s": ev.restore_s,
+         "ckpt_gb": REALLOC_CKPT_BYTES * n_params / 1e9, "free_gb": free / 1e9,
+         "same_bits": _same_bits(torch, state, bits),
+         "devices": sorted({str(t.device) for t in (
+             *state.params.parameters(), state.opt_state.step,
+             *state.opt_state.mu.values(), *state.opt_state.nu.values())}),
+         "mesh": mesh.shape, "mesh_devices": [str(d) for d in
+                                              mesh.devices.flat],
+         "event": {"old": ev.old_chips, "new": ev.new_chips,
+                   "ckpt": ev.ckpt_path.rsplit("/", 1)[-1]},
+         "extra": manifest["extra"], "manifest_step": manifest["step"]}
+    check(r["same_bits"], f"(c) the restored leaves differ: {r}")
+    check(r["devices"] == [str(card)] and r["mesh"] == {"data": 1,
+                                                        "model": 1}
+          and r["mesh_devices"] == [str(card)],
+          f"(c) the new mesh or the leaves' device: {r}")
+    check(len(trainer.events) == 1 and r["event"] == {
+        "old": REALLOC_OLD, "new": REALLOC_NEW,
+        "ckpt": f"step_{REALLOC_STEPS:08d}"}
+        and r["extra"] == {"reason": "realloc", "old": REALLOC_OLD,
+                           "new": REALLOC_NEW}
+        and r["manifest_step"] == REALLOC_STEPS,
+        f"(c) the event or the manifest: {r}")
+    # the resumed step against 18(d)'s uninterrupted run's
+    _, state.opt_state, m = step(state.params, state.opt_state,
+                                 src.batch_at(REALLOC_STEPS))
+    launches = all_launches()
+    want = {k: v * (REALLOC_STEPS + 1) for k, v in
+            train_launches(cfg, SUBSTRATE_SEQ, 1).items()}
+    ref = substrate["uninterrupted"][REALLOC_STEPS]
+    r.update(resumed_loss=float(m["loss"]), uninterrupted_loss=ref,
+             spread=substrate["spread"],
+             resumed_vs_uninterrupted=abs(float(m["loss"]) - ref),
+             launches=launches, expected_launches=want)
+    check(r["resumed_vs_uninterrupted"] <= substrate["spread"],
+          f"(c) the resumed step: {r}")
+    check(all(launches.get(k, 0) == n for k, n in want.items())
+          and launches["flash_attention"] > 0,
+          f"(c) launches {launches}, not {want}")
+    # the planted fault: a checkpoint of step 2 restored instead (written
+    # once the move's is gone, so the disk holds one at a time)
+    shutil.rmtree(f"{tmp}/realloc")
+    p2, mu2, nu2, n2 = held.pop("bits")
+    path2 = ckpt.save(f"{tmp}/fault", n2, {
+        "params": p2, "opt": AdamWState(step=torch.tensor(
+            n2, dtype=torch.int32, device=dev), mu=mu2, nu=nu2)})
+    del p2, mu2, nu2
+    tree = {"params": state.params, "opt": state.opt_state}
+    restored, _ = ckpt.restore(path2, tree,
+                               shardings=trainer._shardings(mesh, tree))
+    state.params, state.opt_state = restored["params"], restored["opt"]
+    r["fault_step_2_same_bits"] = _same_bits(torch, state, bits)
+    emit({"phase": "schedule_realloc", **r})
+    check(not r["fault_step_2_same_bits"],
+          "(c) the planted fault (step 2's checkpoint) passes the "
+          "bit-for-bit check")
+    return launches
+
+
+def schedule_phase(torch, np, dev, train18, substrate):
+    """Phase 21: (a) the dry run, (b) calibrate, plan and simulate, (c)
+    one real reallocation.  Returns (c)'s kernel launches."""
+    import tempfile
+    from repro_torch.distributed.sharding import set_mesh
+
+    t0 = time.perf_counter()
+    cells = schedule_dryrun(torch, np, dev, train18)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        schedule_plan(torch, np, dev, cells, tmp)
+        t2 = time.perf_counter()
+        try:
+            launches = schedule_realloc(torch, np, dev, substrate, tmp)
+        finally:
+            set_mesh(None)
+    emit({"phase": "schedule_wall", "dryrun_s": t1 - t0, "plan_s": t2 - t1,
+          "realloc_s": time.perf_counter() - t2,
+          "wall_s": time.perf_counter() - t0})
+    return launches
 
 
 def main():
@@ -5902,7 +6226,7 @@ def main():
 
     # ---- 18. training llama3.2-1b through K5 and K5's backward ------------
     t0 = time.perf_counter()
-    launches18, bwd_rec, k5_train = train_phase(torch, np, dev)
+    launches18, bwd_rec, k5_train, substrate = train_phase(torch, np, dev)
     emit({"phase": "train", "launches": launches18,
           "wall_s": time.perf_counter() - t0})
     for rec in kernels:
@@ -5934,6 +6258,16 @@ def main():
         "launches_per_step": {a: n["per_step"]["flash_attention_bwd"]
                               for a, n in launches20.items()},
         "train": figs20, "times": recs20}
+
+    # ---- 21. examples/cluster_schedule.py's path --------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches21 = schedule_phase(torch, np, dev, k5_train, substrate)
+    emit({"phase": "schedule", "launches": launches21,
+          "wall_s": time.perf_counter() - t0})
+    for rec in kernels:
+        if rec["name"] in ("flash_attention", "flash_attention_bwd"):
+            rec["elastic_launches"] = launches21[rec["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -7,8 +7,8 @@ those numbers on the device asked for.  A JAX model's parameter tree,
 turned to numpy leaf by leaf, goes through ``params_from_arrays`` the
 same way, and ``arrays_from_params`` gives the port's parameters, or any
 tensors keyed by parameter name (gradients, optimizer moments), back in
-that tree's layout.  This module reads plain arrays only; it knows
-nothing of JAX.
+that tree's layout; ``jax_leaf_paths`` names where each parameter goes
+there.  This module reads plain arrays only; it knows nothing of JAX.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ from .core.speedup import GenericSpeedup, RegularSpeedup, StackedSpeedup
 from .models.attention import Attention
 from .models.transformer import Transformer
 
-__all__ = ["speedup_from_arrays", "params_from_arrays", "arrays_from_params"]
+__all__ = ["speedup_from_arrays", "params_from_arrays", "arrays_from_params",
+           "jax_leaf_paths"]
 
 
 def speedup_from_arrays(kind: str, *, B: float, A=None, w=None, gamma=None,
@@ -208,3 +209,40 @@ def arrays_from_params(cfg, model: Transformer, values=None) -> dict:
                                              1)
         tree["enc_norm"] = layer_tree("enc_norm.", model.enc_norm)
     return tree
+
+
+def jax_leaf_paths(cfg, model: Transformer) -> dict:
+    """Where ``arrays_from_params`` puts each of the model's parameters,
+    computed from shapes alone: {name: (path, shape, stacked)}, the path
+    the JAX tree's leaf string (``blocks/0/mixer/wq``: keys and tuple
+    indices joined by "/"), its shape there, and ``stacked`` the number
+    of leading axes over the block pattern's repeats (1 in ``blocks`` and
+    ``enc_blocks``, else 0)."""
+    out = {}
+    params = dict(model.named_parameters())
+
+    def put(name, path, parent, leaf, lead=()):
+        x = torch.empty(params[name].shape, device="meta")
+        shape = tuple(_jax_shape(parent, leaf, x, cfg.head_dim).shape)
+        out[name] = ("/".join(path), lead + shape, len(lead))
+
+    def layers(prefix, mods, cyc, stacked_key, tail_key):
+        G = len(mods) // cyc
+        for i, blk in enumerate(mods):
+            head, lead = (([stacked_key, str(i % cyc)], (G,)) if i < G * cyc
+                          else ([tail_key, str(i - G * cyc)], ()))
+            for sub, _ in blk.named_parameters():
+                parts = sub.split(".")
+                put(f"{prefix}.{i}.{sub}", head + parts,
+                    blk.get_submodule(".".join(parts[:-1])), parts[-1], lead)
+
+    for name, _ in model.named_parameters(recurse=False):
+        put(name, [name], model, name)
+    for key in ("final_norm", "enc_norm"):
+        mod = getattr(model, key)
+        if mod is not None:
+            for sub, _ in mod.named_parameters():
+                put(f"{key}.{sub}", [key, sub], mod, sub)
+    layers("layers", model.layers, len(cfg.cycle), "blocks", "tail")
+    layers("enc_layers", model.enc_layers, 1, "enc_blocks", None)
+    return out

@@ -48,7 +48,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "FleetMesh", "LOGICAL_RULES", "PartitionSpec", "POLICIES",
+    "FleetMesh", "LOGICAL_RULES", "NamedSharding", "PartitionSpec",
+    "POLICIES",
     "ZERO3_RULES", "active_mesh", "constrain", "heads_shardable",
     "logical_to_spec", "mesh_axis_size", "param_sharding", "set_mesh",
     "state_sharding", "with_logical_rules",
@@ -126,6 +127,41 @@ class PartitionSpec(tuple):
 
     def __repr__(self):
         return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+class NamedSharding:
+    """A leaf's placement: ``spec`` over the axes of ``mesh`` (the JAX
+    ``NamedSharding(mesh, spec)``)."""
+
+    def __init__(self, mesh: FleetMesh, spec=None):
+        self.mesh = mesh
+        self.spec = PartitionSpec(*(spec or ()))
+
+    @property
+    def device(self) -> torch.device:
+        """The one device that holds the whole leaf.  Raises
+        ``NotImplementedError`` where the spec shards over a mesh axis of
+        more than one entry, or the mesh spans several distinct devices:
+        either needs a torch.distributed path across GPUs, not ported yet
+        (ROADMAP item 9)."""
+        size = self.mesh.shape
+        for entry in self.spec:
+            for ax in (entry if isinstance(entry, tuple) else (entry,)):
+                if ax is not None and size.get(ax, 1) > 1:
+                    raise NotImplementedError(
+                        f"{self.spec} shards over mesh axis {ax!r} of size "
+                        f"{size[ax]}: that needs a torch.distributed path "
+                        f"across GPUs, not ported yet (ROADMAP item 9)")
+        devices = set(self.mesh.devices.flat)
+        if len(devices) > 1:
+            raise NotImplementedError(
+                f"a placement over {len(devices)} distinct devices needs a "
+                f"torch.distributed path across GPUs, not ported yet "
+                f"(ROADMAP item 9)")
+        return next(iter(devices))
+
+    def __repr__(self):
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
 
 
 LOGICAL_RULES: dict[str, tuple[str, ...]] = {

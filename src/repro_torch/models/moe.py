@@ -71,7 +71,11 @@ def _router(m: MoE, x, cfg):
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
     # Switch load-balance loss: E · Σ_e f_e · P_e
     E = cfg.n_experts
-    occupancy = torch.bincount(top_i.reshape(-1), minlength=E).float()
+    # the count of each expert's choices as a sum of ones (exact below
+    # 2²⁴, as bincount's), which also runs on the meta device
+    idx = top_i.reshape(-1)
+    occupancy = torch.zeros(E, dtype=torch.float32, device=x.device)
+    occupancy.index_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
     f_e = occupancy / torch.clamp_min(occupancy.sum(), 1.0)
     P_e = probs.mean(dim=0)
     lb_loss = E * torch.sum(f_e * P_e)

@@ -18,3 +18,4 @@ from .policies import (  # noqa: F401
     WeightedMarginalRatePolicy,
     default_zoo,
 )
+from .elastic import ElasticTrainer, ReallocEvent, mesh_for_chips  # noqa: F401

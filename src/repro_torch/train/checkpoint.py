@@ -120,10 +120,12 @@ def _shape(x):
     return tuple(x.shape) if hasattr(x, "shape") else ()
 
 
-def _leaf_like(arr, ref):
-    """The stored array as a leaf of ``ref``'s kind, dtype and device."""
+def _leaf_like(arr, ref, device=None):
+    """The stored array as a leaf of ``ref``'s kind and dtype, on
+    ``device`` (default ``ref``'s)."""
     if isinstance(ref, torch.Tensor):
-        return torch.as_tensor(arr).to(device=ref.device, dtype=ref.dtype)
+        return torch.as_tensor(arr).to(device=device or ref.device,
+                                       dtype=ref.dtype)
     if isinstance(ref, np.ndarray):
         return arr.astype(ref.dtype)
     return type(ref)(arr.item())
@@ -131,12 +133,19 @@ def _leaf_like(arr, ref):
 
 def _rebuild(template, it):
     """``template``'s structure with leaves from ``it``; a module's
-    parameters are filled in place and the module returned."""
+    parameters are filled in place, or, where the new leaf lies on
+    another device, take its place in the same ``Parameter`` object; the
+    module is returned."""
     if isinstance(template, nn.Module):
         params = dict(template.named_parameters())
         with torch.no_grad():
             for k in sorted(params):
-                params[k].copy_(next(it))
+                p, new = params[k], next(it)
+                if p.device == new.device:
+                    p.copy_(new)
+                else:
+                    torch.utils.swap_tensors(p, nn.Parameter(
+                        new, requires_grad=p.requires_grad))
         return template
     if isinstance(template, dict):
         out = {k: _rebuild(template[k], it) for k in sorted(template)}
@@ -148,11 +157,16 @@ def _rebuild(template, it):
     return next(it)
 
 
-def restore(path: str, template):
+def restore(path: str, template, shardings=None):
     """Restore a checkpoint into ``template``'s structure, each leaf with
-    the template leaf's dtype and device (a module's parameters are
-    overwritten in place).  Raises ValueError when the leaf count or any
-    leaf's shape differs.  Returns (tree, manifest)."""
+    the template leaf's dtype (a module's parameters are overwritten in
+    place).  ``shardings``, a tree of ``NamedSharding`` with the
+    template's structure (a module's entry a dict by parameter name),
+    places each leaf: pass the *new* mesh's to restore onto another
+    mesh.  Without it each leaf keeps the template leaf's device.  A
+    placement over more than one device raises NotImplementedError
+    (``NamedSharding.device``).  Raises ValueError when the leaf count or
+    any leaf's shape differs.  Returns (tree, manifest)."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     leaves, _ = _flatten(template)
@@ -160,10 +174,18 @@ def restore(path: str, template):
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, template has "
             f"{len(leaves)} — incompatible config")
+    if shardings is None:
+        devices = [None] * len(leaves)
+    else:
+        placed, _ = _flatten(shardings)
+        if len(placed) != len(leaves):
+            raise ValueError(f"{len(placed)} shardings for {len(leaves)} "
+                             f"leaves")
+        devices = [p.device for p in placed]
     out = []
-    for i, ref in enumerate(leaves):
+    for i, (ref, dev) in enumerate(zip(leaves, devices)):
         arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
         if tuple(arr.shape) != _shape(ref):
             raise ValueError(f"leaf {i}: shape {arr.shape} != {_shape(ref)}")
-        out.append(_leaf_like(arr, ref))
+        out.append(_leaf_like(arr, ref, dev))
     return _rebuild(template, iter(out)), manifest

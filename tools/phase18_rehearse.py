@@ -152,8 +152,10 @@ def install():
 
 def main():
     install()
-    launches, rec, k5 = cs.train_phase(torch, np, torch.device("cpu"))
-    print({"launches": launches, "bwd_record": rec, "k5": k5})
+    launches, rec, k5, substrate = cs.train_phase(torch, np,
+                                                  torch.device("cpu"))
+    print({"launches": launches, "bwd_record": rec, "k5": k5,
+           "substrate": substrate})
 
 
 if __name__ == "__main__":
