@@ -288,13 +288,16 @@ Phases (each one is a check; any failure exits non-zero):
      the MoE step's peak memory.
  21. ``examples/cluster_schedule.py``'s path (``schedule_*`` lines),
      after phase 20's models are freed: (a) the dry run
-     (``launch/dryrun.py``) of deepseek-7b × train_4k and llama3.2-1b ×
-     train_4k on the 1 × 1 host mesh, traced on meta and counted
-     (``launch/hlo_analysis.py``; no launch), each ok on one device with
-     at least 6·N_active·tokens flops, and phase 18(b)'s own step
-     counted: its flops over 18(b)'s step time below the bf16 peak, its
-     meta inputs' bytes equal to 18(b)'s real tensors' (temp + args
-     printed beside 18(b)'s peak); (b) ``calibrate_from_dryrun`` on
+     (``launch/dryrun.py``) of deepseek-7b × train_4k on the (16, 16)
+     production mesh built on meta (a fake process group, DTensor
+     inputs; per-device counts with all-gathers and reduce-scatters)
+     and of llama3.2-1b × train_4k on the 1 × 1 host mesh, traced on
+     meta and counted (``launch/hlo_analysis.py``; no launch), each ok
+     with at least 6·N_active·tokens flops over its devices, and phase
+     18(b)'s own step counted at one device with K5's meta stand-ins:
+     its flops over 18(b)'s step time below the bf16 peak, its meta
+     inputs' bytes equal to 18(b)'s real tensors', its temp + args
+     within 20% of 18(b)'s measured peak; (b) ``calibrate_from_dryrun`` on
      (a)'s cells, SmartFill on the example's six jobs and
      ``ClusterScheduler.simulate`` with a 30 s reallocation cost,
      2-chip merging and integer chips, on the card against the CPU at
@@ -333,6 +336,7 @@ Imports nothing of JAX.
 """
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -5550,11 +5554,17 @@ def new_train_phase(torch, np, dev):
 
 # ---- phase 21: examples/cluster_schedule.py's path -------------------------
 # The example's four steps on the card: (a) the dry run
-# (``launch/dryrun.py``) of its cell, deepseek-7b × train_4k, and of
-# llama3.2-1b × train_4k on the host mesh, each traced on meta and
-# counted (``launch/hlo_analysis.py``), which launches nothing; phase
-# 18(b)'s own step counted the same way, its flops over 18(b)'s measured
-# step time, and its meta inputs' bytes against 18(b)'s real tensors';
+# (``launch/dryrun.py``) of its cell, deepseek-7b × train_4k, on the
+# (16, 16) production mesh built on meta (a fake process group of 256
+# ranks, every input a DTensor placed by the reference's specs, rank 0's
+# per-device program counted with its collectives), and of llama3.2-1b
+# × train_4k on the host mesh, each traced on meta and counted
+# (``launch/hlo_analysis.py``), which launches nothing; phase 18(b)'s own
+# step counted the same way at one device (K5's meta stand-ins in place
+# of K5 and its backward), its flops over 18(b)'s measured step time,
+# its meta inputs' bytes against 18(b)'s real tensors', and its counted
+# temp + args against 18(b)'s measured ``max_memory_allocated`` within
+# SCHED_PEAK_RTOL either way;
 # (b) ``calibrate_from_dryrun`` on (a)'s cells, SmartFill on the
 # example's instance and ``ClusterScheduler.simulate`` with its
 # reallocation cost, merge threshold and integer chips, each on the card
@@ -5569,6 +5579,8 @@ def new_train_phase(torch, np, dev):
 # (the checkpoint of step 2 restored instead) that the bit-for-bit check
 # must fail.
 SCHED_CELLS = (("deepseek-7b", "train_4k"), (TRAIN_ARCH, "train_4k"))
+SCHED_MESH = "16x16"       # the first cell's mesh; the second at 1 × 1
+SCHED_PEAK_RTOL = 0.2      # 18(b)'s temp + args against its measured peak
 SCHED_B, SCHED_M, SCHED_SEED = 256.0, 6, 1
 REALLOC_STEPS, REALLOC_OLD, REALLOC_NEW = 3, 128, 64
 REALLOC_CKPT_BYTES = 12    # on disk a parameter: f32 master, both moments
@@ -5594,19 +5606,23 @@ def sched_example(np, Job, sp, device):
 
 
 def schedule_dryrun(torch, np, dev, train18):
-    """21(a): the two cells and phase 18(b)'s step counted; returns the
-    cells."""
+    """21(a): the example's cell on the (16, 16) meta mesh, the second at
+    one device, and phase 18(b)'s step counted; returns the cells."""
     import dataclasses
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.hlo_analysis import trace_program
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.train import AdamWConfig, make_train_step
 
     mesh = make_host_mesh()
     reset_all_launches()
-    cells = [dryrun.run_cell(a, s, mesh, verbose=False)
-             for a, s in SCHED_CELLS]
+    t0 = time.perf_counter()
+    cells = [dryrun.run_cell(*SCHED_CELLS[0],
+                             make_production_mesh(device="meta"),
+                             verbose=False)]
+    mesh_s = time.perf_counter() - t0
+    cells.append(dryrun.run_cell(*SCHED_CELLS[1], mesh, verbose=False))
     t0 = time.perf_counter()
     cfg = get_config(TRAIN_ARCH)
     shape = dataclasses.replace(SHAPES["train_4k"], name="phase_18b",
@@ -5630,19 +5646,35 @@ def schedule_dryrun(torch, np, dev, train18):
            "meta_arg_bytes": mem.arg_bytes,
            "real_arg_bytes": train18["state_bytes"],
            "meta_temp_bytes": mem.temp_bytes,
+           "attention_flops": cost.attention_flops,
            "temp_plus_args_gb": (mem.temp_bytes + mem.arg_bytes) / 1e9,
            "max_memory_allocated_gb": train18["peak_memory_gb"]}
+    r18["counted_over_measured"] = (r18["temp_plus_args_gb"] / max(
+        r18["max_memory_allocated_gb"], 1e-9))
     emit({"phase": "schedule_dryrun", "card": card_line(),
           "hardware_model": dryrun.HARDWARE, "cells": cells,
-          "phase_18b_step": r18, "launches": launches})
+          "mesh_trace_s": mesh_s, "phase_18b_step": r18,
+          "launches": launches})
     check(not any(launches.values()),
           f"(a) the dry run launched a kernel: {launches}")
-    for c in cells:
+    for c, mesh_name in zip(cells, (SCHED_MESH, "1x1")):
         sh = SHAPES[c["shape"]]
         tokens = sh.global_batch * sh.seq_len
-        check(c["ok"] and c["n_devices"] == 1 and c["mesh"] == "1x1"
-              and c["flops_per_dev"] >= 6 * c["active_params"] * tokens,
+        n = c.get("n_devices")
+        check(c["ok"] and c["mesh"] == mesh_name
+              and n == math.prod(map(int, mesh_name.split("x")))
+              and c["flops_per_dev"] * n >= 6 * c["active_params"] * tokens,
               f"(a) {c['arch']} × {c['shape']}: {c}")
+    counts = cells[0]["collective_counts"]
+    check(cells[0]["collective_bytes_per_dev"] > 0
+          and counts.get("all-gather", 0) > 0
+          and counts.get("reduce-scatter", 0) > 0,
+          f"(a) the {SCHED_MESH} cell's collectives: "
+          f"{cells[0]['collective_bytes_by_op']}")
+    check(abs(r18["counted_over_measured"] - 1.0) <= SCHED_PEAK_RTOL,
+          f"(a) 18(b)'s counted temp + args {r18['temp_plus_args_gb']:.2f} "
+          f"GB against its measured peak "
+          f"{r18['max_memory_allocated_gb']:.2f} GB")
     check(cost.flops >= r18["model_flops"] and tflops * 1e12 < BF16_TC_OPS,
           f"(a) 18(b)'s step counted: {r18}")
     check(mem.arg_bytes == train18["state_bytes"],

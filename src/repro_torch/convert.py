@@ -8,7 +8,9 @@ turned to numpy leaf by leaf, goes through ``params_from_arrays`` the
 same way, and ``arrays_from_params`` gives the port's parameters, or any
 tensors keyed by parameter name (gradients, optimizer moments), back in
 that tree's layout; ``jax_leaf_paths`` names where each parameter goes
-there.  This module reads plain arrays only; it knows nothing of JAX.
+there, and ``port_leaf_spec`` gives a parameter's sharding spec from
+that leaf's.  This module reads plain arrays only; it knows nothing of
+JAX.
 """
 from __future__ import annotations
 
@@ -17,11 +19,12 @@ import torch
 
 from ._device import as_tensor, resolve_device
 from .core.speedup import GenericSpeedup, RegularSpeedup, StackedSpeedup
+from .distributed.sharding import PartitionSpec, param_sharding
 from .models.attention import Attention
 from .models.transformer import Transformer
 
 __all__ = ["speedup_from_arrays", "params_from_arrays", "arrays_from_params",
-           "jax_leaf_paths"]
+           "jax_leaf_paths", "port_leaf_spec", "port_param_specs"]
 
 
 def speedup_from_arrays(kind: str, *, B: float, A=None, w=None, gamma=None,
@@ -246,3 +249,43 @@ def jax_leaf_paths(cfg, model: Transformer) -> dict:
     layers("layers", model.layers, len(cfg.cycle), "blocks", "tail")
     layers("enc_layers", model.enc_layers, 1, "enc_blocks", None)
     return out
+
+
+def _merged(head, width):
+    """The entry of a flattened (heads·hd) axis from the heads' and the
+    head width's: the heads' where the width is whole, as in every
+    projection; a bias whose width is sharded (the generic rule's largest
+    axis) gives its axes to the flattened axis after the heads', which
+    keeps the shards' sizes, not the order of their elements."""
+    axes = tuple(a for e in (head, width) if e is not None
+                 for a in (e if isinstance(e, tuple) else (e,)))
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def port_leaf_spec(path: str, spec, stacked: int = 0) -> PartitionSpec:
+    """A port parameter's spec from its JAX leaf's (``path`` and
+    ``stacked`` as ``jax_leaf_paths`` gives them): the ``stacked``
+    leading entries dropped, and for the attention projections, which
+    the port stores flattened, (H, hd) merged into the heads' entry —
+    wq/wk/wv (d, H, hd) → (d, H·hd), wo (H, hd, d) → (H·hd, d), the
+    biases (H, hd) → (H·hd,)."""
+    spec = tuple(spec or ())[stacked:]
+    if not spec:
+        return PartitionSpec()
+    name = path.split("/")[-1]
+    if name in ("wq", "wk", "wv"):
+        spec = (spec[0], _merged(spec[1], spec[2]))
+    elif name == "wo":
+        spec = (_merged(spec[0], spec[1]), spec[2])
+    elif name in ("bq", "bk", "bv"):
+        spec = (_merged(spec[0], spec[1]),)
+    return PartitionSpec(*spec)
+
+
+def port_param_specs(cfg, model: Transformer) -> dict:
+    """{parameter name: spec} of ``model`` on the active mesh: the spec
+    ``param_sharding`` gives the same leaf of the JAX package's tree (by
+    its path and shape there), through ``port_leaf_spec``."""
+    return {name: port_leaf_spec(path, param_sharding(path, shape), stacked)
+            for name, (path, shape, stacked)
+            in jax_leaf_paths(cfg, model).items()}

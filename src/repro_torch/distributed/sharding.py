@@ -20,12 +20,20 @@ packages answer the same question on the same inputs.  A spec is a
 ``PartitionSpec``: a tuple whose entries are None, a mesh-axis name or a
 tuple of names, equal entry by entry to the tuple of a JAX ``P``.
 
-One process drives one device here, so a spec is a placement that
-nothing applies yet: ``constrain`` returns its input on a mesh of one
-distinct device and raises ``NotImplementedError`` on more (a
-``torch.distributed`` path over several GPUs is ROADMAP item 9).  The
-port's model code calls no ``constrain``; item 9 adds the call sites
-with that path.
+A spec becomes ``DTensor`` placements on a ``DeviceMesh`` whose
+dimensions are the mesh's axes through ``spec_to_placements``.  The dry
+run over a mesh (``launch/dryrun.py``) places its meta leaves so, and
+``constrain`` redistributes a DTensor to its resolved spec; the model
+code calls ``constrain`` where the JAX package does.  On a plain tensor
+``constrain`` returns its input without a mesh or on a mesh of one
+distinct device, and raises ``NotImplementedError`` over several
+distinct devices: executing over several GPUs is ROADMAP item 9(c).
+Where DTensor, left to itself, would partition the model otherwise than
+the JAX package's partitioner does, the model calls a helper that is
+the plain operation on plain tensors: ``sharded_lookup`` (embedding
+rows), ``take_last`` (the gold logit), ``logsumexp_last`` (over a
+vocabulary shard) and ``batch_like`` (positions split as the batch).  The dry run reads each FSDP-sharded weight
+gathered where a layer uses it (``launch/dryrun._FsdpGathered``).
 
 Sharding scheme (``LOGICAL_RULES``):
   batch     → ("pod", "data")   DP across pods and hosts
@@ -52,7 +60,10 @@ __all__ = [
     "POLICIES",
     "ZERO3_RULES", "active_mesh", "constrain", "heads_shardable",
     "logical_to_spec", "mesh_axis_size", "param_sharding", "set_mesh",
-    "state_sharding", "with_logical_rules",
+    "batch_like", "logical_axes", "logsumexp_last", "sharded_lookup",
+    "spec_to_placements", "take_last",
+    "state_sharding",
+    "with_logical_rules",
 ]
 
 _ACTIVE: list = []
@@ -201,6 +212,12 @@ def _rules():
     return getattr(_local, "rules", LOGICAL_RULES)
 
 
+def logical_axes(name: str) -> tuple[str, ...]:
+    """The mesh axes the logical ``name`` maps to under the active
+    rules."""
+    return tuple(_rules().get(name, ()))
+
+
 @contextlib.contextmanager
 def with_logical_rules(overrides: dict[str, tuple[str, ...]]):
     """Temporarily override logical→mesh rules (this thread only)."""
@@ -278,24 +295,214 @@ def heads_shardable(n_heads: int) -> bool:
     return n_heads % mesh_axis_size("model") == 0
 
 
+def spec_to_placements(spec, axis_names):
+    """DTensor placements, one a mesh dimension, of ``spec`` on a
+    ``DeviceMesh`` whose dimensions are ``axis_names`` (a ``FleetMesh``'s
+    axes, in order).  A tensor dimension whose entry names an axis is
+    ``Shard(dim)`` on that mesh dimension; an entry that is a tuple of
+    axes shards its dimension over all of them, the first the major one,
+    as JAX splits it, which is DTensor's split when the tuple is in mesh
+    order (a tuple out of mesh order raises ValueError).  Every other
+    mesh dimension is ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    axis_names = tuple(axis_names)
+    out = [Replicate()] * len(axis_names)
+    for dim, entry in enumerate(spec or ()):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [axis_names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"{entry} shards dimension {dim} over mesh "
+                             f"axes out of the mesh's order {axis_names}")
+        for i in idx:
+            if out[i] != Replicate():
+                raise ValueError(f"mesh axis {axis_names[i]!r} appears "
+                                 f"twice in {spec}")
+            out[i] = Shard(dim)
+    return out
+
+
+def _is_dtensor(x) -> bool:
+    return hasattr(x, "device_mesh")
+
+
 def constrain(x, *logical):
     """``x`` placed by logical names: the spec is resolved as the JAX
     package's ``constrain`` resolves it (entries past ``x``'s rank
-    dropped).  Without a mesh, or on a mesh whose devices are all one
-    device, that placement is ``x`` itself.  Over several distinct
-    devices it would shard ``x`` across processes, which the port cannot
-    do yet (ROADMAP item 9): it raises rather than return ``x``
-    unplaced."""
-    spec = logical_to_spec(*logical[: x.ndim], shape=x.shape)
-    if spec is None:
+    dropped).  A ``DTensor`` is redistributed to that spec on its own
+    mesh (``spec_to_placements``), which has the active mesh's axes.  A
+    plain tensor without a mesh, or on a mesh whose devices are all one
+    device, is returned itself; over several distinct devices it would
+    shard ``x`` across processes, which the port does not run yet
+    (ROADMAP item 9(c)): it raises rather than return ``x`` unplaced."""
+    mesh = active_mesh()
+    if mesh is None:
         return x
-    devices = set(active_mesh().devices.flat)
-    if len(devices) > 1:
+    if not _is_dtensor(x):
+        if mesh.size == 1 or len(set(mesh.devices.flat)) == 1:
+            return x
         raise NotImplementedError(
-            f"constrain{tuple(spec)} over {len(devices)} distinct devices "
-            f"needs a torch.distributed path across GPUs, not ported yet "
-            f"(ROADMAP item 9)")
-    return x
+            f"constrain{tuple(logical)} over {len(set(mesh.devices.flat))} "
+            f"distinct devices needs a torch.distributed path across GPUs, "
+            f"not ported yet (ROADMAP item 9(c))")
+    spec = logical_to_spec(*logical[: x.ndim], shape=x.shape)
+    placements = tuple(spec_to_placements(spec, x.device_mesh.mesh_dim_names))
+    if tuple(x.placements) == placements and not x.requires_grad:
+        return x
+    return _Constrain.apply(x, placements)
+
+
+class _Constrain(torch.autograd.Function):
+    """A ``DTensor`` redistributed to ``placements``, and its cotangent
+    to the same placements in the backward: JAX transposes a sharding
+    constraint into the same constraint on the cotangent, so a partial
+    sum that reaches a constrained point in the backward pass is reduced
+    there, not carried on into the products before it."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        out = x.redistribute(x.device_mesh, placements)
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.placements:
+            return g, None
+        return g.redistribute(g.device_mesh, ctx.placements), None
+
+
+def batch_like(t, ref):
+    """``t`` (rows first, every row alike, such as the positions of a
+    batch) split over the mesh axes that split ``ref``'s rows where
+    ``ref`` is a ``DTensor`` (this rank's rows, not the whole batch on
+    every rank); else ``t`` itself."""
+    if not _is_dtensor(ref) or _is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    placements = [p if p.is_shard() and p.dim == 0 else Replicate()
+                  for p in ref.placements]
+    rows = ref.to_local().shape[0]
+    return DTensor.from_local(t.narrow(0, 0, rows), ref.device_mesh,
+                              placements, run_check=False)
+
+
+class _Lookup(torch.autograd.Function):
+    """``table[tokens]`` over DTensors as the JAX package's partitioner
+    runs it: the table gathered whole on every rank, each rank's rows
+    looked up from its own tokens; in the backward each rank scatters
+    the gradient rows it holds (the tokens split as they are) into a
+    table of its own: the gradient is that partial sum over the mesh
+    axes that split those rows, which the table's own redistribution
+    (or ``loss_and_grads``) reduces to the parameter's placement."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = table.device_mesh
+        whole = table.redistribute(mesh, [Replicate()] * mesh.ndim)
+        ctx.tokens = tokens
+        ctx.meta = (table.shape, mesh)
+        return DTensor.from_local(whole.to_local()[tokens.to_local()], mesh,
+                                  tokens.placements, run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        shape, mesh = ctx.meta
+        rows = ctx.tokens.ndim
+        split = [p if p.is_shard() and p.dim < rows else Replicate()
+                 for p in grad.placements]
+        g = grad.redistribute(mesh, split).to_local()
+        idx = ctx.tokens.redistribute(mesh, split).to_local()
+        local = g.new_zeros(shape).index_put_((idx,), g, accumulate=True)
+        return DTensor.from_local(
+            local, mesh, [Partial() if p.is_shard() else Replicate()
+                          for p in split], run_check=False), None
+
+
+def sharded_lookup(table, tokens):
+    """``table[tokens]`` (rows of an embedding table) where ``table`` is a
+    ``DTensor``: see ``_Lookup``.  DTensor's own indexing gathers every
+    rank's tokens and gradient rows in the backward instead."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, table.device_mesh,
+                                    [Replicate()] * table.device_mesh.ndim,
+                                    run_check=False)
+    return _Lookup.apply(table, tokens)
+
+
+def logsumexp_last(x):
+    """``torch.logsumexp(x, -1)``.  Over a ``DTensor`` whose last axis is
+    split (a vocabulary shard) each rank takes the max and the sum of
+    exponentials of its own shard, reduced across the split, as the JAX
+    package's partitioner reduces them; DTensor's own logsumexp gathers
+    the whole axis on every rank."""
+    last = x.ndim - 1
+    if not _is_dtensor(x) or not any(p.is_shard() and p.dim == last
+                                     for p in x.placements):
+        return torch.logsumexp(x, dim=-1)
+    from torch.distributed.tensor import Replicate
+
+    def reduced(t):                     # a partial max or sum, reduced
+        return t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+
+    m = reduced(x.detach().amax(dim=-1, keepdim=True))
+    return m[..., 0] + torch.log(reduced(torch.exp(x - m).sum(dim=-1)))
+
+
+class _TakeLast(torch.autograd.Function):
+    """``torch.gather(x, -1, idx)`` over DTensors as the JAX package's
+    partitioner runs it: each rank takes from its own shard of x, the
+    entries outside a vocabulary shard (x's last axis split over a mesh
+    axis) read as zeros and the result a partial sum over that axis; in
+    the backward each rank scatters into its own shard.  DTensor's own
+    gather builds a zero gradient of x's global shape on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        mesh, last = x.device_mesh, x.ndim - 1
+        split = [p.is_shard() and p.dim == last for p in x.placements]
+        want = [Replicate() if s else p for s, p in zip(split, x.placements)]
+        if not isinstance(idx, DTensor):
+            idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
+        li = idx.redistribute(mesh, want).to_local()
+        loc = x.to_local()
+        lo, width = 0, x.shape[last]
+        coord = mesh.get_coordinate()
+        for i, s in enumerate(split):       # shards major first, mesh order
+            if s:
+                width //= mesh.size(i)
+                lo += coord[i] * width
+        inside = (li >= lo) & (li < lo + loc.shape[-1])
+        at = (li - lo).clamp(0, loc.shape[-1] - 1)
+        ctx.save_for_backward(at, inside)
+        ctx.meta = (loc.shape, x.placements, mesh, want)
+        out = torch.where(inside, torch.gather(loc, -1, at), 0.0)
+        return DTensor.from_local(
+            out, mesh, [Partial() if s else p for s, p in zip(split, want)],
+            run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+        at, inside = ctx.saved_tensors
+        shape, placements, mesh, want = ctx.meta
+        g = grad.redistribute(mesh, want).to_local()
+        d = g.new_zeros(shape).scatter_(-1, at, torch.where(inside, g, 0.0))
+        return DTensor.from_local(d, mesh, placements, run_check=False), None
+
+
+def take_last(x, idx):
+    """``torch.gather(x, -1, idx)``; over a ``DTensor`` x, ``_TakeLast``."""
+    if not _is_dtensor(x):
+        return torch.gather(x, -1, idx)
+    return _TakeLast.apply(x, idx)
 
 
 def param_sharding(path: str, shape) -> PartitionSpec | None:

@@ -15,6 +15,9 @@ goes through ``FlashAttention``, a ``torch.autograd.Function`` whose
 forward is K5 (saving its inputs and row log-sum-exp) and whose backward
 is K5's backward kernel.  On CPU tensors autograd differentiates the
 plain version, which is also what the backward kernel is held against.
+On meta tensors (the dry run; a DTensor whose shards are on meta too)
+the call goes through the kernels' stand-ins (``meta.py``), which
+allocate what the kernels allocate and nothing else.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from .._build import use_cuda_for
 from .kernel import flash_attention, flash_attention_bwd
+from .meta import k5_meta
 from .ref import attention_ref
 
 __all__ = ["flash_attention_op", "attention_ref", "FlashAttention"]
@@ -57,4 +61,6 @@ def flash_attention_op(q, k, v, causal=True, window=None, cap=None,
                                         or v.requires_grad):
             return FlashAttention.apply(q, k, v, causal, window, cap)
         return flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    if q.device.type == "meta" and impl != "ref":
+        return k5_meta(q, k, v, causal, window, cap)
     return attention_ref(q, k, v, causal=causal, window=window, cap=cap)

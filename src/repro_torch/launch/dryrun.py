@@ -12,13 +12,25 @@ byte of device memory:
     beside the bytes of its arguments;
   * its roofline terms on one H100 SXM (``HARDWARE``).
 
-One process drives one device here, so on a mesh of one device
-(``make_host_mesh()``) a cell is the whole program.  The reference
-compiles the per-device program of a partitioned one on a mesh of
-many; that needs a torch.distributed path across GPUs (ROADMAP item 9),
-so ``run_cell`` raises NotImplementedError on a mesh of more than one
-device, and ``main`` records such a cell as ``ok: false`` with the error,
-as the reference records a cell that fails.
+On a mesh of one device (``make_host_mesh()``) a cell is the whole
+program.  On a mesh of n > 1 (the production meshes, built on meta by
+``make_production_mesh(device="meta")``) ``run_cell`` traces the
+per-device program of the partitioned one, as the reference compiles
+it, without a second card: it makes a default process group of the
+"fake" backend of world n (this process is rank 0, and no collective
+moves a byte) and a ``DeviceMesh`` of the mesh's shape and axis names;
+every input is a ``DTensor`` whose shard is on meta, placed by
+``param_sharding`` (the AdamW moments as their parameters) and
+``state_sharding`` through ``spec_to_placements``, the batch over the
+mesh's "pod" and "data" axes where they divide it (the reference's
+``_batch_axes``); the program runs under ``implicit_replication`` (the
+tensors it makes itself, positions and masks, join as replicated), and
+its ``constrain`` calls redistribute.  The count is then rank 0's:
+its local operations, collectives and storages
+(``launch/hlo_analysis.py``).  The group is destroyed when the cell
+ends; a cell refuses to run beside a default group it did not make.
+A cell that raises is recorded by ``main`` as ``ok: false`` with the
+error, as the reference records a cell that fails.
 
 The training model holds f32 masters (``trainable=True``), as the port
 trains; a serving model holds the compute dtype, as the port serves.
@@ -26,26 +38,31 @@ trains; a serving model holds the compute dtype, as the port serves.
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--out results.json]
+  python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k \
+      --both-meshes
 The cells run on the host mesh, the current CUDA card unless ``--device``
 says otherwise (``--device cpu`` on a machine without one); the
-production meshes of ``--multi-pod`` and ``--both-meshes`` give
-``ok: false`` cells.
+production meshes of ``--multi-pod`` and ``--both-meshes`` are traced on
+meta and need no card.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
 import torch
+from torch import nn
 
 from ..configs import SHAPES, get_config, list_archs
-from ..distributed.sharding import POLICIES, active_mesh, set_mesh, \
-    with_logical_rules
+from ..convert import port_param_specs
+from ..distributed.sharding import POLICIES, active_mesh, logical_axes, \
+    set_mesh, spec_to_placements, state_sharding, with_logical_rules
 from ..models import Transformer, init_decode_state
 from ..serve import make_prefill, make_serve_step
 from ..train import AdamWConfig, adamw_init, make_train_step
-from .hlo_analysis import top_contributors, trace_program
+from .hlo_analysis import host_ops_pass, top_contributors, trace_program
 from .mesh import make_host_mesh, make_production_mesh
 
 # H100 SXM hardware model (per card, at its 700 W power limit): dense
@@ -90,26 +107,156 @@ TRAIN_POLICY = {
 }
 
 
-def _one_device(mesh):
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"a dry run on a {'x'.join(map(str, mesh.devices.shape))} mesh "
-            f"traces the per-device program of a partitioned one, which "
-            f"needs a torch.distributed path across GPUs, not ported yet "
-            f"(ROADMAP item 9)")
+def _fake_process_group(n: int):
+    """Make the process-wide default group of torch's "fake" backend,
+    world ``n``, this process rank 0: collectives return at once, so a
+    program over ``DTensor``s runs its per-rank part alone."""
+    import torch.distributed as dist
+    if not dist.is_available():
+        raise RuntimeError("a dry run over a mesh needs torch.distributed, "
+                           "which this torch build lacks")
+    if dist.is_initialized():
+        raise RuntimeError("a dry run over a mesh makes its own fake default "
+                           "process group, and one already exists in this "
+                           "process: run it in a process of its own")
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            "a dry run over a mesh needs torch's fake process-group backend, "
+            "which importing torch.testing._internal.distributed.fake_pg "
+            "registers; this torch has no such module") from e
+    dist.init_process_group("fake", store=FakeStore(), world_size=n, rank=0)
 
 
-def shape_specs(cfg, shape, mesh):
+@contextlib.contextmanager
+def device_mesh_of(mesh):
+    """None on a mesh of one device; else, for the ``with`` block, a
+    ``DeviceMesh`` of ``mesh``'s shape and axis names over a fake default
+    process group of ``mesh.size`` ranks, destroyed on the way out."""
+    if mesh.size == 1:
+        yield None
+        return
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    _fake_process_group(mesh.size)
+    try:
+        yield init_device_mesh("cpu", tuple(mesh.devices.shape),
+                               mesh_dim_names=tuple(mesh.axis_names))
+    finally:
+        dist.destroy_process_group()
+
+
+def place(t, device_mesh, spec):
+    """A ``DTensor`` of ``t``'s global shape and dtype on
+    ``device_mesh``, placed by ``spec``, whose shard (this rank's) is an
+    empty meta tensor.  The spec must divide each dimension it shards."""
+    from torch.distributed.tensor import DTensor, Shard
+    placements = spec_to_placements(spec, device_mesh.mesh_dim_names)
+    local = list(t.shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = device_mesh.size(i)
+            if local[p.dim] % n:
+                raise ValueError(f"{tuple(spec)} does not divide "
+                                 f"{tuple(t.shape)} evenly")
+            local[p.dim] //= n
+    shard = torch.empty(local, dtype=t.dtype, device="meta")
+    return DTensor.from_local(shard, device_mesh, placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def _batch_axes(mesh):
+    """The mesh axes a batch is sharded over (the reference's)."""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return axes if len(axes) > 1 else axes[0]
+
+
+def _batch_size(mesh):
+    d = mesh.shape
+    return d.get("pod", 1) * d.get("data", 1)
+
+
+def _place_tree(tree, device_mesh, rule, path=()):
+    """Each tensor leaf of nested dicts, lists and tuples placed by
+    ``rule(path string, shape)``."""
+    if isinstance(tree, torch.Tensor):
+        p = "/".join(map(str, path))
+        return place(tree, device_mesh, rule(p, tuple(tree.shape)))
+    if isinstance(tree, dict):
+        return {k: _place_tree(v, device_mesh, rule, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place_tree(v, device_mesh, rule, path + (i,))
+                          for i, v in enumerate(tree))
+    return tree
+
+
+class _FsdpGathered(nn.Module):
+    """A parametrization: the weight a layer reads is its parameter with
+    the shards over the FSDP axes gathered (its other shards kept), as
+    the JAX package's partitioner gathers an FSDP-sharded weight where a
+    layer uses it; the redistribution's backward reduces the weight's
+    gradient back to the parameter's placement."""
+
+    def __init__(self, placements):
+        super().__init__()
+        self.placements = tuple(placements)
+
+    def forward(self, w):
+        return w.redistribute(w.device_mesh, self.placements)
+
+
+def _place_model(model, cfg, device_mesh):
+    """Swap every parameter of ``model`` for a ``DTensor`` placed by its
+    JAX leaf's ``param_sharding`` spec (``convert.port_param_specs``);
+    one sharded over the active rules' "fsdp" axes is read gathered over
+    them (``_FsdpGathered``, registered under the parameter's name, so
+    the model code reads it as before)."""
+    from torch.distributed.tensor import Replicate
+    from torch.nn.utils import parametrize
+    specs = port_param_specs(cfg, model)
+    fsdp = set(logical_axes("fsdp"))
+    names = device_mesh.mesh_dim_names
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner)
+        placed = place(p.detach(), device_mesh, specs[name])
+        setattr(module, leaf, nn.Parameter(placed,
+                                           requires_grad=p.requires_grad))
+        used = [Replicate() if names[i] in fsdp and q.is_shard() else q
+                for i, q in enumerate(placed.placements)]
+        if used != list(placed.placements):
+            parametrize.register_parametrization(
+                module, leaf, _FsdpGathered(used), unsafe=True)
+    return model
+
+
+def shape_specs(cfg, shape, mesh, device_mesh=None):
     """Meta stand-ins (no allocation) for every input of the program of
     ``shape`` (a ``ShapeConfig``): {"params", "opt", "batch"} for train,
     {"params", "batch"} for prefill, {"params", "state", "tokens"} for
-    decode.  Token batches are int32, as the data pipeline gives them."""
-    _one_device(mesh)
+    decode.  Token batches are int32, as the data pipeline gives them.
+    On a mesh of more than one device each is a ``DTensor`` on
+    ``device_mesh`` (``device_mesh_of``), placed as the reference places
+    its inputs, under the active logical rules."""
+    if mesh.size > 1 and device_mesh is None:
+        raise ValueError("inputs over a mesh of more than one device need "
+                         "its DeviceMesh (device_mesh_of)")
     B, S = shape.global_batch, shape.seq_len
     meta = torch.device("meta")
 
     def b_spec(shp, dtype=torch.int32):
-        return torch.empty(shp, dtype=dtype, device=meta)
+        t = torch.empty(shp, dtype=dtype, device=meta)
+        if device_mesh is None:
+            return t
+        ax = _batch_axes(mesh) if shp[0] % _batch_size(mesh) == 0 else None
+        return place(t, device_mesh, (ax,) + (None,) * (len(shp) - 1))
+
+    def model(**kw):
+        m = Transformer(cfg, device=meta, **kw)
+        return m if device_mesh is None else _place_model(m, cfg,
+                                                          device_mesh)
 
     def text_batch():
         S_text = S - cfg.n_patches if cfg.family == "vlm" else S
@@ -122,25 +269,28 @@ def shape_specs(cfg, shape, mesh):
         return batch
 
     if shape.kind == "train":
-        params = Transformer(cfg, device=meta, dtype=torch.float32,
-                             trainable=True)
+        params = model(dtype=torch.float32, trainable=True)
         opt = adamw_init(dict(params.named_parameters()))
         batch = text_batch()
         batch["labels"] = b_spec(batch["tokens"].shape)
         return {"params": params, "opt": opt, "batch": batch}
-    params = Transformer(cfg, device=meta)
+    params = model()
     if shape.kind == "prefill":
         return {"params": params, "batch": text_batch()}
     # decode: one new token against a seq_len-deep cache
     state = init_decode_state(cfg, B, S,
                               src_len=S if cfg.encoder_decoder else 0,
                               device=meta)
+    if device_mesh is not None:
+        state = _place_tree(state, device_mesh, state_sharding)
     return {"params": params, "state": state, "tokens": b_spec((B, 1))}
 
 
-def input_specs(arch: str, shape_name: str, mesh, cfg=None):
+def input_specs(arch: str, shape_name: str, mesh, cfg=None,
+                device_mesh=None):
     """``shape_specs`` of the cell (arch × shape_name)."""
-    return shape_specs(cfg or get_config(arch), SHAPES[shape_name], mesh)
+    return shape_specs(cfg or get_config(arch), SHAPES[shape_name], mesh,
+                       device_mesh)
 
 
 def build_program(arch: str, shape_name: str, cfg=None,
@@ -162,6 +312,19 @@ def build_program(arch: str, shape_name: str, cfg=None,
                                                           specs["state"])
 
 
+def _replicated(device_mesh):
+    """``implicit_replication`` over a mesh (the plain tensors a program
+    makes join its DTensors as replicated) and ``host_ops_pass``; nothing
+    at one device."""
+    if device_mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    stack = contextlib.ExitStack()
+    stack.enter_context(implicit_replication())
+    stack.enter_context(host_ops_pass())
+    return stack
+
+
 def applicable(arch: str, shape_name: str) -> bool:
     if shape_name == "long_500k":
         return arch in LONG_CONTEXT_ARCHS
@@ -174,7 +337,8 @@ def run_cell(arch: str, shape_name: str, mesh, verbose=True,
     """Trace one cell and return the reference's record of it
     (``lower_s`` the time to build the meta inputs and the program,
     ``compile_s`` the trace's; ``temp_bytes_per_dev`` the peak of live
-    intermediates).  ``hlo_out`` receives the trace's per-op rows by
+    intermediates), per device on a mesh of more than one (see the
+    module docstring).  ``hlo_out`` receives the trace's per-op rows by
     bytes (``top_contributors``), one JSON list a row."""
     cfg = cfg or get_config(arch)
     if policy is None:
@@ -189,18 +353,21 @@ def run_cell(arch: str, shape_name: str, mesh, verbose=True,
     old = active_mesh()
     set_mesh(mesh)
     try:
-        with with_logical_rules(POLICIES[policy]):
-            specs = input_specs(arch, shape_name, mesh, cfg=cfg)
+        with with_logical_rules(POLICIES[policy]), \
+                device_mesh_of(mesh) as dm:
+            specs = input_specs(arch, shape_name, mesh, cfg=cfg,
+                                device_mesh=dm)
             program = build_program(arch, shape_name, cfg=cfg,
                                     microbatches=microbatches)
             t_lower = time.perf_counter() - t0
-            cost, mem, _ = trace_program(program, specs)
-            t_compile = time.perf_counter() - t0 - t_lower
-            if hlo_out:
-                rows = top_contributors(program, specs, k=10 ** 9)
-                with open(hlo_out, "w") as f:
-                    for r in rows:
-                        f.write(json.dumps(r) + "\n")
+            with _replicated(dm):
+                cost, mem, _ = trace_program(program, specs)
+                t_compile = time.perf_counter() - t0 - t_lower
+                if hlo_out:
+                    rows = top_contributors(program, specs, k=10 ** 9)
+                    with open(hlo_out, "w") as f:
+                        for r in rows:
+                            f.write(json.dumps(r) + "\n")
     finally:
         set_mesh(old)
 
@@ -227,6 +394,8 @@ def run_cell(arch: str, shape_name: str, mesh, verbose=True,
         "arg_bytes_per_dev": int(mem.arg_bytes),
         "out_bytes_per_dev": int(mem.out_bytes),
         "flops_per_dev": float(cost.flops),
+        "product_flops_per_dev": float(cost.product_flops),
+        "attention_flops_per_dev": float(cost.attention_flops),
         "bytes_per_dev": float(cost.bytes),
         "bytes_fused_per_dev": float(cost.bytes_fused),
         "collective_bytes_per_dev": float(cost.collective_bytes),
@@ -302,7 +471,8 @@ def main(argv=None):
 
     def production(multi_pod):
         return ("2x16x16" if multi_pod else "16x16",
-                lambda: make_production_mesh(multi_pod=multi_pod))
+                lambda: make_production_mesh(multi_pod=multi_pod,
+                                             device="meta"))
 
     if args.both_meshes:
         meshes = [production(False), production(True)]

@@ -17,9 +17,15 @@ sees it, by the reference's rules:
                scatter and index_add write only the rows they are given
   bytes_fused  lower bound: only the ops a backend cannot fuse away
                contribute — products, copies and casts, gathers and
-               scatters, sort, and reductions
-  collectives  zero: one process drives one device (D = 1), so the
-               program holds none
+               scatters, sort, reductions, collectives and the K5
+               stand-ins
+  collectives  the ``_c10d_functional`` collectives of a program over
+               ``DTensor``s, under the reference's names: count and
+               result bytes by op (all_gather_into_tensor → all-gather,
+               all_reduce → all-reduce, reduce_scatter_tensor →
+               reduce-scatter, all_to_all_single → all-to-all, a
+               send/recv pair → collective-permute, counted once at its
+               irecv); none on a program of plain tensors (one device)
 
 The reference expands each while loop by its trip count; here a Python
 loop runs its body once an iteration, so each iteration is counted as
@@ -31,13 +37,33 @@ counterpart of XLA's temp size.
 Every tensor the program is given must be on meta, and so must every
 operand the mode sees: the port's CUDA kernels are ``ctypes`` calls that
 the dispatcher never sees (``kernels/_build.py``), so a count on the
-card would leave K4 and K5 out.  On meta, ``flash_attention_op`` and
-``linear_scan_op`` take their plain versions by their device rule;
-those count the whole S × T score product, as the XLA attention the
-reference's dry run lowers does.
+card would leave K4 and K5 out.  On meta, ``flash_attention_op`` runs
+K5's stand-ins (``kernels/flash_attention/meta.py``), which allocate
+what K5 and its backward allocate, and are counted by name: the
+products the kernels compute over the tiles they visit
+(``k5_product_flops``), each operand read and each output written once.
+``linear_scan_op`` takes its plain version by its device rule.
+
+Per device.  A program whose tensors are ``DTensor``s with shards on
+meta (``launch/dryrun.py`` over a mesh, under a fake process group) is
+counted on one rank: the mode lets each DTensor operation dispatch on
+with the mode still active, so what it counts are the local operations
+DTensor runs on the rank's shards and the collectives of its
+redistributions, not the global operation; the shape propagation
+DTensor runs under a fake-tensor mode is not counted, nor, inside
+``host_ops_pass()``, the integer host tensors its placement rules
+build (a float tensor off meta still raises).  A K5 stand-in's call on
+a shard counts its share of the global call's walk: the global call's
+product flops times the share of its query elements (batch rows, heads,
+query rows) the shard holds.  That is the local walk itself for batch
+and head shards; for query-sequence shards under a causal mask it is
+the mean over the ranks, where the local walk from position 0 would be
+rank 0's, the lightest.  ``ProgramMemory`` reads the shards' storages:
+per-device argument, output and temp bytes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 import weakref
@@ -48,8 +74,10 @@ from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
-__all__ = ["analyze_program", "HloCost", "ProgramMemory", "top_contributors",
-           "trace_program"]
+from ..kernels.flash_attention.meta import META_OPS, k5_product_flops
+
+__all__ = ["analyze_program", "HloCost", "ProgramMemory", "host_ops_pass",
+           "top_contributors", "trace_program"]
 
 # the aten ops of the port's programs, by how the reference counts them;
 # any other op moves its operand and result bytes and counts no flops
@@ -77,7 +105,19 @@ _SORTS = {"sort", "topk"}
 # allocations that write nothing, and ops that only alias
 _FREE = {"empty", "empty_like", "empty_strided", "new_empty",
          "new_empty_strided", "detach", "alias", "lift_fresh", "view",
-         "_unsafe_view"}
+         "_unsafe_view", "wait_tensor", "_wrap_tensor_autograd"}
+# the functional collectives by the reference's names (its _COLLECTIVES)
+_COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+                "all_gather_into_tensor_coalesced": "all-gather",
+                "all_reduce": "all-reduce",
+                "all_reduce_coalesced": "all-reduce",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "reduce_scatter_tensor_coalesced": "reduce-scatter",
+                "all_to_all_single": "all-to-all",
+                # a send/recv pair once, at the receive
+                "irecv": "collective-permute"}
+_C10D = ("_c10d_functional", "_c10d_functional_autograd")
+_FAKE = torch._C._TorchDispatchModeKey.FAKE
 
 
 @dataclasses.dataclass
@@ -90,6 +130,10 @@ class HloCost:
     collective_counts: Counter = dataclasses.field(default_factory=Counter)
     collective_bytes_by_op: Counter = dataclasses.field(default_factory=Counter)
     while_trips: dict = dataclasses.field(default_factory=dict)
+    # the port's own split of ``flops``: the products (the reference's
+    # dots), and of those the K5 stand-ins'
+    product_flops: float = 0.0
+    attention_flops: float = 0.0
 
 
 @dataclasses.dataclass
@@ -124,29 +168,52 @@ def _arg_tensors(args, kwargs):
     return out
 
 
+def _local(t):
+    """A DTensor's shard on this rank; any other tensor itself."""
+    loc = getattr(t, "_local_tensor", None)
+    return t if loc is None else loc
+
+
 def _storage_bytes(tensors) -> int:
     seen, total = set(), 0
     for t in tensors:
-        s = t.untyped_storage()
+        s = _local(t).untyped_storage()
         if id(s) not in seen:
             seen.add(id(s))
             total += s.nbytes()
     return total
 
 
-def _op_cost(func, args, kwargs, out):
-    """(flops, transcendentals, bytes, bytes_fused, product flops) of one
-    dispatched operation."""
+def _collective(func):
+    """The reference's name of a functional collective, else None."""
+    if func.namespace in _C10D:
+        return _COLLECTIVES.get(func.overloadpacket.__name__)
+    return None
+
+
+def _op_cost(func, args, kwargs, out, k5_call=None):
+    """(flops, transcendentals, bytes, bytes_fused, product flops,
+    collective bytes) of one dispatched operation; ``k5_call`` is the
+    (product flops, query elements) of the global call a K5 stand-in's
+    local call on a shard runs for."""
     name = func.overloadpacket.__name__
     base = name[:-1] if name.endswith("_") else name
     ins = _tensors((args, kwargs))
     outs = _tensors(out)
     if func.is_view or base in _FREE or not outs:
-        return 0.0, 0.0, 0.0, 0.0, 0.0
+        return 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
     relems = sum(t.numel() for t in outs)
     rbytes = sum(_nbytes(t) for t in outs)
     flops = trans = prod = 0.0
-    if base in _PRODUCTS:
+    kind = META_OPS.get(func)
+    coll = _collective(func)
+    if kind is not None:
+        if k5_call is None:
+            prod = flops = _k5_flops(func, args)
+        else:                           # this shard's share of the call
+            whole, q_elems = k5_call
+            prod = flops = whole * args[0].numel() / q_elems
+    elif base in _PRODUCTS:
         # mm/bmm (a, b), addmm/baddbmm (c, a, b): a's last axis contracts
         a = args[0] if base in ("mm", "bmm") else args[1]
         prod = 2.0 * outs[0].numel() * a.shape[-1]
@@ -174,11 +241,44 @@ def _op_cost(func, args, kwargs, out):
     nbytes = float(rbytes + ob)
     fused = nbytes if (base in _PRODUCTS or base in _COPIES
                        or base in _GATHERS or base in _SCATTERS
-                       or base in _SORTS or base in _REDUCTIONS) else 0.0
-    return float(flops), float(trans), nbytes, fused, prod
+                       or base in _SORTS or base in _REDUCTIONS
+                       or kind is not None or coll is not None) else 0.0
+    return (float(flops), float(trans), nbytes, fused, prod,
+            float(rbytes) if coll is not None else 0.0)
+
+
+def _k5_flops(func, args):
+    """``k5_product_flops`` of a K5 stand-in's call (its tensors' shapes
+    as they are given: a DTensor's global ones)."""
+    kind = META_OPS[func]
+    causal, window = args[3:5] if kind == "fwd" else args[5:7]
+    return k5_product_flops(kind, args[0], args[1], causal, window)
 
 
 _AUTOGRAD = "torch/autograd/"
+_HOST_OPS_PASS = [False]
+
+
+def _bookkeeping(t) -> bool:
+    """A host tensor ``host_ops_pass`` lets through: integer or bool."""
+    return (t.device.type == "cpu" and not t.is_floating_point()
+            and not t.is_complex())
+
+
+@contextlib.contextmanager
+def host_ops_pass():
+    """Inside the block the count lets an operation on integer or
+    boolean host tensors run uncounted instead of raising: a trace over
+    ``DTensor``s, whose inputs are all on meta, meets such tensors in
+    DTensor's own bookkeeping (a shard's mesh coordinate, the shards'
+    sizes and offsets, a mesh's size long).  A float tensor off meta
+    still raises."""
+    old = _HOST_OPS_PASS[0]
+    _HOST_OPS_PASS[0] = True
+    try:
+        yield
+    finally:
+        _HOST_OPS_PASS[0] = old
 
 
 def _module_names(root):
@@ -197,6 +297,7 @@ class _Tracer(TorchDispatchMode):
         self.peak = 0
         self.owned: set = set()
         self._names = weakref.WeakKeyDictionary()
+        self.k5_calls: list = []
 
     def _release(self, key, n):
         self.live -= n
@@ -247,27 +348,57 @@ class _Tracer(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if torch._C._get_dispatch_mode(_FAKE) is not None:
+            # DTensor's shape propagation (global shapes, fake tensors)
+            return func(*args, **kwargs)
+        if any(t is not torch.Tensor for t in types):
+            # a DTensor operation: DTensor runs its local operations and
+            # redistributions with this mode active, and those are counted;
+            # a K5 stand-in's local call counts its share of the global
+            # call's walk
+            if func in META_OPS:
+                self.k5_calls.append((func, (_k5_flops(func, args),
+                                             args[0].numel())))
+            return NotImplemented
         ins = _tensors((args, kwargs))
         for t in ins:
             if t.device.type != "meta":
+                if _HOST_OPS_PASS[0] and all(
+                        u.device.type == "meta" or _bookkeeping(u)
+                        for u in ins):
+                    return func(*args, **kwargs)
                 raise ValueError(
                     f"{func} got a tensor on {t.device}: the count runs on "
                     f"meta tensors only (a CUDA kernel's launch is a ctypes "
                     f"call the dispatcher never sees)")
         out = func(*args, **kwargs)
         outs = _tensors(out)
-        flops, trans, nbytes, fused, prod = _op_cost(func, args, kwargs, out)
+        k5_call = None
+        if func in META_OPS and self.k5_calls and \
+                self.k5_calls[-1][0] is func:
+            k5_call = self.k5_calls.pop()[1]
+        flops, trans, nbytes, fused, prod, coll = _op_cost(
+            func, args, kwargs, out, k5_call)
         c = self.cost
         c.flops += flops
         c.transcendentals += trans
         c.bytes += nbytes
         c.bytes_fused += fused
+        c.product_flops += prod
+        if func in META_OPS:
+            c.attention_flops += prod
+        if coll:
+            ref = _collective(func)
+            c.collective_bytes += coll
+            c.collective_counts[ref] += 1
+            c.collective_bytes_by_op[ref] += coll
         if not func.is_view:
             self._track(outs, ins)
         if self.rows is not None and (nbytes or flops):
             shape = ",".join(f"{str(t.dtype)[6:]}{list(t.shape)}"
                              for t in outs)
             self.rows.append({"bytes": nbytes, "flops": prod,
+                              "collective": coll,
                               "op": func.overloadpacket.__name__,
                               "overload": str(func), "type": shape[:80],
                               "module": self._issuer()})
@@ -297,9 +428,9 @@ def trace_program(fn, *args, **kwargs):
     mode.  Returns (HloCost, ProgramMemory, the program's output)."""
     tracer = _Tracer()
     given, out = _run(tracer, fn, args, kwargs)
-    held = {id(t.untyped_storage()) for t in given}
+    held = {id(_local(t).untyped_storage()) for t in given}
     outs = [t for t in _arg_tensors((out,), {})
-            if id(t.untyped_storage()) not in held]
+            if id(_local(t).untyped_storage()) not in held]
     mem = ProgramMemory(arg_bytes=_storage_bytes(given),
                         out_bytes=_storage_bytes(outs),
                         temp_bytes=int(tracer.peak))
@@ -314,19 +445,18 @@ def analyze_program(fn, *args, **kwargs) -> HloCost:
 
 def top_contributors(fn, *args, metric: str = "bytes", k: int = 20,
                      **kwargs):
-    """Per-operation attribution of bytes or product flops (``metric``
-    "bytes" or "flops"; "collective" gives no rows at D = 1), the dry
+    """Per-operation attribution of bytes, product flops or collective
+    result bytes (``metric`` "bytes", "flops" or "collective"), the dry
     run's profile: rows of (value, module, op, result type, aten
     overload) sorted by value, the module the qualified name of the
     ``nn.Module`` that issued the op (``<…Backward0>``, autograd's node,
     for an op the backward pass issues outside any recomputed forward).
     The module takes the place of the reference's computation and
-    op_name."""
+    op_name.  A program of plain tensors (one device) has no collective
+    rows."""
     rows: list = []
     _run(_Tracer(rows), fn, args, kwargs)
-    if metric == "collective":
-        return []
-    key = "flops" if metric == "flops" else "bytes"
+    key = metric if metric in ("flops", "collective") else "bytes"
     out = [(r[key], r["module"], r["op"], r["type"], r["overload"])
            for r in rows if r[key]]
     out.sort(key=lambda r: r[0], reverse=True)

@@ -9,7 +9,10 @@ distributed/compression.py).
 Functions, not module constants: importing this module touches no
 device.  The meshes are ``FleetMesh``es of CUDA cards; specs resolve
 against them (``distributed/sharding.py``), and one process drives one
-card (more is ROADMAP item 9).
+card (more is ROADMAP item 9(c)).  With ``device="meta"`` a production
+mesh is the one the dry run traces on (``launch/dryrun.py``): every
+entry the meta device, the port's counterpart of the JAX package's
+forced host devices.
 """
 from __future__ import annotations
 
@@ -24,13 +27,21 @@ from ..distributed.sharding import FleetMesh
 __all__ = ["make_production_mesh", "make_host_mesh"]
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> FleetMesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> FleetMesh:
     """(16, 16) ("data", "model"), or (2, 16, 16) ("pod", "data",
     "model"), over the first 256 or 512 CUDA cards; raises ValueError,
-    as ``jax.make_mesh`` does, when fewer are present."""
+    as ``jax.make_mesh`` does, when fewer are present.  ``device="meta"``
+    gives the same mesh with the meta device at every entry, which needs
+    no card."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    n, have = math.prod(shape), torch.cuda.device_count()
+    n = math.prod(shape)
+    if device is not None and torch.device(device).type == "meta":
+        devs = np.empty(n, dtype=object)
+        devs[:] = [torch.device("meta")] * n
+        return FleetMesh(devs.reshape(shape), axes)
+    have = torch.cuda.device_count()
     if have < n:
         raise ValueError(f"a {shape} mesh needs {n} devices, "
                          f"{have} CUDA devices present")

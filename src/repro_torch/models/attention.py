@@ -13,6 +13,7 @@ import math
 import torch
 from torch import nn
 
+from ..distributed.sharding import active_mesh, constrain, heads_shardable
 from ..kernels.flash_attention.ops import flash_attention_op
 from .common import dense_init, matmul_f32acc, rope, softcap
 
@@ -73,6 +74,18 @@ def attn_init(m: Attention, cfg, generator) -> Attention:
     return m
 
 
+def _whole_heads(t, hd, name):
+    """A projection (B, S, heads·hd) placed, on a mesh, so that its
+    flattened axis splits into (heads, hd): sharded by the logical
+    ``name`` ("heads", "kv_heads") where the heads divide the "model"
+    axis, else whole (the JAX package's projections are (B, S, heads,
+    hd) from the start)."""
+    if active_mesh() is None:
+        return t
+    n = t.shape[-1] // hd
+    return constrain(t, "batch", None, name if heads_shardable(n) else None)
+
+
 def qkv(m: Attention, x, cfg, positions):
     """q (pre-scaled by hd^-0.5 after rope, in x's dtype), k, v:
     (B, S, heads, hd) each."""
@@ -81,6 +94,8 @@ def qkv(m: Attention, x, cfg, positions):
     q, k, v = x @ m.wq, x @ m.wk, x @ m.wv
     if m.bq is not None:
         q, k, v = q + m.bq, k + m.bk, v + m.bv
+    q, k, v = (_whole_heads(q, hd, "heads"), _whole_heads(k, hd, "kv_heads"),
+               _whole_heads(v, hd, "kv_heads"))
     q = rope(q.view(B, S, -1, hd), positions, cfg.rope_theta)
     k = rope(k.view(B, S, -1, hd), positions, cfg.rope_theta)
     q = q * (hd ** -0.5)
@@ -88,8 +103,26 @@ def qkv(m: Attention, x, cfg, positions):
 
 
 def _out(m: Attention, o):
+    """The output projection, placed as the residual stream (what the JAX
+    package's partitioner gives a row-parallel product's output)."""
     B, S = o.shape[:2]
-    return o.reshape(B, S, -1) @ m.wo
+    return constrain(o.reshape(B, S, -1) @ m.wo, "batch", None, None)
+
+
+def _attn_sharding(q, k, cfg):
+    """q and k placed for attention, and the spec of its output: TP over
+    heads when they divide the mesh's "model" axis, else context
+    parallelism over the query sequence (k whole), so that attention's
+    compute shards "model"-ways either way, as in the JAX package."""
+    if heads_shardable(cfg.n_heads):
+        spec = ("batch", None, "heads", None)
+        kspec = ("batch", None, "kv_heads", None)
+    else:
+        spec = ("batch", "seq_mp", None, None)
+        kspec = ("batch", None, None, None)
+    q = constrain(q, *spec) if q is not None else None
+    k = constrain(k, *kspec) if k is not None else None
+    return q, k, spec
 
 
 def _attend(m: Attention, x, cfg, kind, positions):
@@ -97,10 +130,11 @@ def _attend(m: Attention, x, cfg, kind, positions):
     (global causal), 'local' (sliding window causal) or 'bidir' (no
     mask)."""
     q, k, v = qkv(m, x, cfg, positions)
+    q, k, spec = _attn_sharding(q, k, cfg)
     o = flash_attention_op(q, k, v, causal=kind != "bidir",
                            window=cfg.window if kind == "local" else None,
                            cap=cfg.attn_softcap)
-    return _out(m, o), k, v
+    return _out(m, constrain(o, *spec)), k, v
 
 
 def attention(m: Attention, x, cfg, kind, positions):
@@ -114,6 +148,7 @@ def _cross_q(m: Attention, x, cfg):
     q = x @ m.wq
     if m.bq is not None:
         q = q + m.bq
+    q = _whole_heads(q, cfg.head_dim, "heads")
     return q.view(B, S, -1, cfg.head_dim) * (cfg.head_dim ** -0.5)
 
 
@@ -124,6 +159,7 @@ def cross_kv(m: Attention, enc_out, cfg):
     k, v = enc_out @ m.wk, enc_out @ m.wv
     if m.bk is not None:
         k, v = k + m.bk, v + m.bv
+    k, v = (_whole_heads(t, cfg.head_dim, "kv_heads") for t in (k, v))
     return k.view(B, T, -1, cfg.head_dim), v.view(B, T, -1, cfg.head_dim)
 
 
@@ -134,7 +170,7 @@ def cross_attention(m: Attention, x, cfg, kv):
     k, v = kv
     o = flash_attention_op(_cross_q(m, x, cfg), k, v, causal=False,
                            window=None, cap=cfg.attn_softcap)
-    return _out(m, o)
+    return _out(m, constrain(o, *_attn_sharding(o, None, cfg)[2]))
 
 
 def prefill_attention(m: Attention, x, cfg, kind, positions, max_len,

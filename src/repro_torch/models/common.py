@@ -20,6 +20,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import constrain, logsumexp_last, take_last
+
 __all__ = [
     "trunc_normal",
     "dense_init",
@@ -134,19 +136,24 @@ def cross_entropy(logits, labels, mask=None):
     valid = labels >= 0
     if mask is not None:
         valid = valid & (torch.as_tensor(mask, device=logits.device) > 0)
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    logits = constrain(logits.float(), "batch", None, "vocab")
+    lse = logsumexp_last(logits)
+    gold = constrain(take_last(logits, labels.clamp_min(0)[..., None]),
+                     "batch", None, None)[..., 0]
     nll = (lse - gold) * valid
     return nll.sum() / valid.sum().clamp_min(1)
 
 
 def _chunk_nll(hc, table, lc, final_softcap):
     """Summed NLL and valid count of one chunk: hc (B, c, d), lc (B, c)."""
-    logits = softcap(hc @ table.to(hc.dtype).T, final_softcap).float()
+    logits = softcap(hc @ table.to(hc.dtype).T, final_softcap)
+    logits = constrain(logits.float(), "batch", None, "vocab")
     valid = lc >= 0
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lc.clamp_min(0)[..., None])[..., 0]
+    lse = logsumexp_last(logits)
+    # the gold logit placed as the batch before its last axis goes: over
+    # a vocab-sharded mesh that reduces the masked partial sums
+    gold = constrain(take_last(logits, lc.clamp_min(0)[..., None]),
+                     "batch", None, None)[..., 0]
     return ((lse - gold) * valid).sum(), valid.sum().float()
 
 

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import constrain
 from .common import causal_conv, dense_init
 from .scan_ops import chunked_linear_scan
 
@@ -128,8 +129,9 @@ def mamba_prefill(m: Mamba, x, cfg, cache_dtype=torch.bfloat16, chunk=None):
     sees before the first token)."""
     B, S, _ = x.shape
     xb, z = (x @ m.in_proj).chunk(2, dim=-1)
+    xb = constrain(xb, "batch", None, "ff")
     xc, _ = causal_conv(m, xb)
-    xc = F.silu(xc)
+    xc = constrain(F.silu(xc), "batch", None, "ff")
     dt, Bm, Cm = _split_xdbc(m, xc, cfg)
     A = -torch.exp(m.A_log)
 
@@ -143,7 +145,8 @@ def mamba_prefill(m: Mamba, x, cfg, cache_dtype=torch.bfloat16, chunk=None):
                      device=x.device)
     y, h = chunked_linear_scan({"x": xc, "dt": dt, "B": Bm, "C": Cm}, h0,
                                make_ab, emit, chunk=chunk or cfg.scan_chunk)
-    y = (y * F.silu(z)) @ m.out_proj
+    y = constrain(y * F.silu(z), "batch", None, "ff")
+    y = constrain(y @ m.out_proj, "batch", None, None)
     K = m.conv_w.shape[0]
     tail = xb[:, max(S - (K - 1), 0):]
     tail = F.pad(tail, (0, 0, K - 1 - tail.shape[1], 0))

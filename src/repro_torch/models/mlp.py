@@ -5,6 +5,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import constrain
 from .common import dense_init
 
 __all__ = ["MLP", "mlp_init", "mlp"]
@@ -39,4 +40,7 @@ def _act(x, kind):
 def mlp(m: MLP, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
     g = x @ m.w_gate
     u = x @ m.w_up
-    return (_act(g, kind) * u) @ m.w_down
+    h = constrain(_act(g, kind) * u, "batch", None, "ff")
+    # placed as the residual stream, as the JAX package's partitioner
+    # places a row-parallel product's output
+    return constrain(h @ m.w_down, "batch", None, None)

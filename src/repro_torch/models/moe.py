@@ -25,6 +25,7 @@ import math
 import torch
 from torch import nn
 
+from ..distributed.sharding import constrain
 from .common import dense_init, trunc_normal
 from .mlp import MLP, _act, mlp, mlp_init
 
@@ -92,7 +93,8 @@ def _expert_ffn(m: MoE, h, cfg):
     he = h.movedim(-3, 0).reshape(E, -1, d)
     g = torch.bmm(he, m.expert_gate.to(dt))
     u = torch.bmm(he, m.expert_up.to(dt))
-    o = torch.bmm(_act(g, cfg.mlp) * u, m.expert_down.to(dt))
+    a = constrain(_act(g, cfg.mlp) * u, "expert", None, "ff")
+    o = torch.bmm(a, m.expert_down.to(dt))
     return o.reshape(E, *lead, C, d).movedim(0, -3)
 
 
@@ -135,9 +137,11 @@ def _chunk_fwd(m: MoE, xg, ii, pi, cfg, C):
         dispatch += pair
         combine += pair * pi[:, :, j, None, None]
     dt = xg.dtype
-    dispatch = dispatch.to(dt).reshape(mg, G, E * C)
+    dispatch = constrain(dispatch.to(dt), "batch", None, "expert", None)
+    dispatch = dispatch.reshape(mg, G, E * C)
     combine = combine.to(dt).reshape(mg, G, E * C)
     hc = torch.bmm(dispatch.transpose(1, 2), xg).reshape(mg, E, C, d)
+    hc = constrain(hc, "batch", "expert", None, None)
     out_e = _expert_ffn(m, hc, cfg).reshape(mg, E * C, d)
     return torch.bmm(combine, out_e)
 

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import constrain
 from ..kernels.linear_scan.ops import linear_scan_op
 from .common import causal_conv, dense_init
 
@@ -79,9 +80,10 @@ def gates(m: RGLRU, xc):
 def _scan(m: RGLRU, x):
     """Every h_t (f32) of the recurrence over the sequence, and z and the
     pre-conv xb."""
-    xb = x @ m.in_x
+    xb = constrain(x @ m.in_x, "batch", None, "ff")
     z = x @ m.in_z
     xc, _ = causal_conv(m, xb)
+    xc = constrain(xc, "batch", None, "ff")
     a, bi = gates(m, xc)
     b = (bi * xc.float()).contiguous()
     h = linear_scan_op(a.contiguous(), b)
@@ -100,7 +102,9 @@ def rglru_prefill(m: RGLRU, x, cfg, cache_dtype=torch.bfloat16):
     the window leaves zero rows in front of it: the zeros the cache-free
     forward's causal conv sees before the first token."""
     h, z, xb = _scan(m, x)
-    y = (h.to(x.dtype) * F.gelu(z, approximate="tanh")) @ m.out
+    y = constrain(h.to(x.dtype) * F.gelu(z, approximate="tanh"), "batch",
+                  None, "ff")
+    y = constrain(y @ m.out, "batch", None, None)
     K = m.conv_w.shape[0]
     S = xb.shape[1]
     tail = xb[:, max(S - (K - 1), 0):]

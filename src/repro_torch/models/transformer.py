@@ -22,6 +22,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .._device import resolve_device
+from ..distributed.sharding import batch_like, constrain, sharded_lookup
 from .attention import (Attention, attention, attn_init, cross_attention,
                         cross_decode_attention, cross_kv, decode_attention,
                         init_kv_cache, prefill_attention)
@@ -166,8 +167,10 @@ def _tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=device).long()
 
 
-def _positions(B, S, device):
-    return torch.arange(S, device=device).expand(B, S)
+def _positions(B, S, device, like=None):
+    """(B, S) positions 0 … S − 1; split as ``like``'s rows where that is
+    a ``DTensor``."""
+    return batch_like(torch.arange(S, device=device).expand(B, S), like)
 
 
 def _project(model: Transformer, x):
@@ -184,7 +187,7 @@ def _embed_input(model: Transformer, tokens, patches=None):
     h = embed_tokens(model, _tokens(tokens, model.device))
     if model.cfg.family == "vlm" and patches is not None:
         h = torch.cat([_project(model, patches), h], dim=1)
-    return h, _positions(h.shape[0], h.shape[1], h.device)
+    return h, _positions(h.shape[0], h.shape[1], h.device, h)
 
 
 def _encode(model: Transformer, frames, remat="none"):
@@ -193,8 +196,8 @@ def _encode(model: Transformer, frames, remat="none"):
         raise ValueError(f"{model.cfg.name} is an encoder–decoder: the "
                          f"batch needs 'frames'")
     cfg = model.cfg
-    h = _project(model, frames)
-    positions = _positions(h.shape[0], h.shape[1], h.device)
+    h = constrain(_project(model, frames), "batch", None, None)
+    positions = _positions(h.shape[0], h.shape[1], h.device, h)
     h, _ = _run_layers(model.enc_layers, h, cfg, positions, remat=remat)
     return model.enc_norm(h, cfg.norm_eps)
 
@@ -267,24 +270,29 @@ def block_fwd(blk: Block, h, cfg, positions, enc_kv=None):
     a decoder layer's cross-attention.  Returns (h, aux): a MoE block's
     aux losses (``moe_lb``, ``moe_z``), else {}."""
     hn = blk.norm1(h, cfg.norm_eps)
+    aux = {}
     if blk.kind == "mamba":
-        return h + mamba_apply(blk.mixer, hn, cfg), {}
-    if blk.kind in _SELF_ATTN:
-        y = attention(blk.mixer, hn, cfg, blk.kind, positions)
-        h = _cross(blk, h + _post(blk, "post1", y, cfg), cfg, enc_kv)
+        h = h + mamba_apply(blk.mixer, hn, cfg)
     else:
-        h = h + rglru_apply(blk.mixer, hn, cfg)
-    y, aux = _ffn(blk, h, cfg)
-    return h + _post(blk, "post2", y, cfg), aux
+        if blk.kind in _SELF_ATTN:
+            y = attention(blk.mixer, hn, cfg, blk.kind, positions)
+            h = _cross(blk, h + _post(blk, "post1", y, cfg), cfg, enc_kv)
+        else:
+            h = h + rglru_apply(blk.mixer, hn, cfg)
+        y, aux = _ffn(blk, h, cfg)
+        h = h + _post(blk, "post2", y, cfg)
+    return constrain(h, "batch", None, None), aux
 
 
 def embed_tokens(model: Transformer, tokens):
-    h = model.embed[tokens]
+    table = model.embed
+    h = (sharded_lookup(table, tokens) if hasattr(table, "device_mesh")
+         else table[tokens])
     if model.cfg.embed_scale:
         # √d rounded to the compute dtype before the multiply, as JAX does
         h = h * torch.tensor(math.sqrt(model.cfg.d_model), dtype=h.dtype,
                              device=h.device)
-    return h
+    return constrain(h, "batch", None, None)
 
 
 def _table(model: Transformer):
@@ -292,7 +300,8 @@ def _table(model: Transformer):
 
 
 def logits_of(model: Transformer, h):
-    return softcap(h @ _table(model).T, model.cfg.final_softcap)
+    return constrain(softcap(h @ _table(model).T, model.cfg.final_softcap),
+                     "batch", None, "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +334,7 @@ def model_apply(model: Transformer, batch, return_logits=False):
         labels = torch.cat([torch.full((B, pe.shape[1]), -1,
                                        dtype=labels.dtype, device=dev),
                             labels], dim=1)
-    positions = _positions(B, h.shape[1], dev)
+    positions = _positions(B, h.shape[1], dev, h)
     if cfg.encoder_decoder:
         enc_out = _encode(model, batch.get("frames"), remat=cfg.remat)
         h, aux = _run_layers(model.layers, h, cfg, positions, enc_out,

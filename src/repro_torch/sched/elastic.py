@@ -28,9 +28,8 @@ import time
 import numpy as np
 import torch
 
-from ..convert import jax_leaf_paths
-from ..distributed.sharding import (FleetMesh, NamedSharding, PartitionSpec,
-                                    param_sharding, set_mesh)
+from ..convert import port_param_specs
+from ..distributed.sharding import FleetMesh, NamedSharding, set_mesh
 from ..train import TrainState, checkpoint as ckpt
 from ..train.optim import AdamWState
 
@@ -82,15 +81,12 @@ class ElasticTrainer:
     def _shardings(self, mesh, tree):
         """A ``NamedSharding`` for each leaf of {"params": model, "opt":
         AdamWState}: the spec ``param_sharding`` gives the same leaf of
-        the JAX package's tree (by its path and shape there, through
-        ``convert.jax_leaf_paths``) with the leading axes of a stacked
-        leaf dropped; the moments take their parameter's, the step P()."""
-        paths = jax_leaf_paths(self.cfg, tree["params"])
+        the JAX package's tree, as ``convert.port_param_specs`` carries
+        it over (stacked axes dropped, the attention's (H, hd) merged);
+        the moments take their parameter's, the step P()."""
         with mesh:
-            specs = {}
-            for name, (path, shape, stacked) in paths.items():
-                spec = param_sharding(path, shape) or PartitionSpec()
-                specs[name] = NamedSharding(mesh, spec[stacked:])
+            specs = {name: NamedSharding(mesh, spec) for name, spec in
+                     port_param_specs(self.cfg, tree["params"]).items()}
         opt = tree["opt"]
         return {"params": specs,
                 "opt": AdamWState(step=NamedSharding(mesh),

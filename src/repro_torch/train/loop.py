@@ -17,12 +17,14 @@ K5 and its backward K5's backward kernel
 """
 from __future__ import annotations
 
+import copy as copy_module
 import time
 from typing import Callable
 
 import torch
 
-from ..models.transformer import Transformer, model_apply
+from ..distributed.sharding import constrain
+from ..models.transformer import model_apply
 from .optim import AdamWConfig, AdamWState, adamw_init, adamw_update
 
 __all__ = ["make_train_step", "train_loop", "TrainState", "loss_and_grads",
@@ -32,36 +34,42 @@ __all__ = ["make_train_step", "train_loop", "TrainState", "loss_and_grads",
 def cast_copy(model):
     """A trainable model of ``model.cfg`` whose every f32 parameter is
     ``model``'s cast to the compute dtype (other dtypes kept), or
-    ``model`` itself when the compute dtype is f32."""
+    ``model`` itself when the compute dtype is f32: a copy of the module
+    tree around the cast parameters, which allocates nothing else (a
+    ``DTensor`` master gives a cast ``DTensor`` of its placements)."""
     cfg = model.cfg
     if cfg.dtype == "float32":
         return model
     cast = cfg.compute_dtype
-    copy = Transformer(cfg, device="meta", dtype=cast,
-                       trainable=True).to_empty(device=model.device)
-    masters = dict(model.named_parameters())
     with torch.no_grad():
-        for name, p in copy.named_parameters():
-            src = masters[name]
-            if src.dtype == torch.float32 and p.dtype != cast:
-                p.data = torch.empty_like(p, dtype=cast)
-            elif src.dtype != torch.float32:
-                p.data = torch.empty_like(p, dtype=src.dtype)
-            p.copy_(src)
-    return copy
+        memo = {id(p): torch.nn.Parameter(p.detach().to(
+            cast if p.dtype == torch.float32 else p.dtype, copy=True))
+            for p in model.parameters()}
+    return copy_module.deepcopy(model, memo)
 
 
 def loss_and_grads(model, batch):
     """(total, metrics, gradients) of ``model_apply`` on ``batch`` run on
     ``cast_copy(model)``; the gradients are f32, keyed by parameter name
-    (zeros for a parameter the loss does not reach)."""
+    (zeros for a parameter the loss does not reach).  A ``DTensor``
+    parameter's gradient is reduced to the parameter's placement once
+    here, as the JAX package's partitioner gives a gradient its
+    parameter's sharding."""
     run = cast_copy(model)
     params = dict(run.named_parameters())
     total, metrics = model_apply(run, batch)
     gs = torch.autograd.grad(total, list(params.values()), allow_unused=True)
     grads = {n: torch.zeros_like(p, dtype=torch.float32) if g is None
-             else g.float() for (n, p), g in zip(params.items(), gs)}
+             else _placed_as(g, p).float()
+             for (n, p), g in zip(params.items(), gs)}
     return total.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def _placed_as(g, p):
+    """``g`` in ``p``'s placement where both are DTensors, else ``g``."""
+    if hasattr(g, "device_mesh") and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _slice(batch, i, n):
@@ -96,6 +104,8 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, microbatches: int = 1,
         if model.cfg != cfg:
             raise ValueError("the model's config is not the step's")
         params = dict(model.named_parameters())
+        batch = {k: constrain(x, "batch", None, None)
+                 for k, x in batch.items()}
         loss = torch.zeros((), dtype=torch.float32, device=model.device)
         grads = None
         for i in range(microbatches):

@@ -44,7 +44,7 @@ class AdamWState(NamedTuple):
 def adamw_init(params: dict) -> AdamWState:
     """Step 0 and zero f32 moments beside each parameter."""
     dev = next(iter(params.values())).device
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {k: torch.zeros_like(p, dtype=torch.float32)
              for k, p in params.items()}
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=zeros,
